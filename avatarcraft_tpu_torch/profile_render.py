@@ -1,0 +1,93 @@
+"""Where a frame's time goes: the bench's render of the baked artifact
+(256x256, derived budget, one shard per card) under torch.profiler.
+
+    python -m avatarcraft_tpu_torch.profile_render
+
+After two warm-up frames it profiles ``N_FRAMES`` frames and prints one
+JSON line: wall ms per frame, device busy ms per frame (the sum of the CUDA
+kernels' and copies' durations) and the idle share, the device ms per frame
+of each ``render.*`` profiler range (the stage a future kernel takes over),
+and the kernels that take most device time. Needs a CUDA card.
+
+The gather kernel is launched through ctypes, so the profiler does not
+attribute it to the ``render.gather`` range; its own device time (the
+events named ``gather_rows_kernel``) is added to that stage.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from avatarcraft_tpu_torch import bench
+from avatarcraft_tpu_torch.cameras import pose2rays
+from avatarcraft_tpu_torch.utils.device import card_line
+from avatarcraft_tpu_torch.workloads.canonical_render import make_fast_frame_renderer
+
+N_FRAMES = 4  # profiled frames, after two warm-up frames
+GATHER_KERNEL = "gather_rows_kernel"
+
+
+def main() -> dict:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_render measures a CUDA card; none is available")
+    params, fcfg, grid, cfg = bench.load_artifact("cuda")
+    rays = [pose2rays(bench.RES, bench.RES, p, device="cuda") for p in bench.bench_poses()]
+    _, budget = bench.derive_budget(rays, cfg, grid)
+    cfg = dataclasses.replace(cfg, sample_budget=budget)
+    render = make_fast_frame_renderer(params, fcfg, cfg, grid, chunk=bench.RES * bench.RES)
+    for ro, rd in rays[:2]:
+        render(ro, rd)
+    torch.cuda.synchronize()
+
+    frames = rays[2 : 2 + N_FRAMES]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for ro, rd in frames:
+            render(ro, rd)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = len(frames)
+
+    # kernels and copies on the card; the ranges' own GPU-side annotations
+    # carry the range names and would count twice
+    device_events = [
+        e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.name.startswith("render.")
+    ]
+    busy_us = sum(e.time_range.elapsed_us() for e in device_events)
+    stages = {}
+    for e in prof.key_averages():
+        if e.key.startswith("render.") and e.device_type == DeviceType.CPU:
+            stages[e.key] = e.device_time_total / 1e3 / n
+    gather_us = sum(e.time_range.elapsed_us() for e in device_events if GATHER_KERNEL in e.name)
+    stages["render.gather"] = stages.get("render.gather", 0.0) + gather_us / 1e3 / n
+    kernels = sorted(
+        (
+            (e.key, e.device_time_total / 1e3 / n, e.count // n)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.key.startswith("render.")
+        ),
+        key=lambda kv: -kv[1],
+    )[:15]
+    result = {
+        "device": torch.cuda.get_device_name(0),
+        "card": card_line(),
+        "frames": n,
+        "sample_budget": budget,
+        "wall_ms_per_frame": wall * 1e3 / n,
+        "device_busy_ms_per_frame": busy_us / 1e3 / n,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "stage_device_ms_per_frame": stages,
+        "top_kernels": [{"name": k[:80], "ms_per_frame": ms, "calls_per_frame": c} for k, ms, c in kernels],
+    }
+    print(json.dumps(result))
+    return result
+
+
+if __name__ == "__main__":
+    main()
