@@ -26,7 +26,6 @@ import torch
 from avatarcraft_tpu_torch.cameras import pose2rays, pose_spherical
 from avatarcraft_tpu_torch.constants import CANONICAL_CAMERA_DIST_VAL, NSR_BOUND
 from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig, count_fast_samples
-from avatarcraft_tpu_torch.parallel.table_mp import default_shard_count
 from avatarcraft_tpu_torch.utils.checkpoint import artifact_normal_mode, load_params_with_config
 from avatarcraft_tpu_torch.utils.device import card_line
 from avatarcraft_tpu_torch.workloads.canonical_render import make_fast_frame_renderer
@@ -102,7 +101,7 @@ def run(device="cuda") -> dict:
         "sample_budget": budget,
         "worst_probe_count": worst,
         "normal_mode": cfg.normal_mode,
-        "n_shards": default_shard_count(device),
+        "n_shards": 1,
         "frames": [f.reshape(RES, RES, 3).cpu() for f in frames],
     }
 

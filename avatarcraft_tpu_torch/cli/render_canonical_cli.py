@@ -6,6 +6,8 @@ render_canonical.py:37-137).
         --weights_path artifacts/canonical/bare_smpl_tpu.pth.tar \
         --grid_path artifacts/canonical/grid.npy --sampler fast
 
+Without ``--grid_path`` the density grid is refreshed from the field's SDF.
+
 Writes one PNG per frame under ``<out_dir>/canonical_360/<exp_name>/``.
 Flag names follow the reference; ``--use_cuda false`` renders on the CPU.
 """
@@ -21,9 +23,11 @@ import torch
 from avatarcraft_tpu_torch.cameras import default_360_path, pose2rays
 from avatarcraft_tpu_torch.constants import CAN_HEAD_CAMERA_DIST, CAN_HEAD_OFFSET, NSR_BOUND
 from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig
+from avatarcraft_tpu_torch.ops.occupancy import init_density_grid
 from avatarcraft_tpu_torch.utils.checkpoint import artifact_normal_mode, load_params_with_config
 from avatarcraft_tpu_torch.utils.png import integerify_img, write_png
 from avatarcraft_tpu_torch.workloads.canonical_render import make_fast_frame_renderer
+from avatarcraft_tpu_torch.workloads.reconstruct import make_grid_update_fn
 
 # the reference overrides the module constant for its video
 # (render_canonical.py:34)
@@ -49,8 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--sampler", default="fast", choices=["parity", "fast"],
                         help="fast = occupancy-guided K-sample rendering (the "
                              "only sampler ported so far)")
-    parser.add_argument("--grid_path", required=True, type=str,
-                        help="density grid .npy (from reconstruct)")
+    parser.add_argument("--grid_path", default=None, type=str,
+                        help="density grid .npy (from reconstruct); omit = "
+                             "refresh a 129^3 grid from the SDF")
     parser.add_argument("--normal_mode", default=None, choices=["fd7", "fd4", "analytic"],
                         help="normal estimator (default: the artifact's "
                              "PROVENANCE.json, else fd4); only fd4 is ported")
@@ -80,7 +85,11 @@ def main(argv=None):
     params, fcfg = load_params_with_config(opt.weights_path, device)
     normal_mode = opt.normal_mode or artifact_normal_mode(opt.weights_path) or "fd4"
     print(f"[render] field: encoder={fcfg.encoder} normal_mode={normal_mode} device={device}")
-    grid = torch.as_tensor(np.load(opt.grid_path), dtype=torch.float32).to(device)
+    if opt.grid_path:
+        grid = torch.as_tensor(np.load(opt.grid_path), dtype=torch.float32).to(device)
+    else:
+        print("[render] refreshing the density grid from the SDF ...")
+        grid = make_grid_update_fn(fcfg, NSR_BOUND)(params, init_density_grid(129, device))
     cfg = FastRenderConfig(n_probes=192, k_samples=32, bound=NSR_BOUND, normal_mode=normal_mode)
     render = make_fast_frame_renderer(
         params, fcfg, cfg, grid, chunk=opt.batch_size * 4,

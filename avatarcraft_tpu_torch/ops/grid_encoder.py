@@ -1,5 +1,7 @@
-"""Multiscale spatial encoder: dense grid pyramid + triplanes, forward only.
-Port of the JAX package's ops/grid_encoder.py:39-192.
+"""Multiscale spatial encoder: dense grid pyramid + triplanes. Port of the
+JAX package's ops/grid_encoder.py:39-192. Autograd runs through it: the
+backward of a row lookup is PyTorch's index_add into the packed table, and
+the packing's backward adds each corner's gradient back into the tables.
 
 Each (point, level) reads one cell-packed row holding the features of the
 cell's corners (8 for a grid cell, 4 for a plane cell) and interpolates.
@@ -48,6 +50,20 @@ class PyramidSpec:
         )
 
 
+def init_pyramid_params(generator: torch.Generator, spec: PyramidSpec) -> dict:
+    """U(-1e-4, 1e-4) tables (the NGP tables' scale), drawn from
+    ``generator`` on its device: grids [R,R,R,C], planes [3,R,R,C]."""
+
+    def uniform(shape):
+        u = torch.rand(shape, generator=generator, device=generator.device)
+        return u * 2e-4 - 1e-4
+
+    return {
+        "grids": [uniform((r, r, r, spec.grid_dim)) for r in spec.grid_resolutions],
+        "planes": [uniform((3, r, r, spec.plane_dim)) for r in spec.plane_resolutions],
+    }
+
+
 def pack_grid(grid: torch.Tensor) -> torch.Tensor:
     """[R,R,R,C] -> [(R-1)^3, 8C]; row = the cell's 8 corners in corner-bit
     order (bit0=x, bit1=y, bit2=z)."""
@@ -70,17 +86,25 @@ def pack_plane(plane: torch.Tensor) -> torch.Tensor:
 
 
 def materialize_packed(params: dict, spec: PyramidSpec, dtype=None) -> dict:
-    """Cell-packed lookup tables, built once per frame and reused for every
-    point batch. With ``dtype``, the tables are cast before packing, which
-    gives the same values as packing then casting (packing only copies)."""
+    """Cell-packed lookup tables, built once per frame or train step and
+    reused for every point batch, cast to ``dtype`` when given.
 
-    def cast(t):
-        return t if dtype is None else t.to(dtype)
+    Packing only copies, so casting before or after packing gives the same
+    values. Without autograd the tables are cast first (fewer bytes to
+    pack). With autograd they are packed in f32 and then cast, as the JAX
+    package does, so that the packing's backward adds the corners'
+    gradients in f32 as JAX's does."""
+    grad = torch.is_grad_enabled()
+
+    def pack(fn, t):
+        if dtype is None:
+            return fn(t)
+        return fn(t).to(dtype) if grad else fn(t.to(dtype))
 
     return {
-        "grids": [pack_grid(cast(g)) for g in params["grids"]],
+        "grids": [pack(pack_grid, g) for g in params["grids"]],
         "planes": [
-            torch.stack([pack_plane(cast(p[i])) for i in range(3)]) for p in params["planes"]
+            torch.stack([pack(pack_plane, p[i]) for i in range(3)]) for p in params["planes"]
         ],
     }
 

@@ -1,9 +1,11 @@
-"""Bit-packed occupancy probes, evenly spread sample selection and global
-compaction: port of the JAX package's ops/occupancy.py:206-319.
+"""The density grid: its refresh from the SDF, bit-packed occupancy
+probes, evenly spread sample selection and global compaction. Port of the
+JAX package's ops/occupancy.py:23-72,192 and :206-319.
 
-These are the plain versions of the port's future kernels K1 (probe +
-select) and K2 (compaction), ROADMAP queue 2. Every function here is
-bit-exact against the JAX package (tests/test_torch_occupancy.py).
+The probe, selection and compaction functions are the plain versions of the
+port's future kernels K1 (probe + select) and K2 (compaction), ROADMAP
+queue 2, and bit-exact against the JAX package
+(tests/test_torch_occupancy.py). The refresh is K7's plain version.
 
 The packed table is int32 (torch has no shift/and on uint32); the bit
 pattern equals the JAX package's uint32 table word for word.
@@ -13,7 +15,50 @@ from __future__ import annotations
 
 import torch
 
-from avatarcraft_tpu_torch.ops.sampling import recip
+from avatarcraft_tpu_torch.ops.sampling import linspace, recip
+
+
+# the refresh's density sharpness and EMA-max decay (reference:
+# models/instant_nsr.py:303-356)
+INV_S = 512.0
+DECAY = 0.95
+
+
+def density_from_sdf(sdf: torch.Tensor) -> torch.Tensor:
+    """The logistic density of NeuS, INV_S * sigmoid(-INV_S * sdf)
+    (reference: models/instant_nsr.py:332-338)."""
+    return INV_S * torch.sigmoid(-INV_S * sdf)
+
+
+def init_density_grid(resolution: int = 129, device=None) -> torch.Tensor:
+    """Zeros [R,R,R] (reference: models/instant_nsr.py:102)."""
+    return torch.zeros((resolution,) * 3, dtype=torch.float32, device=device)
+
+
+@torch.no_grad()
+def update_density_grid(sdf_fn, grid: torch.Tensor, bound: float, *, block: int) -> torch.Tensor:
+    """Refresh a [R,R,R] density grid from the SDF and EMA-max it with the
+    old one: the density of every lattice point (``sdf_fn``: [N,3] -> [N],
+    evaluated in x-slabs of ``block`` planes), a 2x max-pool with edge
+    padding, then max(grid * DECAY, pooled) (reference:
+    models/instant_nsr.py:303-356)."""
+    R = grid.shape[0]
+    if R % block:
+        raise ValueError(f"slab height {block} does not divide the resolution {R}")
+    xs = linspace(-bound, bound, R, grid.device)
+    gy, gz = torch.meshgrid(xs, xs, indexing="ij")
+    new = torch.empty_like(grid)
+    for x0 in range(0, R, block):
+        gx = xs[x0 : x0 + block][:, None, None].expand(block, R, R)
+        pts = torch.stack([gx, gy.expand(block, R, R), gz.expand(block, R, R)], dim=-1)
+        new[x0 : x0 + block] = density_from_sdf(sdf_fn(pts.reshape(-1, 3))).reshape(block, R, R)
+    p = torch.cat([new, new[-1:]], dim=0)  # edge padding by one cell per axis
+    p = torch.cat([p, p[:, -1:]], dim=1)
+    p = torch.cat([p, p[:, :, -1:]], dim=2)
+    pooled = torch.stack([
+        p[dx : dx + R, dy : dy + R, dz : dz + R] for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)
+    ]).amax(dim=0)
+    return torch.maximum(grid * DECAY, pooled)
 
 
 def pack_occupancy_bits(grid: torch.Tensor, threshold) -> torch.Tensor:

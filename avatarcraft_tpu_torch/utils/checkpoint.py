@@ -27,12 +27,21 @@ from avatarcraft_tpu_torch.models.instant_nsr import FieldConfig, HashGridSpec
 from avatarcraft_tpu_torch.ops.grid_encoder import PyramidSpec
 
 
-def _map_leaves(tree, fn):
+def map_leaves(tree, fn):
+    """The same tree with ``fn`` applied to every leaf (None stays None)."""
     if isinstance(tree, dict):
-        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+        return {k: map_leaves(v, fn) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_map_leaves(v, fn) for v in tree]
-    return fn(tree)
+        return [map_leaves(v, fn) for v in tree]
+    return None if tree is None else fn(tree)
+
+
+def leaves(tree) -> list:
+    """The leaves of a tree in its order (dict keys as written), None
+    skipped."""
+    out = []
+    map_leaves(tree, out.append)
+    return out
 
 
 def params_from_torch_state_dict(state: dict, device="cuda") -> dict:
@@ -95,9 +104,32 @@ def params_from_jax(tree, device="cuda") -> dict:
     """Carry a JAX package parameter tree, with its leaves already converted
     to numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``), across
     to the port: the same tree with float32 tensors on ``device``."""
-    return _map_leaves(
+    return map_leaves(
         tree, lambda a: torch.from_numpy(np.array(a, np.float32)).to(device)
     )
+
+
+def adam_state_from_optax(optimizer: torch.optim.Optimizer, params, mu, nu, count: int, scheduler=None) -> None:
+    """Carry an optax Adam state across into ``optimizer`` (a
+    ``torch.optim.Adam`` over the tensors of ``params``): ``mu`` and ``nu``
+    are optax's first and second moments as trees of numpy arrays with the
+    layout of ``params`` (``jax.tree_util.tree_map(np.asarray, state.mu)``),
+    ``count`` its step count. A ``LambdaLR`` ``scheduler`` of the optimizer
+    is moved to the same step, so the next update uses lr(count) as optax's
+    schedule does."""
+    tensors, mus, nus = leaves(params), leaves(mu), leaves(nu)
+    if not len(tensors) == len(mus) == len(nus):
+        raise ValueError(f"trees differ: {len(tensors)} tensors, {len(mus)} mu, {len(nus)} nu leaves")
+    for p, m, v in zip(tensors, mus, nus):
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": torch.as_tensor(np.array(m, np.float32), device=p.device).reshape(p.shape),
+            "exp_avg_sq": torch.as_tensor(np.array(v, np.float32), device=p.device).reshape(p.shape),
+        }
+    if scheduler is not None:
+        scheduler.last_epoch = count
+        for group, base, fn in zip(optimizer.param_groups, scheduler.base_lrs, scheduler.lr_lambdas):
+            group["lr"] = base * fn(count)
 
 
 def load_torch_checkpoint(path: str, device="cuda") -> dict:

@@ -30,13 +30,13 @@ def make_fast_frame_renderer(
     *,
     chunk: int,
     bg_color: float = 1.0,
-    n_shards: int | None = None,
+    n_shards: int = 1,
 ):
     """render(rays_o [N,3], rays_d [N,3]) -> {"rgb": [N,3], "depth": [N]}.
 
     ``params`` and ``density_grid`` live on the device the renderer runs on;
     the finest grid is split into ``n_shards`` row shards there (default:
-    one per card, one on the CPU). ``cfg.sample_budget`` applies to each
+    one, for the one card in use). ``cfg.sample_budget`` applies to each
     chunk.
     """
     params_rest, shards, splice = shard_grid_rows(params, n_shards)

@@ -10,17 +10,40 @@ Phases, each printed with its start, end and wall seconds:
 2. build   -- nvcc builds every kernel of csrc/ into avatarcraft_tpu_torch/_build;
 3. kernel  -- all_gather_rows against its plain version (torch.cat) for
               1/2/4/8 shards of the 128^3 x 4 grid table in f32 and fp16 and
-              two ragged cases: bitwise equal; times kernel, plain version
-              and library call with CUDA events (``kernel_ms``: the kernel
-              alone, printed again as ``ms`` in the kernels line;
-              ``wrapper_ms``: with the wrapper's allocation and pointer copy);
+              two ragged cases, and reduce_scatter_rows against its plain
+              version for m = 1/2/4 replicas x n = 1/2/4/8 shards of that
+              table in f32 and two ragged cases: bitwise equal; times each
+              kernel, its wrapper, plain version and library call with CUDA
+              events (``kernel_ms``: the kernel alone, printed again as
+              ``ms`` in the kernels line; ``wrapper_ms``: with the
+              wrapper's allocation and pointer copy);
 4. main    -- the port's bench (avatarcraft_tpu_torch.bench.run): the baked
               artifact rendered at 256x256 from the 16 bench cameras with a
               derived, zero-clip sample budget; every frame finite; the
               gather kernel launched; then one frame with the table split 4
               ways, bitwise equal to the 1-shard frame;
-5. cpu     -- one 32x32 frame on the card and on the CPU (plain path),
-              equal within 2e-3.
+5. train   -- the fast trainer (workloads.reconstruct.train_fast) for 40
+              steps from init_field_params at the artifact's full width on 8
+              bench views at 128x128 rendered from the artifact: warmup, the
+              refresh from zeros at step 20 and one EMA refresh at step 40;
+              every loss finite, the loss of steps 15-19 below that of steps
+              0-4 (the warmup), the refreshed 129^3 grid finite and below
+              the saturated 100; both table kernels launched;
+6. tablemp -- the table-parallel step (parallel.table_mp) from the
+              artifact's parameters, 64+64 samples with fd7 normals, 1024 rays
+              of bench camera 0 against the fast renderer's frame, SGD: 1
+              shard three times and 4 shards once; the 1- and 4-shard losses
+              bitwise equal, the 4-shard table gradient within twice the
+              largest difference between two 1-shard runs (the encoder's
+              backward adds with atomics); both table kernels launched;
+7. cpu     -- one 32x32 frame on the card and on the CPU (plain path),
+              equal within 2e-3; the grid refresh (make_grid_update_fn) of
+              the artifact's field with f32 tables, from zeros and as an EMA
+              of the artifact's grid, on the card and on the CPU: within
+              512^2/4 x 1e-6, each with an occupied share in [1e-3, 0.5];
+              one fast train step from the artifact on 32x32 rays on the
+              card and on the CPU: losses within 1e-4 relative, every MLP
+              and variance gradient within 1e-2 x its max|g|.
 
 Before the last line it prints one JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -39,25 +62,45 @@ import numpy as np
 import torch
 
 import avatarcraft_tpu_torch
-from avatarcraft_tpu_torch import bench
+from avatarcraft_tpu_torch import bench, profile_train
 from avatarcraft_tpu_torch.cameras import pose2rays
-from avatarcraft_tpu_torch.models.instant_nsr import count_fast_samples
+from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig, RenderConfig, count_fast_samples
 from avatarcraft_tpu_torch.parallel import ring
+from avatarcraft_tpu_torch.parallel.table_mp import TableMPTrainStep, trainable_shards
+from avatarcraft_tpu_torch.utils.checkpoint import leaves
 from avatarcraft_tpu_torch.utils import cuda_build
 from avatarcraft_tpu_torch.utils.device import card_line
+from avatarcraft_tpu_torch.workloads import reconstruct
 from avatarcraft_tpu_torch.workloads.canonical_render import make_fast_frame_renderer
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 CARD_VS_CPU_ATOL = 2e-3  # the pin tests/test_styled_warp.py:112 holds JAX to
+# a train step, card against CPU: the losses (f32 sums in other orders) and
+# the MLP and variance gradients, per leaf against its max|g|: the packed
+# tables are bf16, and where the card's f32 corner sums round a feature to
+# the other bf16 neighbour (2^-8 relative) the gradients see it
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_REL = 1e-2
+# the grid refresh, card against CPU, f32 tables: the density 512
+# sigmoid(-512 sdf) turns an SDF difference of 1e-6 (f32 sums in another
+# order) into up to 512^2/4 x 1e-6 at the surface, the bound
+# tests/test_torch_train.py holds the port's refresh to JAX's
+REFRESH_ATOL = 512.0**2 / 4 * 1e-6
+# a refreshed grid of a field with a surface: neither empty nor saturated
+MIN_OCCUPIED_SHARE, MAX_OCCUPIED_SHARE = 1e-3, 0.5
 GRID_ROWS, GRID_COLS = 128**3, 4  # the artifact's finest grid as a table
-KERNELS = [
-    {
-        "name": "all_gather_rows",
+KERNELS = {
+    ring.KERNEL: {
         "route": "cuda",
         "source": "avatarcraft_tpu_torch/csrc/all_gather_rows.cu",
         "replaces": "avatarcraft_tpu/parallel/ring.py:27",
-    }
-]
+    },
+    ring.RS_KERNEL: {
+        "route": "cuda",
+        "source": "avatarcraft_tpu_torch/csrc/reduce_scatter_rows.cu",
+        "replaces": "avatarcraft_tpu/parallel/ring.py:27 (its VJP, ring.py:168-169)",
+    },
+}
 
 
 class Phase:
@@ -101,7 +144,7 @@ def check_device() -> dict:
 
 
 def build_kernels() -> None:
-    seconds = cuda_build.build([ring.KERNEL])
+    seconds = cuda_build.build(list(KERNELS))
     for name, s in seconds.items():
         print(f"built {name} in {s:.2f} s -> {cuda_build.library_path(name)}", flush=True)
 
@@ -111,7 +154,7 @@ def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.view(int_of), b.view(int_of))
 
 
-def check_kernel() -> dict:
+def check_gather_kernel() -> dict:
     """all_gather_rows vs torch.cat, bitwise; timings at the main path's
     shape (one shard per card: the whole table in one shard)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -143,7 +186,7 @@ def check_kernel() -> dict:
             torch.randn(GRID_ROWS // n, GRID_COLS, generator=gen, device="cuda") for _ in range(n)
         ]
         nbytes = 2 * GRID_ROWS * GRID_COLS * 4  # read every shard once, write the table once
-        ptrs = ring.shard_pointer_array(shards)
+        ptrs = ring.pointer_array(shards)
         out = torch.empty(GRID_ROWS, GRID_COLS, device="cuda")
         t = {
             "kernel_ms": cuda_ms(lambda: ring.launch(ptrs, out, GRID_ROWS // n, GRID_COLS * 4, n)),
@@ -157,10 +200,70 @@ def check_kernel() -> dict:
     return {"max_abs_err": max_err, **timings[1]}
 
 
+def check_reduce_scatter_kernel() -> dict:
+    """reduce_scatter_rows vs its plain version, bitwise, for m replicas x
+    n shards of the 128^3 x 4 table and two ragged cases; timings at the
+    training path's shape (one replica, one shard per card)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    max_err, n_cases = 0.0, 0
+
+    def check(cts, n, what):
+        nonlocal max_err, n_cases
+        got = ring.reduce_scatter_rows(cts, n)
+        want = ring.reduce_scatter_rows_plain(cts, n)
+        torch.cuda.synchronize()
+        if len(got) != n or not all(_same_bits(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"reduce_scatter_rows != its plain version for {what}")
+        max_err = max(max_err, max(float((g - w).abs().max()) for g, w in zip(got, want)))
+        n_cases += 1
+
+    for m in (1, 2, 4):
+        cts = [torch.randn(GRID_ROWS, GRID_COLS, generator=gen, device="cuda") for _ in range(m)]
+        for n in (1, 2, 4, 8):
+            check(cts, n, f"m={m} n={n} [{GRID_ROWS},{GRID_COLS}]")
+    # 3-float rows, shards of 3003 floats: the scalar path
+    check([torch.randn(3 * 1001, 3, generator=gen, device="cuda") for _ in range(2)], 3, "m=2 n=3 [3003,3]")
+    # a table that starts 4 bytes past a 16-byte boundary
+    base = torch.randn(2, 4 * 64 * 4 + 1, generator=gen, device="cuda")
+    check([b[1:].view(4 * 64, 4) for b in base], 4, "m=2 n=4, misaligned")
+    print(f"reduce_scatter_rows bitwise equal to its plain version in {n_cases} cases", flush=True)
+
+    timings = {}
+    for m, n in ((1, 1), (1, 4), (4, 1)):
+        cts = [torch.randn(GRID_ROWS, GRID_COLS, generator=gen, device="cuda") for _ in range(m)]
+        outs = [torch.empty(GRID_ROWS // n, GRID_COLS, device="cuda") for _ in range(n)]
+        ptrs = ring.pointer_array(cts + outs)
+        nbytes = (m + 1) * GRID_ROWS * GRID_COLS * 4  # read m tables, write one table's worth
+        t = {
+            "kernel_ms": cuda_ms(lambda: ring.launch_reduce_scatter(ptrs, GRID_ROWS // n, GRID_COLS, m, n)),
+            "wrapper_ms": cuda_ms(lambda: ring.reduce_scatter_rows(cts, n)),
+            "plain_ms": cuda_ms(lambda: ring.reduce_scatter_rows_plain(cts, n)),
+            "library_ms": cuda_ms(lambda: [c.contiguous() for c in torch.stack(cts).sum(0).chunk(n)]),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        }
+        print(f"reduce_scatter_rows m={m} n={n} [{GRID_ROWS},{GRID_COLS}] f32: " + json.dumps(t), flush=True)
+        timings[(m, n)] = t
+    return {"max_abs_err": max_err, **timings[(1, 1)]}
+
+
+def _reset_launches() -> None:
+    for name in ring.launches:
+        ring.launches[name] = 0
+
+
+def _read_launches(path: str, names) -> dict:
+    counts = dict(ring.launches)
+    print(f"{path}: kernel launches {json.dumps(counts)}", flush=True)
+    for name in names:
+        if counts[name] <= 0:
+            raise AssertionError(f"the {path} path never launched {name}")
+    return counts
+
+
 def check_main_path() -> dict:
-    ring.launches = 0
+    _reset_launches()
     result = bench.run("cuda")
-    launches = ring.launches
+    launches = _read_launches("render", [ring.KERNEL])
     frames = result.pop("frames")
     for i, f in enumerate(frames):
         if f.shape != (bench.RES, bench.RES, 3) or not torch.isfinite(f).all():
@@ -168,9 +271,7 @@ def check_main_path() -> dict:
     if not (frames[0] < 0.99).any():
         raise AssertionError("frame 0 is empty: the body was not rendered")
     print("bench: " + json.dumps(result), flush=True)
-    print(f"main path: {result['value']:.1f} rays/s, all_gather_rows launches {launches}", flush=True)
-    if launches <= 0:
-        raise AssertionError("the main path never launched all_gather_rows")
+    print(f"main path: {result['value']:.1f} rays/s", flush=True)
 
     params, fcfg, grid, cfg = bench.load_artifact("cuda")
     cfg = dataclasses.replace(cfg, sample_budget=result["sample_budget"])
@@ -181,7 +282,81 @@ def check_main_path() -> dict:
         diff = float((frame4 - frames[0]).abs().max())
         raise AssertionError(f"4-shard frame differs from the 1-shard frame (max {diff})")
     print("4-shard frame bitwise equal to the 1-shard frame", flush=True)
-    return {"launches": launches}
+    return launches
+
+
+def check_train_fast() -> dict:
+    ds, fcfg, normal_mode = profile_train.artifact_image_set("cuda")
+    fast_cfg = FastRenderConfig(normal_mode=normal_mode)
+    _reset_launches()
+    _, grid, stats = reconstruct.train_fast(
+        ds, fcfg, fast_cfg, reconstruct.ReconstructConfig(), max_steps=40,
+        grid_update_every=20, grid_warmup_steps=20, log_every=1, device="cuda",
+    )
+    torch.cuda.synchronize()
+    launches = _read_launches("train_fast", [ring.KERNEL, ring.RS_KERNEL])
+    losses = [l for _, l in stats["losses"]]
+    print("train_fast: " + json.dumps({k: v for k, v in stats.items() if k != "losses"}), flush=True)
+    print("train_fast losses: " + json.dumps([round(l, 6) for l in losses]), flush=True)
+    if len(losses) != 40 or not np.isfinite(losses).all():
+        raise AssertionError(f"train_fast: {len(losses)} losses, finite: {np.isfinite(losses).all()}")
+    # the loss falls over the warmup on the saturated grid (steps 0-4 ->
+    # 15-19). init_field_params' SDF is positive everywhere (zero biases, a
+    # positive last layer over softplus), and at step 20 the young field has
+    # no surface yet: the refresh from zeros leaves a near-empty grid and the
+    # loss rises after it, in the JAX package's trainer as in the port
+    # (tests/test_torch_train.py::test_train_fast_refresh_schedule_matches_jax).
+    # So steps 20-39 are read, not compared with steps 0-4; the refresh itself
+    # is held to the CPU on the artifact's field in the cpu phase.
+    first, warm, last = (float(np.mean(losses[i : i + 5])) for i in (0, 15, 35))
+    if not warm < first:
+        raise AssertionError(f"train_fast: the loss did not fall over the warmup ({first} -> {warm})")
+    if tuple(grid.shape) != (129, 129, 129) or not torch.isfinite(grid).all() or float(grid.max()) >= 100.0:
+        raise AssertionError(f"train_fast: grid of shape {tuple(grid.shape)}, finite "
+                             f"{bool(torch.isfinite(grid).all())}, max {float(grid.max())} (not refreshed)")
+    print(f"train_fast: mean loss of steps 0-4 {first:.6f}, 15-19 {warm:.6f}, 35-39 {last:.6f}; "
+          f"refreshed grid max {float(grid.max()):.4g}, occupied share "
+          f"{float((grid > min(10.0, float(grid.mean()))).float().mean()):.4f}", flush=True)
+    return {**launches, "stats": stats}
+
+
+def _table_grad(step) -> torch.Tensor:
+    return torch.cat([s.grad for s in step.shards])
+
+
+def check_table_mp() -> dict:
+    """1 shard three times, 4 shards once: the losses bitwise equal; the
+    4-shard table gradient within twice the largest difference between two
+    of the 1-shard runs (the encoder's backward adds with atomics, so no
+    two runs add in one order)."""
+    params, fcfg, grid, fast_cfg = bench.load_artifact("cuda")
+    ro, rd = pose2rays(32, 32, bench.bench_poses()[0], device="cuda")
+    render = make_fast_frame_renderer(params, fcfg, fast_cfg, grid, chunk=32 * 32)
+    gt = render(ro, rd)["rgb"]
+    rcfg = RenderConfig(perturb=False)
+    sgd = lambda ps: torch.optim.SGD(ps, lr=0.5)  # noqa: E731
+
+    def run(n):
+        step = TableMPTrainStep(params, n, fcfg, rcfg, sgd)
+        loss = step(ro, rd, gt)
+        torch.cuda.synchronize()
+        return loss, _table_grad(step)
+
+    _reset_launches()
+    ones = [run(1) for _ in range(3)]
+    loss4, g4 = run(4)
+    launches = _read_launches("table_mp", [ring.KERNEL, ring.RS_KERNEL])
+    (loss1, g1), gs = ones[0], [g for _, g in ones]
+    spread = max(float((a - b).abs().max()) for i, a in enumerate(gs) for b in gs[i + 1 :])
+    diff = float((g4 - g1).abs().max())
+    print(f"table_mp: loss 1 shard {[float(l) for l, _ in ones]}, 4 shards {float(loss4):.9g}; "
+          f"table gradient max|g| {float(g1.abs().max()):.4g}, spread of three 1-shard runs {spread:.4g}, "
+          f"4-shard vs 1-shard {diff:.4g}", flush=True)
+    if not (torch.isfinite(loss4) and all(_same_bits(l, loss4) for l, _ in ones)):
+        raise AssertionError(f"table_mp: 1-shard losses {[float(l) for l, _ in ones]} != 4-shard loss {float(loss4)}")
+    if diff > 2 * spread:
+        raise AssertionError(f"table_mp: 4-shard table gradient off by {diff} > 2 x spread {spread}")
+    return launches
 
 
 def check_card_vs_cpu() -> None:
@@ -202,6 +377,76 @@ def check_card_vs_cpu() -> None:
         raise AssertionError(f"card and CPU frames differ by {err}")
 
 
+def _occupied_share(grid: torch.Tensor, occ_threshold: float) -> float:
+    """The share of cells the fast render counts as occupied: above
+    min(mean, occ_threshold), as its probes read them."""
+    return float((grid > torch.clamp(grid.mean(), max=occ_threshold)).float().mean())
+
+
+def check_refresh_card_vs_cpu() -> None:
+    """make_grid_update_fn on the artifact's parameters, card against CPU:
+    a refresh from zeros and an EMA refresh of the artifact's own grid.
+    With f32 packed tables both devices evaluate one f32 SDF up to the order
+    of its sums, so the grids agree within REFRESH_ATOL; each refreshed
+    grid must mark a real share of the lattice occupied (the artifact has a
+    surface, unlike the young field of the train phase)."""
+    grids = {}
+    for device in ("cpu", "cuda"):
+        params, fcfg, shipped, cfg = bench.load_artifact(device)
+        refresh = reconstruct.make_grid_update_fn(dataclasses.replace(fcfg, packed_dtype="float32"), cfg.bound)
+        grids[device] = {
+            "from zeros": refresh(params, torch.zeros_like(shipped)).cpu(),
+            "EMA of the artifact's grid": refresh(params, shipped).cpu(),
+        }
+    shipped = shipped.cpu()
+    print(f"artifact grid: occupied share {_occupied_share(shipped, cfg.occ_threshold):.4f}", flush=True)
+    for what, want in grids["cpu"].items():
+        got = grids["cuda"][what]
+        err = float((got - want).abs().max())
+        share = _occupied_share(got, cfg.occ_threshold)
+        print(f"grid refresh {what}, card vs CPU: max abs diff {err:.4g} (atol {REFRESH_ATOL:.4g}) on densities "
+              f"up to {float(want.max()):.4g}; occupied share {share:.4f} (CPU {_occupied_share(want, cfg.occ_threshold):.4f})",
+              flush=True)
+        if not (torch.isfinite(got).all() and err <= REFRESH_ATOL):
+            raise AssertionError(f"grid refresh {what}: card and CPU differ by {err}")
+        if not MIN_OCCUPIED_SHARE <= share <= MAX_OCCUPIED_SHARE:
+            raise AssertionError(f"grid refresh {what}: occupied share {share} outside "
+                                 f"[{MIN_OCCUPIED_SHARE}, {MAX_OCCUPIED_SHARE}]")
+
+
+def _train_step_once(device: str, gt: np.ndarray):
+    """One fast train step from the artifact on the 32x32 rays of bench
+    camera 0: (loss, {leaf name: gradient} of the MLPs and the variance)."""
+    params, fcfg, grid, cfg = bench.load_artifact(device)
+    K, poses = profile_train.bench_cameras(1, 32)
+    rest, shards, splice = trainable_shards(params)
+    opt, sched = reconstruct.make_optimizer(reconstruct.ReconstructConfig(), 1000, leaves(rest) + shards)
+    step = reconstruct.make_train_step_fast(fcfg, cfg, opt, reconstruct.make_batch_ray_fn(K, 32, 32), 0.1,
+                                            splice, sched)
+    pix = torch.arange(32 * 32, device=device)
+    loss, _ = step(rest, shards, torch.as_tensor(poses, device=device), torch.zeros_like(pix), pix,
+                   torch.as_tensor(gt, device=device), grid, 1.0)
+    grads = {f"sdf.{i}.{k}": t.grad.cpu() for i, layer in enumerate(rest["sdf"]) for k, t in layer.items()}
+    grads.update({f"color.{i}.{k}": t.grad.cpu() for i, layer in enumerate(rest["color"]) for k, t in layer.items()})
+    grads["variance"] = rest["variance"].grad.cpu()
+    return float(loss), grads
+
+
+def check_train_card_vs_cpu() -> None:
+    gt = np.random.default_rng(0).random((32 * 32, 3)).astype(np.float32)
+    loss_cpu, g_cpu = _train_step_once("cpu", gt)
+    loss_card, g_card = _train_step_once("cuda", gt)
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    worst = max(float((g_card[k] - g_cpu[k]).abs().max() / g_cpu[k].abs().max()) for k in g_cpu)
+    print(f"train step, card vs CPU: loss {loss_card:.9g} / {loss_cpu:.9g} (rel {rel:.3g}, rtol "
+          f"{TRAIN_LOSS_RTOL}); worst MLP/variance gradient diff {worst:.3g} x max|g| "
+          f"(tolerance {TRAIN_GRAD_REL})", flush=True)
+    if not (np.isfinite(loss_card) and rel <= TRAIN_LOSS_RTOL):
+        raise AssertionError(f"train step losses differ: card {loss_card}, cpu {loss_cpu}")
+    if not worst <= TRAIN_GRAD_REL:
+        raise AssertionError(f"train step gradients differ by {worst} x max|g|")
+
+
 def main() -> int:
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -213,27 +458,40 @@ def main() -> int:
         with Phase("build"):
             build_kernels()
         with Phase("kernel"):
-            gather = check_kernel()
+            measured = {ring.KERNEL: check_gather_kernel(), ring.RS_KERNEL: check_reduce_scatter_kernel()}
+        paths = {}
         with Phase("main"):
-            main_path = check_main_path()
+            paths["render"] = check_main_path()
+        with Phase("train"):
+            paths["train_fast"] = check_train_fast()
+        with Phase("tablemp"):
+            paths["table_mp"] = check_table_mp()
         with Phase("cpu"):
             check_card_vs_cpu()
+            check_refresh_card_vs_cpu()
+            check_train_card_vs_cpu()
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         print("chip_smoke: FAILED", flush=True)
         return 1
-    kernels = [{
-        **KERNELS[0],
-        "launches": main_path["launches"],
-        "max_abs_err": gather["max_abs_err"],
-        "ms": gather["kernel_ms"],  # the same number as kernel_ms
-        "kernel_ms": gather["kernel_ms"],
-        "wrapper_ms": gather["wrapper_ms"],
-        "plain_ms": gather["plain_ms"],
-        "bound_ms": gather["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": gather["library_ms"],
-    }]
+    kernels = []
+    for name, meta in KERNELS.items():
+        m = measured[name]
+        by_path = {path: counts[name] for path, counts in paths.items()}
+        kernels.append({
+            "name": name,
+            **meta,
+            "launches": sum(by_path.values()),  # each path's run, counts reset before it
+            "launches_by_path": by_path,
+            "max_abs_err": m["max_abs_err"],
+            "ms": m["kernel_ms"],  # the same number as kernel_ms
+            "kernel_ms": m["kernel_ms"],
+            "wrapper_ms": m["wrapper_ms"],
+            "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": m["library_ms"],
+        })
     print(f"chip_smoke: all phases ok in {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

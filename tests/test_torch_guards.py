@@ -17,12 +17,22 @@ import torch
 
 import avatarcraft_tpu_torch
 from avatarcraft_tpu_torch import bench
+from avatarcraft_tpu_torch.parallel import ring
 from avatarcraft_tpu_torch.utils import cuda_build
 from avatarcraft_tpu_torch.utils.png import integerify_img, write_png
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(avatarcraft_tpu_torch.__file__))
 BLOCKED = ("jax", "jaxlib", "imageio", "cv2", "avatarcraft_tpu")
+KERNELS = (ring.KERNEL, ring.RS_KERNEL)
+# modules of the training slice, which the import guard must reach
+TRAIN_MODULES = (
+    "avatarcraft_tpu_torch.ops.sampling",
+    "avatarcraft_tpu_torch.ops.occupancy",
+    "avatarcraft_tpu_torch.parallel.table_mp",
+    "avatarcraft_tpu_torch.workloads.reconstruct",
+    "avatarcraft_tpu_torch.profile_train",
+)
 
 
 def _env_without_repo():
@@ -41,7 +51,8 @@ import avatarcraft_tpu_torch
 for m in pkgutil.walk_packages(avatarcraft_tpu_torch.__path__, "avatarcraft_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-print("imports ok")
+missing = [m for m in {TRAIN_MODULES!r} if m not in sys.modules]
+print("imports ok" if not missing else f"not imported: {{missing}}")
 """
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
                          cwd=REPO, env=_env_without_repo())
@@ -85,20 +96,43 @@ def test_chip_smoke_alone_fails(tmp_path):
     assert "avatarcraft_tpu_torch" in res.stderr
 
 
-def test_nvcc_command_targets_sm90a():
-    cmd = cuda_build.nvcc_command("all_gather_rows", "/x/lib.so")
+@pytest.mark.parametrize("name", KERNELS)
+def test_nvcc_command_targets_sm90a(name):
+    cmd = cuda_build.nvcc_command(name, "/x/lib.so")
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert "-shared" in cmd and "-fPIC" in cmd and "-O3" in cmd
-    assert cmd[-1] == cuda_build.source_path("all_gather_rows") and os.path.isfile(cmd[-1])
+    assert cmd[-1] == cuda_build.source_path(name) and os.path.isfile(cmd[-1])
     assert not any(part.startswith("-I") for part in cmd)  # no PyTorch headers
 
 
-def test_kernel_source_names_what_it_replaces():
-    with open(cuda_build.source_path("all_gather_rows")) as fp:
+@pytest.mark.parametrize("name", KERNELS)
+def test_kernel_source_names_what_it_replaces(name):
+    with open(cuda_build.source_path(name)) as fp:
         src = fp.read()
     assert "parallel/ring.py:27" in src and "_ring_all_gather_kernel" in src
     assert 'extern "C"' in src and "cudaGetLastError" in src
-    assert "#include <torch" not in src
+    assert f"{name}_error_string" in src
+    assert "#include <torch" not in src and "#include <ATen" not in src
+
+
+@pytest.mark.parametrize("wrapper,plain", [
+    (ring.all_gather_rows, "all_gather_rows_plain"), (ring.reduce_scatter_rows, "reduce_scatter_rows_plain"),
+])
+def test_wrapper_takes_plain_version_only_on_cpu(wrapper, plain):
+    """By inspection of the dispatch: the plain version is called once, as
+    the body of the ``device.type == "cpu"`` branch; past it a tensor that
+    is not on the CPU launches the kernel (other devices were refused by
+    the checks before)."""
+    import inspect
+
+    lines = [ln.strip() for ln in inspect.getsource(wrapper).splitlines()]
+    calls = [i for i, ln in enumerate(lines) if f"{plain}(" in ln]
+    assert len(calls) == 1
+    assert lines[calls[0] - 1] == 'if first.device.type == "cpu":'
+    assert lines[calls[0]].startswith("return ")
+    assert any("launch" in ln for ln in lines[calls[0] + 1 :])
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        wrapper([torch.zeros(4, 2, device="meta")], *([2] if plain.startswith("reduce") else []))
 
 
 def test_build_dir_is_ignored_by_git():
@@ -119,7 +153,7 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
         pytest.skip("nvcc is installed here; the missing-compiler path cannot be shown")
     monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        cuda_build.build(["all_gather_rows"])
+        cuda_build.build(list(KERNELS))
 
 
 def test_bench_refuses_cpu():

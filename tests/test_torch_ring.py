@@ -13,7 +13,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from avatarcraft_tpu.parallel.mesh import make_mesh
 from avatarcraft_tpu.parallel.ring import all_gather_table as jax_all_gather_table
 from avatarcraft_tpu_torch.parallel import ring
-from avatarcraft_tpu_torch.parallel.table_mp import default_shard_count, shard_grid_rows
+from avatarcraft_tpu_torch.parallel.table_mp import shard_grid_rows
 
 
 @pytest.mark.parametrize("rows,cols,dtype", [(8 * 16, 4, np.float32), (8 * 5, 3, np.float16)])
@@ -30,7 +30,7 @@ def test_all_gather_table_matches_jax_mesh(rng, rows, cols, dtype):
 
 def test_cpu_path_is_plain_and_not_counted(rng):
     shards = [torch.from_numpy(rng.normal(size=(6, 4)).astype(np.float32)) for _ in range(3)]
-    before = ring.launches
+    before = dict(ring.launches)
     got = ring.all_gather_rows(shards)
     assert ring.launches == before  # only a kernel launch counts
     assert torch.equal(got, ring.all_gather_rows_plain(shards))
@@ -75,6 +75,6 @@ def test_shard_grid_rows_rejects_uneven_split():
 
 
 def test_default_shard_count_cpu():
-    assert default_shard_count("cpu") == 1
+    # one shard per card in use: the port drives one card
     params = {"grids": [torch.zeros(4, 4, 4, 2)]}
     assert len(shard_grid_rows(params)[1]) == 1
