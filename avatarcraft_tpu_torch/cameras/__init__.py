@@ -7,6 +7,7 @@ from avatarcraft_tpu_torch.cameras.paths import (
 from avatarcraft_tpu_torch.cameras.rays import (
     camera_rays,
     canonical_camera,
+    dataset_rays,
     pose2rays,
 )
 
@@ -19,4 +20,5 @@ __all__ = [
     "camera_rays",
     "pose2rays",
     "canonical_camera",
+    "dataset_rays",
 ]

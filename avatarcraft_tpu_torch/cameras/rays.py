@@ -1,7 +1,8 @@
 """Ray generation under the capture convention: +z forward, pixel directions
 from K^-1 [x, y, 1] transformed by c2w (reference:
-utils/render_utils.py:323-376). Port of the JAX package's cameras/rays.py
-(``canonical_camera``, ``camera_rays``, ``pose2rays``)."""
+utils/render_utils.py:323-376), and the dataset cameras' rays. Port of the
+JAX package's cameras/rays.py (``canonical_camera``, ``camera_rays``,
+``pose2rays``, ``dataset_rays``)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import torch
 
 from avatarcraft_tpu_torch.cameras.camera import PinholeCamera
 from avatarcraft_tpu_torch.constants import CANONICAL_ZOOM_FACTOR
+from avatarcraft_tpu_torch.ops.sampling import linspace
 
 
 def canonical_camera(h: int, w: int) -> PinholeCamera:
@@ -48,3 +50,23 @@ def camera_rays(cam: PinholeCamera, c2w, stride: int = 1, device="cuda"):
 def pose2rays(h: int, w: int, c2w, device="cuda"):
     """pose2cap + cap2rays fused: canonical camera at the given pose."""
     return camera_rays(canonical_camera(h, w), c2w, device=device)
+
+
+def dataset_rays(pose, K, h: int, w: int, resolution_level: int = 1, device="cuda"):
+    """Rays of a dataset camera, SMPLDataset.gen_rays_pose's convention
+    (reference: utils/SMPLDataset.py:86-103): the pixel grid sampled with
+    linspace(0, W-1, W // l), directions normalize([(x-cx)/fx, -(y-cy)/fy,
+    -1]) rotated by pose[:3,:3]. Returns (rays_o [hw, 3], rays_d [hw, 3])
+    on ``device``. (The JAX package's ``out_hw`` serves the silhouette
+    sampler of training, ROADMAP item 12.)"""
+    lh, lw = int(h // resolution_level), int(w // resolution_level)
+    tx = linspace(0.0, w - 1, lw, device)
+    ty = linspace(0.0, h - 1, lh, device)
+    px, py = torch.meshgrid(tx, ty, indexing="xy")  # [lh, lw]
+    K = torch.as_tensor(np.asarray(K, np.float32), device=device)
+    pose = torch.as_tensor(np.asarray(pose, np.float32), device=device)
+    p = torch.stack([(px - K[0, 2]) / K[0, 0], -(py - K[1, 2]) / K[1, 1], -torch.ones_like(px)], dim=-1)
+    v = p / torch.linalg.norm(p, dim=-1, keepdim=True)
+    rays_d = v @ pose[:3, :3].T
+    rays_o = pose[:3, 3].expand(rays_d.shape)
+    return rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)

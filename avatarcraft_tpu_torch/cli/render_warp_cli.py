@@ -1,0 +1,133 @@
+"""CLI: animation and shape-interpolation renders, ``--sampler fast`` (port
+of the JAX package's cli/render_warp_cli.py; reference: render_warp.py).
+
+    python -m avatarcraft_tpu_torch.cli.render_warp_cli \\
+        --weights_path artifacts/canonical/bare_smpl_tpu.pth.tar \\
+        --smpl_path artifacts/canonical/demo_body_rig.npz \\
+        --poseseq_path artifacts/canonical/demo_poses.npy \\
+        --data_path data/smpl_dataset --render_view 58
+
+The camera is view ``--render_view`` of the Blender-format dataset at
+``--data_path``, sampled down to ``--resolution``. Per frame the posed body
+is voxelized, and the samples near it are warped into the canonical field
+by the kNN inverse-LBS warp. Writes one PNG per frame under
+``<out_dir>/test_views/<exp_name>/``. ``--use_cuda false`` renders on the
+CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+from avatarcraft_tpu_torch.cli.render_canonical_cli import str2bool
+from avatarcraft_tpu_torch.data import SMPLMultiviewDataset
+from avatarcraft_tpu_torch.data.amass import load_pose_sequence
+from avatarcraft_tpu_torch.models.smpl import load_smpl, synthetic_smpl_params
+from avatarcraft_tpu_torch.utils.checkpoint import load_params_with_config
+from avatarcraft_tpu_torch.utils.png import integerify_img, write_png
+from avatarcraft_tpu_torch.warp import WarpData
+from avatarcraft_tpu_torch.workloads.warp_render import (
+    WarpRenderSettings,
+    calc_local_trans,
+    derive_warp_budget,
+    make_warp_frame_renderer_fast,
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--use_cuda", type=str2bool, default=True,
+                        help="render on the CUDA card; false = CPU")
+    parser.add_argument("--weights_path", required=True, type=str)
+    parser.add_argument("--white_bkg", type=str2bool, default=True)
+    parser.add_argument("--exp_name", default="exp", type=str)
+    parser.add_argument("--implicit_model", default="instant_nsr", choices=["neus", "nerf", "instant_nsr"])
+    parser.add_argument("--poseseq_path", default=None, type=str)
+    parser.add_argument("--render_type", default="animate", choices=["animate", "interp_shape"])
+    parser.add_argument("--shape_from_path", type=str, default=None)
+    parser.add_argument("--shape_to_path", type=str, default=None)
+    parser.add_argument("--max_frames", default=20, type=int)
+    parser.add_argument("--resolution", default=256, type=int, choices=[128, 256, 512])
+    parser.add_argument("--render_view", default=58, type=int,
+                        help="dataset camera index (the reference uses 58/33/...)")
+    parser.add_argument("--smpl_path", default="data/smplx/smpl", type=str,
+                        help="SMPL_NEUTRAL.pkl or its directory (supplied by the user, as for the "
+                             "reference), an .npz body, or 'synthetic' for the test-fixture body")
+    parser.add_argument("--data_path", default="data/smpl_da_512", type=str)
+    parser.add_argument("--out_dir", default="./demo", type=str)
+    parser.add_argument("--sampler", default="fast", choices=["parity", "fast"],
+                        help="fast = per-frame voxelized posed-space occupancy + compacted kNN warp "
+                             "(the only sampler ported so far)")
+    parser.add_argument("--rest_pose", default=None, choices=["da", "zero"],
+                        help="pose the canonical field was trained in. Default: 'da' (reference "
+                             "parity) for SMPL bodies, the body's rest_pose marker for .npz bodies")
+    return parser
+
+
+def _rest_pose(opt) -> str:
+    """--rest_pose, else from the body's provenance, not its file
+    extension: a real SMPL body may also come as .npz, and those are
+    da-pose-trained like the reference's pickle."""
+    if opt.rest_pose is not None:
+        return opt.rest_pose
+    if opt.smpl_path.endswith(".npz"):
+        with np.load(opt.smpl_path) as d:
+            if "rest_pose" in d.files:
+                return str(d["rest_pose"])
+        print("[render_warp] WARNING: .npz body without a rest_pose marker; assuming 'da' (reference "
+              "parity). Mesh-derived demo bodies carry rest_pose='zero'; pass --rest_pose to override.")
+    return "da"
+
+
+def main(argv=None):
+    opt = build_parser().parse_args(argv)
+    if opt.sampler != "fast":
+        raise SystemExit("--sampler parity is not ported yet (ROADMAP item 19, parity pipeline); "
+                         "use --sampler fast")
+    if opt.implicit_model != "instant_nsr":
+        raise SystemExit(f"--implicit_model {opt.implicit_model} is not ported yet (ROADMAP item 20, "
+                         "legacy models); use instant_nsr")
+    device = "cuda" if opt.use_cuda else "cpu"
+    if device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA card: pass --use_cuda false to render on the CPU")
+
+    pose_seq = load_pose_sequence(opt.poseseq_path) if opt.poseseq_path is not None else None
+    shape_from = np.load(opt.shape_from_path).astype(np.float32) if opt.shape_from_path else None
+    shape_to = np.load(opt.shape_to_path).astype(np.float32) if opt.shape_to_path else None
+    if opt.smpl_path == "synthetic":
+        print("[render_warp] WARNING: synthetic SMPL body (demo mode; supply --smpl_path for real animation)")
+        model = synthetic_smpl_params(0, n_verts=512, n_joints=24)
+    else:
+        model = load_smpl(opt.smpl_path)
+    world_verts, Ts, n_frames = calc_local_trans(
+        model, render_type=opt.render_type, poses=pose_seq, shape_from=shape_from, shape_to=shape_to,
+        max_frames=opt.max_frames, rest_pose=_rest_pose(opt),
+    )
+
+    params, fcfg = load_params_with_config(opt.weights_path, device)
+    print(f"[render_warp] field: encoder={fcfg.encoder} device={device}")
+    ds = SMPLMultiviewDataset(opt.data_path)
+    subsample = int(ds.H / opt.resolution)
+    rays_o, rays_d = ds.gen_rays_pose(ds.poses[opt.render_view], subsample, device)
+
+    settings = WarpRenderSettings()
+    # the per-chunk budget from the pose sequence itself: no frame is clipped
+    budget = derive_warp_budget(world_verts, rays_o, rays_d, settings)
+    print(f"[render_warp] derived sample budget: {budget}/chunk (zero-clip over {n_frames} frames)")
+    render = make_warp_frame_renderer_fast(params, fcfg, settings, budget, 1.0 if opt.white_bkg else 0.0)
+
+    exp_dir = os.path.join(opt.out_dir, "test_views", opt.exp_name)
+    os.makedirs(exp_dir, exist_ok=True)
+    for i in range(n_frames):
+        rgb = render(rays_o, rays_d, WarpData.create(world_verts[i], model.faces, Ts[i], device))
+        path = os.path.join(exp_dir, f"{opt.exp_name}_{i:04d}.png")
+        write_png(path, integerify_img(rgb.reshape(opt.resolution, opt.resolution, 3).cpu().numpy()))
+        print(f"image saved: {path}")
+
+
+if __name__ == "__main__":
+    main()

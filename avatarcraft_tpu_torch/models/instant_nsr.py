@@ -2,8 +2,9 @@
 render and the 64+64 importance-sampled render. Port of the JAX package's
 models/instant_nsr.py (FieldConfig, RenderConfig, init_field_params,
 forward_*, sdf_and_gradient, up_sample, cat_z_vals, render_rays, sdf_tetra,
-field_sdf_grad, FastRenderConfig, _probe_occupied, count_fast_samples,
-render_rays_fast).
+field_sdf_grad, FieldFns, network_field_fns, FastRenderConfig,
+_probe_occupied, count_fast_samples, render_rays_fast with its ``field``,
+``near_far`` and ``warp_fn``).
 
 Both renders differentiate under PyTorch autograd; the JAX package's
 ``stop_gradient``s become evaluations under ``torch.no_grad()`` or
@@ -20,6 +21,7 @@ models/instant_nsr.py:555-556,585-586).
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
@@ -268,20 +270,29 @@ def forward_variance(params: dict) -> torch.Tensor:
 _TETRA_DIRS = np.array([[1, 1, 1], [1, -1, -1], [-1, 1, -1], [-1, -1, 1]], dtype=np.float32)
 
 
+def _sdf_fn(params: dict, cfg: FieldConfig, bound: float, packed: dict | None):
+    return lambda x: forward_sdf(params, x, cfg, bound, packed)
+
+
+def _tetra(sdf_fn, x: torch.Tensor, bound: float, epsilon: float):
+    """The 4-tap tetrahedral stencil through ``sdf_fn`` ([M,3] -> [M,1+F])."""
+    N = x.shape[0]
+    dirs = torch.as_tensor(_TETRA_DIRS, device=x.device)
+    pts = torch.clamp(x[None, :, :] + epsilon * dirs[:, None, :], -bound, bound)
+    out = sdf_fn(pts.reshape(4 * N, 3)).reshape(4, N, -1)
+    sdf = out[..., :1].mean(dim=0)
+    feat = out[..., 1:].mean(dim=0)
+    grad = torch.einsum("sc,sn->nc", dirs, out[..., 0]) * recip(4.0 * epsilon)
+    return sdf, feat, grad
+
+
 def sdf_tetra(params: dict, x: torch.Tensor, cfg: FieldConfig, bound: float, epsilon: float, packed: dict | None = None):
     """4-tap tetrahedral stencil: (sdf [N,1], feat [N,F], grad [N,3]).
 
     grad = sum_i v_i f(x + eps v_i) / (4 eps); sdf and features are the
     stencil mean. All 4 taps go through one [4N, 3] network call.
     """
-    N = x.shape[0]
-    dirs = torch.as_tensor(_TETRA_DIRS, device=x.device)
-    pts = torch.clamp(x[None, :, :] + epsilon * dirs[:, None, :], -bound, bound)
-    out = forward_sdf(params, pts.reshape(4 * N, 3), cfg, bound, packed).reshape(4, N, -1)
-    sdf = out[..., :1].mean(dim=0)
-    feat = out[..., 1:].mean(dim=0)
-    grad = torch.einsum("sc,sn->nc", dirs, out[..., 0]) * recip(4.0 * epsilon)
-    return sdf, feat, grad
+    return _tetra(_sdf_fn(params, cfg, bound, packed), x, bound, epsilon)
 
 
 _FD_OFFSETS = np.array(
@@ -289,32 +300,71 @@ _FD_OFFSETS = np.array(
 )
 
 
-def sdf_and_gradient(params: dict, x: torch.Tensor, cfg: FieldConfig, bound: float, epsilon: float, packed: dict | None = None):
-    """The reference's 7-point stencil (fd7): (sdf [N,1], feat [N,F],
-    grad [N,3]) from the center and 6 central-difference taps, all 7 in one
-    [7N, 3] network call (reference: models/instant_nsr.py:687-704)."""
+def _fd7(sdf_fn, x: torch.Tensor, bound: float, epsilon: float):
+    """The 7-point stencil through ``sdf_fn`` ([M,3] -> [M,1+F])."""
     N = x.shape[0]
     offs = torch.as_tensor(_FD_OFFSETS * np.float32(epsilon), device=x.device)
     stenciled = torch.clamp(x[None, :, :] + offs[:, None, :], -bound, bound)
     all_pts = torch.cat([x[None], stenciled], dim=0).reshape(7 * N, 3)
-    out = forward_sdf(params, all_pts, cfg, bound, packed).reshape(7, N, -1)
+    out = sdf_fn(all_pts).reshape(7, N, -1)
     grad = (0.5 * (out[1:4, :, 0] - out[4:7, :, 0]) * recip(epsilon)).T
     return out[0, :, :1], out[0, :, 1:], grad
 
 
-def field_sdf_grad(params: dict, x: torch.Tensor, cfg: FieldConfig, bound: float, epsilon: float, mode: str, packed: dict | None = None):
-    """(sdf [N,1], geo_feat [N,F], grad [N,3]) under the chosen normal mode:
-    "fd7" (the reference's central differences) or "fd4" (the tetrahedral
-    stencil). The analytic mode is not ported yet."""
+def sdf_and_gradient(params: dict, x: torch.Tensor, cfg: FieldConfig, bound: float, epsilon: float, packed: dict | None = None):
+    """The reference's 7-point stencil (fd7): (sdf [N,1], feat [N,F],
+    grad [N,3]) from the center and 6 central-difference taps, all 7 in one
+    [7N, 3] network call (reference: models/instant_nsr.py:687-704)."""
+    return _fd7(_sdf_fn(params, cfg, bound, packed), x, bound, epsilon)
+
+
+def stencil_sdf_grad(sdf_fn, x: torch.Tensor, bound: float, epsilon: float, mode: str):
+    """(sdf [N,1], geo_feat [N,F], grad [N,3]) of ``sdf_fn`` ([M,3] ->
+    [M,1+F]) under the chosen normal mode: "fd7" (the reference's central
+    differences) or "fd4" (the tetrahedral stencil). The analytic mode is
+    not ported yet."""
     if mode == "fd4":
-        return sdf_tetra(params, x, cfg, bound, epsilon, packed)
+        return _tetra(sdf_fn, x, bound, epsilon)
     if mode == "fd7":
-        return sdf_and_gradient(params, x, cfg, bound, epsilon, packed)
+        return _fd7(sdf_fn, x, bound, epsilon)
     if mode == "analytic":
         raise NotImplementedError(
             "normal_mode 'analytic' is not ported yet (ROADMAP item 8: analytic normals)"
         )
     raise ValueError(f"unknown normal_mode: {mode!r}")
+
+
+def field_sdf_grad(params: dict, x: torch.Tensor, cfg: FieldConfig, bound: float, epsilon: float, mode: str, packed: dict | None = None):
+    """stencil_sdf_grad of the network field ``params``."""
+    return stencil_sdf_grad(_sdf_fn(params, cfg, bound, packed), x, bound, epsilon, mode)
+
+
+@dataclasses.dataclass(frozen=True)
+class FieldFns:
+    """Injectable field evaluation, so that one render core serves the
+    network field and analytic test fields.
+
+    sdf:   [M,3] -> [M, 1+F] (sdf value + geometry features)
+    color: (x [M,3], d [M,3], n [M,3], feat [M,F]) -> [M,3]
+    inv_s: () -> scalar
+    """
+
+    sdf: Callable[[torch.Tensor], torch.Tensor]
+    color: Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+    inv_s: Callable[[], torch.Tensor]
+
+
+def network_field_fns(params: dict, fcfg: FieldConfig, bound: float, packed: dict | None = None) -> FieldFns:
+    """The network field of ``params``; ``packed``: its
+    materialize_field_tables, built here when omitted (a frame builds them
+    once and passes them to every chunk)."""
+    if packed is None:
+        packed = materialize_field_tables(params, fcfg)
+    return FieldFns(
+        sdf=_sdf_fn(params, fcfg, bound, packed),
+        color=lambda x, d, n, f: forward_color(params, x, d, n, f, fcfg),
+        inv_s=lambda: forward_variance(params),
+    )
 
 
 def up_sample(rays_o, rays_d, z_vals, sdf, n_importance: int, inv_s: float) -> torch.Tensor:
@@ -380,7 +430,8 @@ def render_rays(
     as the JAX package's render_rays for a field without a warp."""
     if warp_fn is not None:
         raise NotImplementedError(
-            "warp_fn is not ported yet (ROADMAP item 10, body model and warp)"
+            "warp_fn of the 64+64 render is not ported yet (ROADMAP item 19, parity pipeline); "
+            "the fast render takes it (render_rays_fast)"
         )
     if rcfg.curvature_loss:
         raise NotImplementedError(
@@ -521,22 +572,38 @@ def render_rays_fast(
     cfg: FastRenderConfig,
     density_grid: torch.Tensor,
     bg_color=1.0,
-    packed: dict | None = None,
+    field: FieldFns | None = None,
+    near_far=None,
+    warp_fn=None,
 ) -> dict:
     """Occupancy-culled NeuS render of rays [N,3] on their device: the
     network runs only on the K grid-occupied samples per ray, and with
     ``cfg.sample_budget`` only on the first ``sample_budget`` of those in
-    flat order. ``packed``: the frame's materialize_field_tables (built here
-    when omitted). Same outputs as the JAX package's render_rays_fast."""
+    flat order. ``field``: the field to evaluate (a frame passes
+    network_field_fns with its tables built once; built from ``params``
+    when omitted). ``near_far``: per-ray (near, far) [N,1] that replace the
+    cube bounds where finite.
+
+    ``warp_fn``: the posed -> canonical warp of an animation frame
+    ([N,T,3] -> (pts, dirs, mask)); ``density_grid`` is then the posed-space
+    grid of the frame's body. The selected samples are warped before the
+    field runs, and samples off the body are masked as the reference masks
+    their alphas (models/instant_nsr.py:245-248). With a budget the warp
+    runs only on the compacted survivors, as one pseudo-ray. Same outputs as
+    the JAX package's render_rays_fast."""
     N = rays_o.shape[0]
     K = cfg.k_samples
     bound = cfg.bound
-    if packed is None:
-        packed = materialize_field_tables(params, fcfg)
+    if field is None:
+        field = network_field_fns(params, fcfg, bound)
 
     # profiler ranges name the stage each future kernel takes over
     with record_function("render.probe_select"):  # K1
         near, far = near_far_from_bound(rays_o, rays_d, bound)
+        if near_far is not None:
+            ng, fg = near_far
+            near = torch.where(torch.isinf(ng), near, ng)
+            far = torch.where(torch.isinf(fg), far, fg)
         z_probe, occupied = _probe_occupied(rays_o, rays_d, near, far, cfg, density_grid)
         z_sel, valid = select_occupied_samples(z_probe, occupied, K, 0.5)
         pts = rays_o[:, None, :] + rays_d[:, None, :] * z_sel[..., None]
@@ -545,14 +612,12 @@ def render_rays_fast(
         dirs = rays_d[:, None, :].expand(pts.shape).reshape(-1, 3)
     T = flat.shape[0]
 
-    def field(x, d):
+    def evaluate(x, d):
         with record_function("render.field_fd4"):  # K3 + K4
-            sdf_, feat_, grad_ = field_sdf_grad(
-                params, x, fcfg, bound, cfg.fd_epsilon, cfg.normal_mode, packed
-            )
+            sdf_, feat_, grad_ = stencil_sdf_grad(field.sdf, x, bound, cfg.fd_epsilon, cfg.normal_mode)
             normal_ = grad_ / (1e-5 + _safe_norm(grad_))
         with record_function("render.color"):  # K4
-            color_ = forward_color(params, x, d, normal_, feat_, fcfg)
+            color_ = field.color(x, d, normal_, feat_)
         return sdf_, grad_, normal_, color_
 
     if cfg.sample_budget and cfg.sample_budget < T:
@@ -560,7 +625,14 @@ def render_rays_fast(
             sel, kept = compact_indices(valid.reshape(-1), cfg.sample_budget)
             n_kept = kept.sum()
             flat_c, dirs_c = flat[sel], dirs[sel]
-        sdf_c, grad_c, normal_c, color_c = field(flat_c, dirs_c)
+        if warp_fn is not None:
+            with record_function("render.warp"):  # K6
+                # the compacted points have no ray structure: one pseudo-ray
+                # (the mask is per point; the canonical dirs are not used)
+                wp, _, wm = warp_fn(flat_c[None])
+                flat_c = torch.clamp(wp[0], -bound, bound)
+                wmask_c = wm.reshape(-1, 1).to(torch.float32)
+        sdf_c, grad_c, normal_c, color_c = evaluate(flat_c, dirs_c)
         with record_function("render.scatter"):  # K2
             norm_c = torch.linalg.norm(flat_c, dim=-1, keepdim=True)
             sdf = scatter_to_flat(sdf_c, sel, T, n_kept)
@@ -569,11 +641,19 @@ def render_rays_fast(
             color = scatter_to_flat(color_c, sel, T, n_kept)
             pts_norm_flat = scatter_to_flat(norm_c, sel, T, n_kept)[:, 0]
             valid = kept.reshape(N, K)
+            if warp_fn is not None:
+                wmask_full = scatter_to_flat(wmask_c, sel, T, n_kept)[:, 0]
+                valid = valid & (wmask_full.reshape(N, K) > 0.5)
     else:
-        sdf, grad, normal, color = field(flat, dirs)
+        if warp_fn is not None:
+            with record_function("render.warp"):  # K6
+                wp, _, wm = warp_fn(pts)  # [N, K, 3], ray-structured
+                flat = torch.clamp(wp.reshape(-1, 3), -bound, bound)
+                valid = valid & wm.reshape(N, K)
+        sdf, grad, normal, color = evaluate(flat, dirs)
         pts_norm_flat = torch.linalg.norm(flat, dim=-1)
     with record_function("render.composite"):  # K5
-        inv_s = forward_variance(params)
+        inv_s = field.inv_s()
 
         # a transition into an invalid slot falls back to the probe spacing; the
         # invalid slots' own alphas are masked by `valid` below

@@ -1,6 +1,7 @@
-"""The density grid: its refresh from the SDF, bit-packed occupancy
-probes, evenly spread sample selection and global compaction. Port of the
-JAX package's ops/occupancy.py:23-72,192 and :206-319.
+"""The density grid: its refresh from the SDF, the posed-body grid of a
+warp frame, bit-packed occupancy probes, evenly spread sample selection and
+global compaction. Port of the JAX package's ops/occupancy.py:23-100,192
+and :206-319.
 
 The probe, selection and compaction functions are the plain versions of the
 port's future kernels K1 (probe + select) and K2 (compaction), ROADMAP
@@ -59,6 +60,28 @@ def update_density_grid(sdf_fn, grid: torch.Tensor, bound: float, *, block: int)
         p[dx : dx + R, dy : dy + R, dz : dz + R] for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)
     ]).amax(dim=0)
     return torch.maximum(grid * DECAY, pooled)
+
+
+def voxelize_verts(verts: torch.Tensor, bound: float, resolution: int = 129, dilate: int = 2,
+                   value: float = 100.0) -> torch.Tensor:
+    """Posed-space occupancy grid [R,R,R] from mesh vertices [V,3]: mark
+    each vertex's nearest cell with ``value``, then dilate ``dilate`` cells
+    (one 3^3 max-pool per round). The fast path's counterpart of the
+    reference's geometry-guided near/far (utils/ray_utils.py:270): at 129^3
+    over +-1.6 two rounds cover the 0.05 geo-threshold around the body.
+    Equal to the JAX package's bit for bit: ``round`` is half-to-even in
+    both, and the division by 2*bound is the reciprocal product XLA makes
+    of it."""
+    R = resolution
+    idx = torch.round((verts + bound) * recip(2 * bound) * (R - 1)).to(torch.int64).clamp(0, R - 1)
+    flat = (idx[:, 0] * R + idx[:, 1]) * R + idx[:, 2]
+    grid = torch.zeros(R * R * R, dtype=torch.float32, device=verts.device)
+    grid[flat] = value  # duplicate cells write the same value
+    grid = grid.reshape(1, 1, R, R, R)
+    for _ in range(dilate):
+        # the grid is >= 0, so max-pool's implicit -inf border acts as zeros
+        grid = torch.nn.functional.max_pool3d(grid, 3, stride=1, padding=1)
+    return grid.reshape(R, R, R)
 
 
 def pack_occupancy_bits(grid: torch.Tensor, threshold) -> torch.Tensor:

@@ -1,7 +1,12 @@
 """Where a frame's time goes: the bench's render of the baked artifact
 (256x256, derived budget, one shard per card) under torch.profiler.
 
-    python -m avatarcraft_tpu_torch.profile_render
+    python -m avatarcraft_tpu_torch.profile_render               # canonical
+    python -m avatarcraft_tpu_torch.profile_render --path warp   # animated
+
+canonical: the bench's cameras. warp: the bench's warp view of the demo
+body in frames 0-5 of the demo poses (the budget derived over them), whose
+frames add the ``render.voxelize`` and ``render.warp`` ranges.
 
 After two warm-up frames it profiles ``N_FRAMES`` frames and prints one
 JSON line: wall ms per frame, device busy ms per frame (the sum of the CUDA
@@ -16,7 +21,9 @@ events named ``gather_rows_kernel``) is added to that stage.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import functools
 import json
 import time
 
@@ -27,29 +34,58 @@ from torch.profiler import ProfilerActivity, profile
 from avatarcraft_tpu_torch import bench
 from avatarcraft_tpu_torch.cameras import pose2rays
 from avatarcraft_tpu_torch.utils.device import card_line
+from avatarcraft_tpu_torch.warp import WarpData
 from avatarcraft_tpu_torch.workloads.canonical_render import make_fast_frame_renderer
+from avatarcraft_tpu_torch.workloads.warp_render import (
+    WarpRenderSettings,
+    derive_warp_budget,
+    make_warp_frame_renderer_fast,
+)
 
 N_FRAMES = 4  # profiled frames, after two warm-up frames
 GATHER_KERNEL = "gather_rows_kernel"
 
 
-def main() -> dict:
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_render measures a CUDA card; none is available")
+def canonical_frames():
+    """(2 warm-up frames, N_FRAMES profiled frames, budget): each frame a
+    call that renders it."""
     params, fcfg, grid, cfg = bench.load_artifact("cuda")
     rays = [pose2rays(bench.RES, bench.RES, p, device="cuda") for p in bench.bench_poses()]
     _, budget = bench.derive_budget(rays, cfg, grid)
     cfg = dataclasses.replace(cfg, sample_budget=budget)
     render = make_fast_frame_renderer(params, fcfg, cfg, grid, chunk=bench.RES * bench.RES)
-    for ro, rd in rays[:2]:
-        render(ro, rd)
+    calls = [functools.partial(render, ro, rd) for ro, rd in rays]
+    return calls[:2], calls[2 : 2 + N_FRAMES], budget
+
+
+def warp_frames():
+    """The same for the warp render of demo frames 0-5."""
+    params, fcfg, _, _ = bench.load_artifact("cuda")
+    model, world_verts, Ts = bench.demo_frames(2 + N_FRAMES)
+    ro, rd = pose2rays(bench.RES, bench.RES, bench.warp_view(), device="cuda")
+    settings = WarpRenderSettings()
+    budget = derive_warp_budget(world_verts, ro, rd, settings)
+    render = make_warp_frame_renderer_fast(params, fcfg, settings, budget)
+    calls = [functools.partial(render, ro, rd, WarpData.create(v, model.faces, T, "cuda"))
+             for v, T in zip(world_verts, Ts)]
+    return calls[:2], calls[2:], budget
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description="where a 256x256 frame's device time goes")
+    ap.add_argument("--path", default="canonical", choices=["canonical", "warp"])
+    path = ap.parse_args(argv).path
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_render measures a CUDA card; none is available")
+    warmup, frames, budget = (warp_frames if path == "warp" else canonical_frames)()
+    for frame in warmup:
+        frame()
     torch.cuda.synchronize()
 
-    frames = rays[2 : 2 + N_FRAMES]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for ro, rd in frames:
-            render(ro, rd)
+        for frame in frames:
+            frame()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     n = len(frames)
@@ -75,6 +111,7 @@ def main() -> dict:
         key=lambda kv: -kv[1],
     )[:15]
     result = {
+        "path": path,
         "device": torch.cuda.get_device_name(0),
         "card": card_line(),
         "frames": n,

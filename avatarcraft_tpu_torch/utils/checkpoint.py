@@ -1,6 +1,6 @@
-"""Load baked ``.pth.tar`` checkpoints and their ``.fieldcfg.json``
-sidecars into the port's parameter tree; port of the ``.pth.tar`` side of
-the JAX package's utils/checkpoint.py (no orbax).
+"""Save and load ``.pth.tar`` checkpoints and their ``.fieldcfg.json``
+sidecars; port of the ``.pth.tar`` side of the JAX package's
+utils/checkpoint.py. Orbax directories are not read (ROADMAP item 15).
 
 The parameter tree has the JAX package's layout, with float32 tensors for
 leaves:
@@ -17,6 +17,7 @@ baked artifact, upcast to f32 here as the JAX package does).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 
@@ -41,6 +42,37 @@ def leaves(tree) -> list:
     skipped."""
     out = []
     map_leaves(tree, out.append)
+    return out
+
+
+def sorted_leaves(tree) -> list:
+    """The leaves in the JAX package's flattening order
+    (``jax.tree_util.tree_flatten``): dict keys sorted, lists in order,
+    None skipped. Leaf indices written by the JAX package (the style
+    deltas' ``meta["tensors"][i]["leaf"]``) count in this order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in sorted_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in sorted_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def replace_sorted_leaves(tree, new_leaves: list):
+    """The same tree with its leaves, in ``sorted_leaves`` order, replaced
+    by ``new_leaves``."""
+    it = iter(new_leaves)
+
+    def rebuild(t):
+        if isinstance(t, dict):
+            out = {k: rebuild(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}  # the tree's own key order
+        if isinstance(t, (list, tuple)):
+            return [rebuild(v) for v in t]
+        return None if t is None else next(it)
+
+    out = rebuild(tree)
+    if next(it, None) is not None:
+        raise ValueError("more new leaves than the tree has")
     return out
 
 
@@ -138,6 +170,62 @@ def load_torch_checkpoint(path: str, device="cuda") -> dict:
     return params_from_torch_state_dict(state, device)
 
 
+def params_to_torch_state_dict(params: dict, table_dtype=None) -> dict:
+    """The parameter tree as a reference-compatible state dict of CPU
+    tensors (reference: stylize.py:255-260). MLP weights stay f32;
+    ``table_dtype`` (e.g. torch.float16) is the storage dtype of the encoder
+    tables only (they are read as bf16 packed tables at render time); it
+    halves a baked artifact. The pyramid tables have keys of their own
+    (``pyramid.grids.{i}``, ``pyramid.planes.{i}``): the reference has no
+    such encoder."""
+
+    def t(x):
+        return x.detach().to(device="cpu", dtype=torch.float32).clone()
+
+    def tt(x):
+        out = t(x)
+        return out.to(table_dtype) if table_dtype is not None else out
+
+    state = {}
+    if "table" in params:
+        state["encoder.embeddings"] = tt(params["table"])
+    else:
+        for i, g in enumerate(params.get("grids", [])):
+            state[f"pyramid.grids.{i}"] = tt(g)
+        for i, p in enumerate(params.get("planes", [])):
+            state[f"pyramid.planes.{i}"] = tt(p)
+    for l, layer in enumerate(params["sdf"]):
+        state[f"sdf_net.{l}.weight_v"] = t(layer["v"])
+        state[f"sdf_net.{l}.weight_g"] = t(layer["g"]).reshape(-1, 1)
+        state[f"sdf_net.{l}.bias"] = t(layer["b"])
+    for l, layer in enumerate(params["color"]):
+        state[f"color_net.{l}.weight_v"] = t(layer["v"])
+        state[f"color_net.{l}.weight_g"] = t(layer["g"]).reshape(-1, 1)
+    state["deviation_net.variance"] = t(params["variance"]).reshape(())
+    return state
+
+
+def save_torch_checkpoint(params: dict, path: str, table_dtype=None) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save(params_to_torch_state_dict(params, table_dtype), path)
+
+
+def safe_load_params(path: str, device="cuda") -> dict:
+    """The parameter tree of a ``.pth.tar`` file (reference:
+    utils/utils.py:284-315 safe_load_weights). A directory is an orbax
+    checkpoint of the JAX package, which the port does not read yet."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path} is a directory (an orbax checkpoint); reading orbax checkpoints is not "
+            "ported yet (ROADMAP item 15): save the parameters as .pth.tar"
+        )
+    return load_torch_checkpoint(path, device)
+
+
+def field_config_to_dict(fcfg: FieldConfig) -> dict:
+    return dataclasses.asdict(fcfg)
+
+
 def field_config_from_dict(d: dict) -> FieldConfig:
     d = dict(d)
     if "grid" in d:
@@ -191,11 +279,24 @@ def infer_field_config(params: dict) -> FieldConfig:
     return FieldConfig(**kw)
 
 
+def _sidecar_path(path: str) -> str:
+    return path + ".fieldcfg.json"
+
+
+def save_params_with_config(params: dict, path: str, fcfg: FieldConfig | None = None, table_dtype=None) -> None:
+    """save_torch_checkpoint plus a sidecar JSON with the FieldConfig (the
+    state dict itself stays reference-compatible)."""
+    save_torch_checkpoint(params, path, table_dtype)
+    if fcfg is not None:
+        with open(_sidecar_path(path), "w") as fp:
+            json.dump(field_config_to_dict(fcfg), fp, indent=1)
+
+
 def load_params_with_config(path: str, device="cuda"):
     """(params, FieldConfig) of a ``.pth.tar``. The config comes from the
     ``<path>.fieldcfg.json`` sidecar when present, else from the shapes."""
-    params = load_torch_checkpoint(path, device)
-    sidecar = path + ".fieldcfg.json"
+    params = safe_load_params(path, device)
+    sidecar = _sidecar_path(path)
     if os.path.isfile(sidecar):
         with open(sidecar) as fp:
             return params, field_config_from_dict(json.load(fp))

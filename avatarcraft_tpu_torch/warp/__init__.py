@@ -1,0 +1,15 @@
+from avatarcraft_tpu_torch.warp.warp import (
+    WarpData,
+    build_vertex_face_table,
+    closest_point_on_triangles,
+    make_warp_fn,
+    warp_samples_to_canonical,
+)
+
+__all__ = [
+    "WarpData",
+    "build_vertex_face_table",
+    "closest_point_on_triangles",
+    "make_warp_fn",
+    "warp_samples_to_canonical",
+]

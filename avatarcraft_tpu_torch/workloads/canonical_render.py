@@ -16,6 +16,7 @@ from avatarcraft_tpu_torch.models.instant_nsr import (
     FastRenderConfig,
     FieldConfig,
     materialize_field_tables,
+    network_field_fns,
     render_rays_fast,
 )
 from avatarcraft_tpu_torch.parallel.ring import all_gather_table
@@ -46,7 +47,7 @@ def make_fast_frame_renderer(
         with record_function("render.gather"):  # the all_gather_rows kernel
             full = splice(params_rest, all_gather_table(shards))
         with record_function("render.materialize"):
-            packed = materialize_field_tables(full, fcfg)
+            field = network_field_fns(full, fcfg, cfg.bound, materialize_field_tables(full, fcfg))
         n = rays_o.shape[0]
         pad = (-n) % chunk
         if pad:
@@ -56,7 +57,7 @@ def make_fast_frame_renderer(
         for i in range(0, n + pad, chunk):
             out = render_rays_fast(
                 full, rays_o[i : i + chunk], rays_d[i : i + chunk], fcfg, cfg,
-                density_grid, bg_color, packed,
+                density_grid, bg_color, field,
             )
             rgb.append(out["rgb"])
             depth.append(out["depth"])

@@ -36,6 +36,7 @@ from avatarcraft_tpu_torch.models.instant_nsr import (
     forward_sdf,
     init_field_params,
     materialize_field_tables,
+    network_field_fns,
     render_rays,
     render_rays_fast,
 )
@@ -171,7 +172,8 @@ def fast_loss(params: dict, rays_o, rays_d, gt_rgb, fcfg: FieldConfig, fast_cfg,
     """(loss, photo, eikonal) of the fast render: smooth-L1 photometric +
     eikonal_weight x eikonal. ``packed``: materialize_field_tables of
     ``params``, built by the caller."""
-    out = render_rays_fast(params, rays_o, rays_d, fcfg, fast_cfg, grid, bg, packed)
+    field = network_field_fns(params, fcfg, fast_cfg.bound, packed)
+    out = render_rays_fast(params, rays_o, rays_d, fcfg, fast_cfg, grid, bg, field)
     photo = smooth_l1(out["rgb"], gt_rgb)
     return photo + eikonal_weight * out["gradient_error"], photo, out["gradient_error"]
 

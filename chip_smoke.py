@@ -16,7 +16,10 @@ Phases, each printed with its start, end and wall seconds:
               kernel, its wrapper, plain version and library call with CUDA
               events (``kernel_ms``: the kernel alone, printed again as
               ``ms`` in the kernels line; ``wrapper_ms``: with the
-              wrapper's allocation and pointer copy);
+              wrapper's allocation and pointer copy), in a warm loop and
+              again with the L2 cache flushed before every call
+              (``kernel_cold_ms``, ``library_cold_ms``), as the main paths
+              find the table;
 4. main    -- the port's bench (avatarcraft_tpu_torch.bench.run): the baked
               artifact rendered at 256x256 from the 16 bench cameras with a
               derived, zero-clip sample budget; every frame finite; the
@@ -36,7 +39,16 @@ Phases, each printed with its start, end and wall seconds:
               bitwise equal, the 4-shard table gradient within twice the
               largest difference between two 1-shard runs (the encoder's
               backward adds with atomics); both table kernels launched;
-7. cpu     -- one 32x32 frame on the card and on the CPU (plain path),
+7. warp    -- the port's warp bench (avatarcraft_tpu_torch.bench.run_warp):
+              the artifact animated on the demo body by 4 demo poses at
+              256x256, 8192-ray chunks, 128 probes, K = 32, the derived
+              budget; every frame finite, zero-clip, the gather kernel
+              launched once per frame, TF32 off before and after; then the
+              lava style delta applied through utils.style_delta and demo
+              frame 10 rendered at 32x32 on the card and on the CPU: within
+              2e-3, red-dominant, and its difference from
+              tests/golden_styled_warp_32.npy printed;
+8. cpu     -- one 32x32 frame on the card and on the CPU (plain path),
               equal within 2e-3; the grid refresh (make_grid_update_fn) of
               the artifact's field with f32 tables, from zeros and as an EMA
               of the artifact's grid, on the card and on the CPU: within
@@ -54,6 +66,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import sys
 import time
 import traceback
@@ -68,12 +81,20 @@ from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig, RenderCon
 from avatarcraft_tpu_torch.parallel import ring
 from avatarcraft_tpu_torch.parallel.table_mp import TableMPTrainStep, trainable_shards
 from avatarcraft_tpu_torch.utils.checkpoint import leaves
-from avatarcraft_tpu_torch.utils import cuda_build
+from avatarcraft_tpu_torch.utils import cuda_build, style_delta
 from avatarcraft_tpu_torch.utils.device import card_line
+from avatarcraft_tpu_torch.warp import WarpData
 from avatarcraft_tpu_torch.workloads import reconstruct
 from avatarcraft_tpu_torch.workloads.canonical_render import make_fast_frame_renderer
+from avatarcraft_tpu_torch.workloads.warp_render import (
+    WarpRenderSettings,
+    derive_warp_budget,
+    make_warp_frame_renderer_fast,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+# written between timed calls to evict the table from the 50 MB L2 cache
+FLUSH_BYTES = 256 * 2**20
 CARD_VS_CPU_ATOL = 2e-3  # the pin tests/test_styled_warp.py:112 holds JAX to
 # a train step, card against CPU: the losses (f32 sums in other orders) and
 # the MLP and variance gradients, per leaf against its max|g|: the packed
@@ -89,6 +110,10 @@ REFRESH_ATOL = 512.0**2 / 4 * 1e-6
 # a refreshed grid of a field with a surface: neither empty nor saturated
 MIN_OCCUPIED_SHARE, MAX_OCCUPIED_SHARE = 1e-3, 0.5
 GRID_ROWS, GRID_COLS = 128**3, 4  # the artifact's finest grid as a table
+HERE = os.path.dirname(os.path.abspath(__file__))
+LAVA_DELTA = os.path.join(HERE, "artifacts", "styled", "multi_lava_delta.npz")
+STYLED_GOLDEN = os.path.join(HERE, "tests", "golden_styled_warp_32.npy")
+STYLED_RES, STYLED_FRAME = 32, 10  # tests/test_styled_warp.py:56-84
 KERNELS = {
     ring.KERNEL: {
         "route": "cuda",
@@ -131,6 +156,23 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_ms_cold(fn, iters: int = 20, warmup: int = 2) -> float:
+    """Mean milliseconds per call with the L2 cache flushed before each
+    call (a FLUSH_BYTES write, outside the timed span): CUDA events around
+    each call, summed."""
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    for _ in range(warmup):
+        fn()
+    spans = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for i, (start, end) in enumerate(spans):
+        flush.fill_(float(i))
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in spans) / iters
 
 
 def check_device() -> dict:
@@ -188,11 +230,15 @@ def check_gather_kernel() -> dict:
         nbytes = 2 * GRID_ROWS * GRID_COLS * 4  # read every shard once, write the table once
         ptrs = ring.pointer_array(shards)
         out = torch.empty(GRID_ROWS, GRID_COLS, device="cuda")
+        kernel = lambda: ring.launch(ptrs, out, GRID_ROWS // n, GRID_COLS * 4, n)  # noqa: E731
+        library = lambda: torch.cat(shards, dim=0)  # noqa: E731
         t = {
-            "kernel_ms": cuda_ms(lambda: ring.launch(ptrs, out, GRID_ROWS // n, GRID_COLS * 4, n)),
+            "kernel_ms": cuda_ms(kernel),
             "wrapper_ms": cuda_ms(lambda: ring.all_gather_rows(shards)),
             "plain_ms": cuda_ms(lambda: ring.all_gather_rows_plain(shards)),
-            "library_ms": cuda_ms(lambda: torch.cat(shards, dim=0)),
+            "library_ms": cuda_ms(library),
+            "kernel_cold_ms": cuda_ms_cold(kernel),
+            "library_cold_ms": cuda_ms_cold(library),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
         }
         print(f"all_gather_rows n={n} [{GRID_ROWS},{GRID_COLS}] f32: " + json.dumps(t), flush=True)
@@ -234,11 +280,15 @@ def check_reduce_scatter_kernel() -> dict:
         outs = [torch.empty(GRID_ROWS // n, GRID_COLS, device="cuda") for _ in range(n)]
         ptrs = ring.pointer_array(cts + outs)
         nbytes = (m + 1) * GRID_ROWS * GRID_COLS * 4  # read m tables, write one table's worth
+        kernel = lambda: ring.launch_reduce_scatter(ptrs, GRID_ROWS // n, GRID_COLS, m, n)  # noqa: E731
+        library = lambda: [c.contiguous() for c in torch.stack(cts).sum(0).chunk(n)]  # noqa: E731
         t = {
-            "kernel_ms": cuda_ms(lambda: ring.launch_reduce_scatter(ptrs, GRID_ROWS // n, GRID_COLS, m, n)),
+            "kernel_ms": cuda_ms(kernel),
             "wrapper_ms": cuda_ms(lambda: ring.reduce_scatter_rows(cts, n)),
             "plain_ms": cuda_ms(lambda: ring.reduce_scatter_rows_plain(cts, n)),
-            "library_ms": cuda_ms(lambda: [c.contiguous() for c in torch.stack(cts).sum(0).chunk(n)]),
+            "library_ms": cuda_ms(library),
+            "kernel_cold_ms": cuda_ms_cold(kernel),
+            "library_cold_ms": cuda_ms_cold(library),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
         }
         print(f"reduce_scatter_rows m={m} n={n} [{GRID_ROWS},{GRID_COLS}] f32: " + json.dumps(t), flush=True)
@@ -359,6 +409,64 @@ def check_table_mp() -> dict:
     return launches
 
 
+def _require_full_f32(when: str) -> None:
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError(f"TF32 matrix products are on {when}: the warp's kNN needs full f32")
+
+
+def check_warp_path() -> dict:
+    """The warp bench: 4 demo frames at 256x256, each finite, zero-clip
+    (bench.run_warp raises otherwise) and not empty; the gather kernel
+    launched once per frame."""
+    _require_full_f32("before the warp path")
+    _reset_launches()
+    result = bench.run_warp("cuda")
+    launches = _read_launches("warp", [ring.KERNEL])
+    _require_full_f32("after the warp path")
+    frames = result.pop("frames")
+    if launches[ring.KERNEL] != len(frames):
+        raise AssertionError(f"warp: {launches[ring.KERNEL]} gather launches for {len(frames)} frames")
+    for i, f in enumerate(frames):
+        if f.shape != (bench.RES, bench.RES, 3) or not torch.isfinite(f).all():
+            raise AssertionError(f"warp frame {i}: shape {tuple(f.shape)} or non-finite values")
+        if not (f < 0.99).any():
+            raise AssertionError(f"warp frame {i} is empty: the body was not rendered")
+    print("bench warp: " + json.dumps(result), flush=True)
+    print(f"warp path: {result['value']:.1f} rays/s, peak memory {result['peak_memory_gib']:.2f} GiB", flush=True)
+    return launches
+
+
+def check_styled_warp() -> None:
+    """The lava delta applied through the port's style_delta; demo frame 10
+    at 32x32 from the warp view on the card and on the CPU, with the budget
+    derived on the CPU: within CARD_VS_CPU_ATOL, the foreground
+    red-dominant (tests/test_styled_warp.py:97-102)."""
+    model, world_verts, Ts = bench.demo_frames(1, first=STYLED_FRAME)
+    settings = WarpRenderSettings(chunk=STYLED_RES * STYLED_RES)
+    imgs, budget = {}, None
+    for device in ("cpu", "cuda"):
+        base, _, _, _ = bench.load_artifact(device)
+        styled, fcfg, _ = style_delta.apply_delta(base, LAVA_DELTA)
+        ro, rd = pose2rays(STYLED_RES, STYLED_RES, bench.warp_view(), device=device)
+        if budget is None:
+            budget = derive_warp_budget(world_verts, ro, rd, settings)
+        render = make_warp_frame_renderer_fast(styled, fcfg, settings, budget)
+        rgb = render(ro, rd, WarpData.create(world_verts[0], model.faces, Ts[0], device))
+        imgs[device] = rgb.reshape(STYLED_RES, STYLED_RES, 3).cpu().numpy()
+    card, cpu = imgs["cuda"], imgs["cpu"]
+    err = float(np.abs(card - cpu).max())
+    golden = float(np.abs(card - np.load(STYLED_GOLDEN)).max())
+    fg = card[np.abs(card - 1.0).sum(-1) > 0.15]
+    red, blue = (float(fg[:, c].mean()) if len(fg) else 0.0 for c in (0, 2))
+    print(f"styled warp frame {STYLED_FRAME} at {STYLED_RES}x{STYLED_RES}, budget {budget}: card vs CPU max abs "
+          f"diff {err:.3g} (atol {CARD_VS_CPU_ATOL}); card vs tests/golden_styled_warp_32.npy {golden:.3g}; "
+          f"{len(fg)} foreground pixels, mean red {red:.3f}, blue {blue:.3f}", flush=True)
+    if not (np.isfinite(card).all() and err <= CARD_VS_CPU_ATOL):
+        raise AssertionError(f"styled warp frame: card and CPU differ by {err}")
+    if not (len(fg) > 30 and red > blue + 0.1):
+        raise AssertionError("styled warp frame: the lava foreground is not red-dominant")
+
+
 def check_card_vs_cpu() -> None:
     pose = bench.bench_poses()[0]
     frames = {}
@@ -466,6 +574,9 @@ def main() -> int:
             paths["train_fast"] = check_train_fast()
         with Phase("tablemp"):
             paths["table_mp"] = check_table_mp()
+        with Phase("warp"):
+            paths["warp"] = check_warp_path()
+            check_styled_warp()
         with Phase("cpu"):
             check_card_vs_cpu()
             check_refresh_card_vs_cpu()
@@ -491,6 +602,8 @@ def main() -> int:
             "bound_ms": m["bound_ms"],
             "bound_by": "bytes",
             "library_ms": m["library_ms"],
+            "kernel_cold_ms": m["kernel_cold_ms"],  # L2 flushed before each call
+            "library_cold_ms": m["library_cold_ms"],
         })
     print(f"chip_smoke: all phases ok in {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,11 @@
-"""Checkpoint loading of the PyTorch port against the JAX package, on the
-CPU. Tolerance: none for stored values; both sides upcast the same stored
-values to f32, so every such leaf is equal exactly."""
+"""Checkpoints of the PyTorch port against the JAX package, on the CPU:
+loading, saving (the port writes, the JAX package reads), sidecars, and the
+JAX package's leaf order. Tolerance: none for stored values; both sides
+upcast the same stored values to f32 (and round tables to fp16 the same
+way), so every such leaf is equal exactly."""
 
 import dataclasses
+import json
 import os
 
 import jax
@@ -119,3 +122,86 @@ def test_state_dict_round_trip_exact(tmp_path):
         ckpt.params_from_torch_state_dict(state, device="cpu"), jckpt.params_from_torch_state_dict(state),
         rtol=2**-22,
     )
+
+
+def _small_port_params(seed=0):
+    from avatarcraft_tpu_torch.models import instant_nsr as nsr
+
+    fcfg = nsr.FieldConfig(encoder="tpu_pyramid", pyramid=nsr.PyramidSpec(
+        grid_resolutions=(4, 8), grid_dim=2, plane_resolutions=(9,), plane_dim=2))
+    return nsr.init_field_params(torch.Generator().manual_seed(seed), fcfg), fcfg
+
+
+@pytest.mark.parametrize("table_dtype", [None, torch.float16])
+def test_port_writes_what_jax_reads(tmp_path, table_dtype):
+    """The port's save_params_with_config, read by the JAX package's
+    load_params_with_config: every leaf equal (f32 MLPs; the tables f32, or
+    rounded to fp16 once on writing), the sidecar's FieldConfig equal, and
+    the state dict equal to the one the JAX package writes of the same
+    tree."""
+    params, fcfg = _small_port_params()
+    path = str(tmp_path / "port.pth.tar")
+    ckpt.save_params_with_config(params, path, fcfg, table_dtype=table_dtype)
+    jparams, jfcfg = jckpt.load_params_with_config(path)
+    tables = {"grids", "planes"}
+    rounded = {
+        k: ([t.to(table_dtype).float() for t in v] if k in tables and table_dtype is not None else v)
+        for k, v in params.items()
+    }
+    _assert_same_tree(jax.tree_util.tree_map(lambda x: torch.as_tensor(np.array(x)), jparams), rounded)
+    assert jckpt.field_config_to_dict(jfcfg) == ckpt.field_config_to_dict(fcfg)
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    jstate = jckpt.params_to_torch_state_dict(jax.tree_util.tree_map(lambda t: t.numpy(), params), table_dtype)
+    assert state.keys() == jstate.keys()
+    for k in jstate:
+        assert state[k].dtype == jstate[k].dtype and state[k].shape == jstate[k].shape, k
+        assert torch.equal(state[k], jstate[k]), k
+    assert state["pyramid.planes.0"].dtype == (table_dtype or torch.float32)
+    assert state["sdf_net.0.weight_v"].dtype == torch.float32
+
+
+def test_sidecar_round_trip(tmp_path):
+    """The port's sidecar reads back as the same config in both packages;
+    without a config no sidecar is written and the config is inferred."""
+    params, fcfg = _small_port_params(1)
+    fcfg = dataclasses.replace(fcfg, packed_dtype="float32", mlp_dtype="bfloat16")
+    path = str(tmp_path / "with.pth.tar")
+    ckpt.save_params_with_config(params, path, fcfg)
+    with open(path + ".fieldcfg.json") as fp:
+        side = json.load(fp)
+    assert side == json.loads(json.dumps(jckpt.field_config_to_dict(jckpt.field_config_from_dict(side))))
+    got, got_cfg = ckpt.load_params_with_config(path, device="cpu")
+    assert got_cfg == fcfg and _same_config(jckpt.load_params_with_config(path)[1], got_cfg)
+    _assert_same_tree(got, params)
+    bare = str(tmp_path / "bare.pth.tar")
+    ckpt.save_params_with_config(params, bare)
+    assert not os.path.exists(bare + ".fieldcfg.json")
+    assert ckpt.load_params_with_config(bare, device="cpu")[1] == ckpt.infer_field_config(params)
+
+
+def test_safe_load_params_refuses_orbax_dir(tmp_path):
+    params, _ = _small_port_params()
+    path = str(tmp_path / "p.pth.tar")
+    ckpt.save_torch_checkpoint(params, path)
+    _assert_same_tree(ckpt.safe_load_params(path, device="cpu"), params)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+        ckpt.safe_load_params(str(tmp_path), device="cpu")
+
+
+def test_sorted_leaves_follow_jax_flatten_order():
+    """sorted_leaves lists a tree's leaves in jax.tree_util.tree_flatten's
+    order (dict keys sorted, None skipped); replace_sorted_leaves puts new
+    leaves back in that order and keeps the tree's own key order."""
+    params, _ = _small_port_params()
+    tree = {"z": params["variance"], **params, "a": [None, {"y": torch.ones(2), "b": torch.zeros(3)}]}
+    want = jax.tree_util.tree_leaves(jax.tree_util.tree_map(lambda t: t.numpy(), tree))
+    got = ckpt.sorted_leaves(tree)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    new = [torch.full_like(t, float(i)) for i, t in enumerate(got)]
+    rebuilt = ckpt.replace_sorted_leaves(tree, new)
+    assert list(rebuilt) == list(tree) and rebuilt["a"][0] is None
+    assert all(torch.equal(a, b) for a, b in zip(ckpt.sorted_leaves(rebuilt), new))
+    with pytest.raises(ValueError):
+        ckpt.replace_sorted_leaves(tree, new + [torch.zeros(1)])

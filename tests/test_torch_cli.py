@@ -1,6 +1,9 @@
-"""render_canonical_cli of the PyTorch port: the fast sampler renders the
-committed artifact to PNG on the CPU; what is not ported yet refuses with a
-message that says so."""
+"""The PyTorch port's CLIs: render_canonical_cli's fast sampler renders
+the committed artifact to PNG on the CPU; render_warp_cli's fast sampler
+renders a small field that the port saved, animated on the synthetic body,
+from a camera of a tiny dataset written here, equal within one 8-bit level
+to the JAX package's CLI; what is not ported yet refuses with a message
+that names its ROADMAP item."""
 
 import os
 
@@ -87,3 +90,66 @@ def test_renders_with_refreshed_grid(tmp_path, capsys):
 
     img = _read_png(str(tmp_path / "canonical_360" / "r" / "r_body_can_0000.png"))
     assert img.shape == (10, 10, 3) and (img < 250).any()  # the surface, not only background
+
+
+WARP_ROOT_ARGS = ["--sampler", "fast", "--use_cuda", "false", "--smpl_path", "synthetic", "--render_type",
+                  "interp_shape", "--max_frames", "1", "--resolution", "128", "--render_view", "0"]
+
+
+@pytest.fixture
+def warp_inputs(tmp_path):
+    """A one-view 128x128 Blender set (camera 2.5 in front of the body,
+    looking at it) and a small field saved by the port with its sidecar:
+    the pyramid encoder at toy widths, f32 tables, the SDF shifted to a
+    closed surface of radius ~0.3 around the origin."""
+    import torch
+
+    from avatarcraft_tpu_torch.models import instant_nsr as nsr
+    from avatarcraft_tpu_torch.utils.checkpoint import save_params_with_config
+    from test_torch_dataset import write_blender_set
+
+    rng = np.random.default_rng(0)
+    pose = np.eye(4, dtype=np.float32)
+    pose[2, 3] = 2.5
+    write_blender_set(str(tmp_path / "set"), rng.integers(0, 256, size=(1, 128, 128, 3), dtype=np.uint8), [pose])
+    fcfg = nsr.FieldConfig(encoder="tpu_pyramid", packed_dtype="float32",
+                           pyramid=nsr.PyramidSpec(grid_resolutions=(4, 8), grid_dim=2, plane_resolutions=(17,),
+                                                   plane_dim=2))
+    params = nsr.init_field_params(torch.Generator().manual_seed(0), fcfg)
+    params["sdf"][-1]["b"][0] -= 0.3
+    ckpt = str(tmp_path / "small.pth.tar")
+    save_params_with_config(params, ckpt, fcfg)
+    return ["--weights_path", ckpt, "--data_path", str(tmp_path / "set"), "--out_dir", str(tmp_path)]
+
+
+@pytest.mark.parametrize("extra,msg", [
+    (["--sampler", "parity"], "parity is not ported yet \\(ROADMAP item 19"),
+    (["--implicit_model", "neus"], "neus is not ported yet \\(ROADMAP item 20"),
+    (["--implicit_model", "nerf"], "nerf is not ported yet \\(ROADMAP item 20"),
+])
+def test_warp_cli_unported_options_refuse(extra, msg, tmp_path):
+    from avatarcraft_tpu_torch.cli import render_warp_cli
+
+    with pytest.raises(SystemExit, match=msg):
+        render_warp_cli.main(["--weights_path", "w", "--use_cuda", "false", "--out_dir", str(tmp_path)] + extra)
+
+
+def test_warp_cli_renders_pngs_on_cpu(warp_inputs, tmp_path):
+    """render_warp_cli --sampler fast on the CPU writes one PNG per frame,
+    the body over the white background, equal within one level to the
+    JAX package's CLI on the same inputs (it reads the port's checkpoint)."""
+    from avatarcraft_tpu.cli import render_warp_cli as jax_cli
+    from avatarcraft_tpu_torch.cli import render_warp_cli
+    from avatarcraft_tpu_torch.utils.png import read_png
+    from test_torch_guards import _read_png
+
+    render_warp_cli.main(warp_inputs + WARP_ROOT_ARGS + ["--exp_name", "w"])
+    out = tmp_path / "test_views" / "w"
+    assert sorted(os.listdir(out)) == ["w_0000.png"]
+    img = _read_png(str(out / "w_0000.png"))
+    assert img.shape == (128, 128, 3)
+    assert (img < 250).any() and (img == 255).any()  # the body on a white background
+
+    jax_cli.main(warp_inputs + WARP_ROOT_ARGS + ["--exp_name", "j"])
+    want = read_png(str(tmp_path / "test_views" / "j" / "j_0000.png"))  # written by Pillow, with row filters
+    assert np.abs(img.astype(int) - want.astype(int)).max() <= 1

@@ -33,6 +33,16 @@ TRAIN_MODULES = (
     "avatarcraft_tpu_torch.workloads.reconstruct",
     "avatarcraft_tpu_torch.profile_train",
 )
+# modules of the animate / reshape slice
+WARP_MODULES = (
+    "avatarcraft_tpu_torch.models.smpl",
+    "avatarcraft_tpu_torch.data.amass",
+    "avatarcraft_tpu_torch.data.smpl_dataset",
+    "avatarcraft_tpu_torch.warp.warp",
+    "avatarcraft_tpu_torch.workloads.warp_render",
+    "avatarcraft_tpu_torch.cli.render_warp_cli",
+    "avatarcraft_tpu_torch.utils.style_delta",
+)
 
 
 def _env_without_repo():
@@ -51,13 +61,52 @@ import avatarcraft_tpu_torch
 for m in pkgutil.walk_packages(avatarcraft_tpu_torch.__path__, "avatarcraft_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-missing = [m for m in {TRAIN_MODULES!r} if m not in sys.modules]
+missing = [m for m in {TRAIN_MODULES + WARP_MODULES!r} if m not in sys.modules]
 print("imports ok" if not missing else f"not imported: {{missing}}")
 """
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
                          cwd=REPO, env=_env_without_repo())
     assert res.returncode == 0, res.stderr
     assert "imports ok" in res.stdout
+
+
+def test_nothing_turns_tf32_on():
+    """The warp's nearest-vertex distances cancel badly under TF32, so no
+    source of the port or chip_smoke.py may turn TF32 matrix products on
+    (chip_smoke.py turns them off and checks it around the warp path), and
+    a warp frame leaves the flags as it found them."""
+    sources = list(_port_sources()) + [os.path.join(REPO, "chip_smoke.py")]
+    for path in sources:
+        with open(path) as fp:
+            text = fp.read()
+        assert not re.search(r"allow_tf32\s*=\s*True", text), path
+        assert "set_float32_matmul_precision" not in text and "fp32_precision" not in text, path
+    with open(os.path.join(REPO, "chip_smoke.py")) as fp:
+        smoke = fp.read()
+    assert "torch.backends.cuda.matmul.allow_tf32 = False" in smoke
+    assert '_require_full_f32("after the warp path")' in smoke
+
+    from avatarcraft_tpu_torch.models import instant_nsr as nsr
+    from avatarcraft_tpu_torch.models.smpl import synthetic_smpl_params
+    from avatarcraft_tpu_torch.warp import WarpData
+    from avatarcraft_tpu_torch.workloads import warp_render
+
+    model = synthetic_smpl_params(0, n_verts=40, n_joints=6)
+    wv, Ts, _ = warp_render.calc_local_trans(model, render_type="interp_shape", max_frames=1)
+    fcfg = nsr.FieldConfig(encoder="tpu_pyramid", packed_dtype="float32",
+                           pyramid=nsr.PyramidSpec(grid_resolutions=(4,), grid_dim=2, plane_resolutions=(9,),
+                                                   plane_dim=2))
+    params = nsr.init_field_params(torch.Generator().manual_seed(0), fcfg)
+    before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+              torch.get_float32_matmul_precision())
+    render = warp_render.make_warp_frame_renderer_fast(params, fcfg, warp_render.WarpRenderSettings(), 0)
+    o = torch.tensor([[0.0, 0.0, 2.0]]).expand(8, 3).contiguous()
+    rgb = render(o, torch.tensor([[0.0, 0.0, -1.0]]).expand(8, 3).contiguous(),
+                 WarpData.create(wv[0], model.faces, Ts[0], "cpu"))
+    assert rgb.shape == (8, 3) and torch.isfinite(rgb).all()
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+            torch.get_float32_matmul_precision()) == before
+    assert before[0] is False and before[2] == "highest"
 
 
 def _port_sources():

@@ -121,5 +121,5 @@ def test_render_rays_perturb_and_unported_options():
     assert torch.equal(a["rgb"], b["rgb"]) and torch.isfinite(a["rgb"]).all()
     with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
         nsr.render_rays(params, _t(ro), _t(rd), fcfg, nsr.RenderConfig(curvature_loss=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
         nsr.render_rays(params, _t(ro), _t(rd), fcfg, rcfg, warp_fn=lambda pts: (pts, None, None))
