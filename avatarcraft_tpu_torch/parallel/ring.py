@@ -9,9 +9,11 @@ Two hand-written CUDA kernels, each behind a wrapper that takes its plain
 version only for tensors on the CPU; a CUDA tensor launches the kernel or
 raises:
 
-* ``all_gather_rows`` (``csrc/all_gather_rows.cu``), the forward: a direct
-  gather (on one card all shards lie on it, so the ring's barrier and acks
-  have nothing to order). Plain version: ``torch.cat``.
+* ``all_gather_rows`` (``csrc/all_gather_rows.cu``), the forward: a copy of
+  the shards into one table (on one card all shards lie on it, so the ring's
+  barrier and acks have nothing to order), with the shard pointers passed by
+  value in the launch's parameters (at most ``MAX_SHARDS``), one wave of
+  equal spans and TMA bulk copies. Plain version: ``torch.cat``.
 * ``reduce_scatter_rows`` (``csrc/reduce_scatter_rows.cu``), the backward:
   the m replicas' cotangent tables summed in replica order and split into
   the n shard gradients. Plain version: the same f32 adds in the same
@@ -33,6 +35,8 @@ from avatarcraft_tpu_torch.utils.cuda_build import load_library
 
 KERNEL = "all_gather_rows"
 RS_KERNEL = "reduce_scatter_rows"
+# the gather kernel's by-value pointer table (csrc/all_gather_rows.cu kMaxShards)
+MAX_SHARDS = 128
 
 # launches of each CUDA kernel in this process; only the launch functions
 # add to them
@@ -68,8 +72,7 @@ def _library(name: str) -> ctypes.CDLL:
     lib = load_library(name)
     if name == KERNEL:
         lib.all_gather_rows.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
         ]
     else:
         lib.reduce_scatter_rows.argtypes = [
@@ -84,9 +87,10 @@ def _library(name: str) -> ctypes.CDLL:
 
 
 def pointer_array(tensors) -> torch.Tensor:
-    """The device array of the tensors' data pointers that a kernel reads,
-    copied from pinned memory without blocking the host (the caching host
-    allocator keeps the pinned block until the copy on this stream ran)."""
+    """The device array of the tensors' data pointers that
+    reduce_scatter_rows reads, copied from pinned memory without blocking the
+    host (the caching host allocator keeps the pinned block until the copy on
+    this stream ran)."""
     ptrs = torch.tensor([t.data_ptr() for t in tensors], dtype=torch.int64).pin_memory()
     return ptrs.to(tensors[0].device, non_blocking=True)
 
@@ -98,12 +102,18 @@ def _checked(name: str, rc: int) -> None:
     launches[name] += 1
 
 
-def launch(ptrs: torch.Tensor, out: torch.Tensor, rows: int, row_bytes: int, n: int) -> None:
-    """Launch all_gather_rows on the current stream: n shards of ``rows``
-    rows of ``row_bytes`` bytes, their pointers in ``ptrs``, into ``out``.
-    Counts the launch; raises if CUDA refuses it."""
+def shard_pointers(shards):
+    """The shards' data pointers as the host array that the gather's launch
+    copies into its parameters."""
+    return (ctypes.c_void_p * len(shards))(*(t.data_ptr() for t in shards))
+
+
+def launch(ptrs, out: torch.Tensor, shard_bytes: int) -> None:
+    """Launch all_gather_rows on the current stream: the shards of
+    ``shard_bytes`` bytes whose pointers ``ptrs`` holds (``shard_pointers``)
+    into ``out``. Counts the launch; raises if CUDA refuses it."""
     stream = torch.cuda.current_stream(out.device).cuda_stream
-    rc = _library(KERNEL).all_gather_rows(ptrs.data_ptr(), out.data_ptr(), rows, row_bytes, n, stream)
+    rc = _library(KERNEL).all_gather_rows(ptrs, len(ptrs), out.data_ptr(), shard_bytes, stream)
     _checked(KERNEL, rc)
 
 
@@ -117,15 +127,18 @@ def launch_reduce_scatter(ptrs: torch.Tensor, rows: int, cols: int, m: int, n: i
 
 
 def all_gather_rows(shards) -> torch.Tensor:
-    """Gather equal [S, F] shards, all on one device, into [n*S, F]."""
+    """Gather equal [S, F] shards, all on one device, into [n*S, F]; at
+    most MAX_SHARDS of them."""
     shards = list(shards)
     _check_tables(shards, KERNEL)
+    if len(shards) > MAX_SHARDS:
+        raise ValueError(f"{KERNEL} takes at most MAX_SHARDS = {MAX_SHARDS} shards, got {len(shards)}")
     first = shards[0]
     if first.device.type == "cpu":
         return all_gather_rows_plain(shards)
-    rows, cols = first.shape
-    out = torch.empty((len(shards) * rows, cols), dtype=first.dtype, device=first.device)
-    launch(pointer_array(shards), out, rows, cols * first.element_size(), len(shards))
+    out = torch.empty((len(shards) * first.shape[0], first.shape[1]), dtype=first.dtype, device=first.device)
+    if out.numel():
+        launch(shard_pointers(shards), out, first.numel() * first.element_size())
     return out
 
 

@@ -14,9 +14,10 @@ kernels' and copies' durations) and the idle share, the device ms per frame
 of each ``render.*`` profiler range (the stage a future kernel takes over),
 and the kernels that take most device time. Needs a CUDA card.
 
-The gather kernel is launched through ctypes, so the profiler does not
-attribute it to the ``render.gather`` range; its own device time (the
-events named ``gather_rows_kernel``) is added to that stage.
+The gather kernel is launched through ctypes, and the profiler ties it to
+the ops around it once, twice or not at all: the ranges leave it out, and
+its own device events (named ``gather_rows_kernel``) are added to
+``render.gather``, each once (``device_us_without``, ``kernel_device_us``).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from torch.profiler import ProfilerActivity, profile
 from avatarcraft_tpu_torch import bench
 from avatarcraft_tpu_torch.cameras import pose2rays
 from avatarcraft_tpu_torch.utils.device import card_line
+from avatarcraft_tpu_torch.utils.timing import device_us_without, kernel_device_us
 from avatarcraft_tpu_torch.warp import WarpData
 from avatarcraft_tpu_torch.workloads.canonical_render import make_fast_frame_renderer
 from avatarcraft_tpu_torch.workloads.warp_render import (
@@ -97,10 +99,10 @@ def main(argv=None) -> dict:
     ]
     busy_us = sum(e.time_range.elapsed_us() for e in device_events)
     stages = {}
-    for e in prof.key_averages():
-        if e.key.startswith("render.") and e.device_type == DeviceType.CPU:
-            stages[e.key] = e.device_time_total / 1e3 / n
-    gather_us = sum(e.time_range.elapsed_us() for e in device_events if GATHER_KERNEL in e.name)
+    for e in prof.events():
+        if e.name.startswith("render.") and e.device_type == DeviceType.CPU:
+            stages[e.name] = stages.get(e.name, 0.0) + device_us_without(e, (GATHER_KERNEL,)) / 1e3 / n
+    gather_us = kernel_device_us(prof.events(), GATHER_KERNEL)
     stages["render.gather"] = stages.get("render.gather", 0.0) + gather_us / 1e3 / n
     kernels = sorted(
         (

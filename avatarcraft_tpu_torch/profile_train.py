@@ -33,6 +33,7 @@ from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig, init_fiel
 from avatarcraft_tpu_torch.parallel.table_mp import trainable_shards
 from avatarcraft_tpu_torch.utils.checkpoint import leaves
 from avatarcraft_tpu_torch.utils.device import card_line
+from avatarcraft_tpu_torch.utils.timing import device_us_without, kernel_device_us
 from avatarcraft_tpu_torch.workloads.canonical_render import make_fast_frame_renderer
 from avatarcraft_tpu_torch.workloads.reconstruct import (
     ImageSet,
@@ -96,26 +97,22 @@ def _phase_device_ms(prof) -> dict:
     real step's ranges: the kernels launched inside each range on the
     calling thread, plus, for ``train.backward``, every kernel that the
     autograd engine's own threads launched; the two table kernels are
-    launched through ctypes, so where the profiler ties them to no range
-    they are added by name (the gather to ``train.gather``, the
-    reduce-scatter to ``train.backward``)."""
+    launched through ctypes, and the profiler ties them to the ops around
+    them once, twice or not at all, so the ranges leave them out and their
+    own device events are added, each once (the gather to
+    ``train.gather``, the reduce-scatter to ``train.backward``)."""
     events = prof.events()
     ranges = [e for e in events if e.name.startswith("train.") and e.device_type == DeviceType.CPU]
     main_thread = ranges[0].thread
     ms = dict.fromkeys(PHASES, 0.0)
     for e in ranges:
-        ms[e.name[len("train."):]] += e.device_time_total / 1e3
+        ms[e.name[len("train."):]] += device_us_without(e, KERNEL_EVENTS) / 1e3
     ms["backward"] += sum(
-        e.device_time_total for e in events
+        device_us_without(e, KERNEL_EVENTS) for e in events
         if e.device_type == DeviceType.CPU and e.thread != main_thread and e.cpu_parent is None
     ) / 1e3
-    tied = {k.name for e in events if e.device_type == DeviceType.CPU for k in e.kernels}
     for name, phase in zip(KERNEL_EVENTS, ("gather", "backward")):
-        if name not in tied:
-            ms[phase] += sum(
-                e.time_range.elapsed_us() for e in events
-                if e.device_type == DeviceType.CUDA and name in e.name
-            ) / 1e3
+        ms[phase] += kernel_device_us(events, name) / 1e3
     return ms
 
 

@@ -9,17 +9,23 @@ Phases, each printed with its start, end and wall seconds:
               card count and nvidia-smi's name and power limit;
 2. build   -- nvcc builds every kernel of csrc/ into avatarcraft_tpu_torch/_build;
 3. kernel  -- all_gather_rows against its plain version (torch.cat) for
-              1/2/4/8 shards of the 128^3 x 4 grid table in f32 and fp16 and
-              two ragged cases, and reduce_scatter_rows against its plain
-              version for m = 1/2/4 replicas x n = 1/2/4/8 shards of that
-              table in f32 and two ragged cases: bitwise equal; times each
-              kernel, its wrapper, plain version and library call with CUDA
-              events (``kernel_ms``: the kernel alone, printed again as
-              ``ms`` in the kernels line; ``wrapper_ms``: with the
-              wrapper's allocation and pointer copy), in a warm loop and
-              again with the L2 cache flushed before every call
+              1/2/4/8 shards of the 128^3 x 4 grid table in f32 and fp16,
+              the 128-shard cap, 5 shards (spans across shard boundaries)
+              and ragged and misaligned cases (through the wrapper, and
+              launched over an output of all-ones bytes), and reduce_scatter_rows
+              against its plain version for m = 1/2/4 replicas x n =
+              1/2/4/8 shards of that table in f32 and two ragged cases:
+              bitwise equal; the gather's wrapper puts no host-to-device
+              copy on the card (torch.profiler); times each kernel, its
+              wrapper, plain version and library call with CUDA events
+              (``kernel_ms``: the kernel alone, printed again as ``ms`` in
+              the kernels line; ``wrapper_ms``: with the wrapper's
+              allocation and pointer handling), in a warm loop and again
+              with the L2 cache flushed before every call
               (``kernel_cold_ms``, ``library_cold_ms``), as the main paths
-              find the table;
+              find the table, and the profiler's device time of what each
+              call launches in that cold loop (``kernel_cold_device_ms``,
+              ``library_cold_device_ms``);
 4. main    -- the port's bench (avatarcraft_tpu_torch.bench.run): the baked
               artifact rendered at 256x256 from the 16 bench cameras with a
               derived, zero-clip sample budget; every frame finite; the
@@ -83,6 +89,7 @@ from avatarcraft_tpu_torch.parallel.table_mp import TableMPTrainStep, trainable_
 from avatarcraft_tpu_torch.utils.checkpoint import leaves
 from avatarcraft_tpu_torch.utils import cuda_build, style_delta
 from avatarcraft_tpu_torch.utils.device import card_line
+from avatarcraft_tpu_torch.utils.timing import cold_device_ms, cuda_ms, cuda_ms_cold, device_names
 from avatarcraft_tpu_torch.warp import WarpData
 from avatarcraft_tpu_torch.workloads import reconstruct
 from avatarcraft_tpu_torch.workloads.canonical_render import make_fast_frame_renderer
@@ -93,8 +100,6 @@ from avatarcraft_tpu_torch.workloads.warp_render import (
 )
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
-# written between timed calls to evict the table from the 50 MB L2 cache
-FLUSH_BYTES = 256 * 2**20
 CARD_VS_CPU_ATOL = 2e-3  # the pin tests/test_styled_warp.py:112 holds JAX to
 # a train step, card against CPU: the losses (f32 sums in other orders) and
 # the MLP and variance gradients, per leaf against its max|g|: the packed
@@ -144,37 +149,6 @@ class Phase:
         return False
 
 
-def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean milliseconds per call from CUDA events around ``iters`` calls."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def cuda_ms_cold(fn, iters: int = 20, warmup: int = 2) -> float:
-    """Mean milliseconds per call with the L2 cache flushed before each
-    call (a FLUSH_BYTES write, outside the timed span): CUDA events around
-    each call, summed."""
-    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
-    for _ in range(warmup):
-        fn()
-    spans = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    for i, (start, end) in enumerate(spans):
-        flush.fill_(float(i))
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return sum(start.elapsed_time(end) for start, end in spans) / iters
-
-
 def check_device() -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: this check needs a CUDA card")
@@ -196,31 +170,66 @@ def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.view(int_of), b.view(int_of))
 
 
+def _gather_over_sentinel(shards) -> torch.Tensor:
+    """The gather kernel's output written over all-ones bytes (NaN in f32
+    and fp16), so that a range the kernel skips cannot pass on bytes an
+    earlier case left in a reused block."""
+    first = shards[0]
+    shard_bytes = first.numel() * first.element_size()
+    out = torch.full((len(shards) * shard_bytes,), 0xFF, dtype=torch.uint8, device="cuda")
+    out = out.view(first.dtype).view(len(shards) * first.shape[0], first.shape[1])
+    ring.launch(ring.shard_pointers(shards), out, shard_bytes)
+    return out
+
+
 def check_gather_kernel() -> dict:
-    """all_gather_rows vs torch.cat, bitwise; timings at the main path's
-    shape (one shard per card: the whole table in one shard)."""
+    """all_gather_rows vs torch.cat, bitwise, through the wrapper and
+    through a launch over a sentinel; no host-to-device copy in the
+    wrapper; timings at the main path's shape (one shard per card: the
+    whole table in one shard) and at 4 shards."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [
         (n, dtype, GRID_ROWS // n, GRID_COLS)
         for n in (1, 2, 4, 8)
         for dtype in (torch.float32, torch.float16)
     ]
-    cases.append((3, torch.float16, 1001, 3))  # 6-byte rows: byte path
+    cases += [
+        (3, torch.float16, 1001, 3),  # 6-byte rows: plain loads and stores
+        (ring.MAX_SHARDS, torch.float32, 37, 4),  # the cap, small shards, spans over many shards
+        (ring.MAX_SHARDS, torch.float16, 37, 3),  # the cap, shards at every even offset mod 16
+        (3, torch.float16, 699_051, 3),  # shards 1 and 2 off by 2 and 4 bytes mod 16, over many blocks
+        (5, torch.float32, 419_430, 4),  # 5 shards: spans that cross shard boundaries
+    ]
     max_err = 0.0
     for n, dtype, rows, cols in cases:
         shards = [torch.randn(rows, cols, generator=gen, device="cuda").to(dtype) for _ in range(n)]
-        got = ring.all_gather_rows(shards)
         want = ring.all_gather_rows_plain(shards)
-        torch.cuda.synchronize()
-        if not _same_bits(got, want):
-            raise AssertionError(f"all_gather_rows != torch.cat for n={n} {dtype} [{rows},{cols}]")
-        max_err = max(max_err, float((got.float() - want.float()).abs().max()))
+        for got in (ring.all_gather_rows(shards), _gather_over_sentinel(shards)):
+            torch.cuda.synchronize()
+            if not _same_bits(got, want):
+                raise AssertionError(f"all_gather_rows != torch.cat for n={n} {dtype} [{rows},{cols}]")
+            max_err = max(max_err, float((got.float() - want.float()).abs().max()))
     # shards that start 6 bytes past a 16-byte boundary
     base = torch.randn(4, 1002, 3, generator=gen, device="cuda").half()
     shards = [b[1:] for b in base]
-    if not _same_bits(ring.all_gather_rows(shards), ring.all_gather_rows_plain(shards)):
-        raise AssertionError("all_gather_rows != torch.cat for misaligned shards")
+    want = ring.all_gather_rows_plain(shards)
+    for got in (ring.all_gather_rows(shards), _gather_over_sentinel(shards)):
+        if not _same_bits(got, want):
+            raise AssertionError("all_gather_rows != torch.cat for misaligned shards")
     print(f"all_gather_rows bitwise equal to torch.cat in {len(cases) + 1} cases", flush=True)
+
+    # the wrapper copies nothing to the card: over ten calls the profiler
+    # sees the kernel and no host-to-device copy (and does see the copies
+    # pointer_array makes)
+    shards = [torch.randn(GRID_ROWS // 4, GRID_COLS, generator=gen, device="cuda") for _ in range(4)]
+    control = device_names(lambda: ring.pointer_array(shards))
+    names = device_names(lambda: ring.all_gather_rows(shards))
+    print(f"all_gather_rows puts on the card: {sorted(set(names))} ({len(names)} events in ten calls); "
+          f"pointer_array: {sorted(set(control))}", flush=True)
+    if any("Memcpy HtoD" in name for name in names) or not any("gather_rows_kernel" in name for name in names):
+        raise AssertionError(f"all_gather_rows wrapper: device events {names}")
+    if not any("Memcpy HtoD" in name for name in control):
+        raise AssertionError(f"the profiler did not show pointer_array's host-to-device copy: {control}")
 
     timings = {}
     for n in (1, 4):
@@ -228,10 +237,12 @@ def check_gather_kernel() -> dict:
             torch.randn(GRID_ROWS // n, GRID_COLS, generator=gen, device="cuda") for _ in range(n)
         ]
         nbytes = 2 * GRID_ROWS * GRID_COLS * 4  # read every shard once, write the table once
-        ptrs = ring.pointer_array(shards)
+        ptrs = ring.shard_pointers(shards)
         out = torch.empty(GRID_ROWS, GRID_COLS, device="cuda")
-        kernel = lambda: ring.launch(ptrs, out, GRID_ROWS // n, GRID_COLS * 4, n)  # noqa: E731
+        kernel = lambda: ring.launch(ptrs, out, GRID_ROWS // n * GRID_COLS * 4)  # noqa: E731
         library = lambda: torch.cat(shards, dim=0)  # noqa: E731
+        kernel_dev, _ = cold_device_ms(kernel)
+        library_dev, library_names = cold_device_ms(library)
         t = {
             "kernel_ms": cuda_ms(kernel),
             "wrapper_ms": cuda_ms(lambda: ring.all_gather_rows(shards)),
@@ -239,9 +250,12 @@ def check_gather_kernel() -> dict:
             "library_ms": cuda_ms(library),
             "kernel_cold_ms": cuda_ms_cold(kernel),
             "library_cold_ms": cuda_ms_cold(library),
+            "kernel_cold_device_ms": kernel_dev,
+            "library_cold_device_ms": library_dev,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
         }
         print(f"all_gather_rows n={n} [{GRID_ROWS},{GRID_COLS}] f32: " + json.dumps(t), flush=True)
+        print(f"torch.cat of {n} shard(s) launches: {library_names}", flush=True)
         timings[n] = t
     return {"max_abs_err": max_err, **timings[1]}
 
@@ -282,6 +296,8 @@ def check_reduce_scatter_kernel() -> dict:
         nbytes = (m + 1) * GRID_ROWS * GRID_COLS * 4  # read m tables, write one table's worth
         kernel = lambda: ring.launch_reduce_scatter(ptrs, GRID_ROWS // n, GRID_COLS, m, n)  # noqa: E731
         library = lambda: [c.contiguous() for c in torch.stack(cts).sum(0).chunk(n)]  # noqa: E731
+        kernel_dev, _ = cold_device_ms(kernel)
+        library_dev, _ = cold_device_ms(library)
         t = {
             "kernel_ms": cuda_ms(kernel),
             "wrapper_ms": cuda_ms(lambda: ring.reduce_scatter_rows(cts, n)),
@@ -289,6 +305,8 @@ def check_reduce_scatter_kernel() -> dict:
             "library_ms": cuda_ms(library),
             "kernel_cold_ms": cuda_ms_cold(kernel),
             "library_cold_ms": cuda_ms_cold(library),
+            "kernel_cold_device_ms": kernel_dev,
+            "library_cold_device_ms": library_dev,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
         }
         print(f"reduce_scatter_rows m={m} n={n} [{GRID_ROWS},{GRID_COLS}] f32: " + json.dumps(t), flush=True)
@@ -604,6 +622,9 @@ def main() -> int:
             "library_ms": m["library_ms"],
             "kernel_cold_ms": m["kernel_cold_ms"],  # L2 flushed before each call
             "library_cold_ms": m["library_cold_ms"],
+            # the profiler's device time of what one call launches, in the same cold loop
+            "kernel_cold_device_ms": m["kernel_cold_device_ms"],
+            "library_cold_device_ms": m["library_cold_device_ms"],
         })
     print(f"chip_smoke: all phases ok in {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

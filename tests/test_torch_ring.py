@@ -3,6 +3,11 @@ the JAX package, on the CPU. On the CPU the wrapper runs its plain version
 (torch.cat); the CUDA kernel is held against that plain version on the card
 by chip_smoke.py. Tolerance: none, a gather copies values."""
 
+import ctypes
+import inspect
+import re
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +19,7 @@ from avatarcraft_tpu.parallel.mesh import make_mesh
 from avatarcraft_tpu.parallel.ring import all_gather_table as jax_all_gather_table
 from avatarcraft_tpu_torch.parallel import ring
 from avatarcraft_tpu_torch.parallel.table_mp import shard_grid_rows
+from avatarcraft_tpu_torch.utils import cuda_build
 
 
 @pytest.mark.parametrize("rows,cols,dtype", [(8 * 16, 4, np.float32), (8 * 5, 3, np.float16)])
@@ -78,3 +84,102 @@ def test_default_shard_count_cpu():
     # one shard per card in use: the port drives one card
     params = {"grids": [torch.zeros(4, 4, 4, 2)]}
     assert len(shard_grid_rows(params)[1]) == 1
+
+
+@pytest.mark.parametrize("n", [ring.MAX_SHARDS, ring.MAX_SHARDS + 1])
+def test_shard_cap_is_checked_on_cpu_too(n):
+    """The kernel takes at most MAX_SHARDS pointers by value; the wrapper
+    refuses more before it picks a path, so the CPU takes what the card takes."""
+    shards = [torch.full((2, 3), float(i)) for i in range(n)]
+    if n <= ring.MAX_SHARDS:
+        assert torch.equal(ring.all_gather_rows(shards), torch.cat(shards))
+    else:
+        with pytest.raises(ValueError, match=f"MAX_SHARDS = {ring.MAX_SHARDS}"):
+            ring.all_gather_rows(shards)
+
+
+def _source(name: str) -> str:
+    with open(cuda_build.source_path(name)) as fp:
+        return fp.read()
+
+
+def test_shard_cap_matches_the_kernel():
+    assert re.search(rf"constexpr int kMaxShards = {ring.MAX_SHARDS};", _source(ring.KERNEL))
+
+
+@pytest.mark.parametrize("wrapper,uses_pointer_array", [
+    (ring.all_gather_rows, False), (ring.reduce_scatter_rows, True),
+])
+def test_only_reduce_scatter_copies_pointers_to_the_card(wrapper, uses_pointer_array):
+    """By inspection: the gather passes its shard pointers by value in the
+    launch's parameters (no pinned buffer, no host-to-device copy); the
+    reduce-scatter still reads a device array that pointer_array copies."""
+    src = inspect.getsource(wrapper)
+    assert ("pointer_array(" in src) == uses_pointer_array
+    assert ("shard_pointers(" in src) != uses_pointer_array
+
+
+def _c_params(name: str) -> list[str]:
+    """The parameter types of ``int name(...)`` in the kernel's source."""
+    sig = re.search(rf"^int {name}\(([^)]*)\)", _source(name), re.M)
+    assert sig, f"no extern C signature of {name}"
+    return [re.sub(r"\s*\w+$", "", p.strip()) for p in sig.group(1).split(",")]
+
+
+def _kind_of_c(ctype: str) -> str:
+    if "*" in ctype or ctype == "cudaStream_t":
+        return "pointer"
+    return {"int": "int32", "long long": "int64"}[ctype]
+
+
+def _kind_of_ctypes(t) -> str:
+    if t is ctypes.c_void_p or issubclass(t, ctypes._Pointer):
+        return "pointer"
+    return {ctypes.c_int: "int32", ctypes.c_longlong: "int64"}[t]
+
+
+@pytest.mark.parametrize("name", [ring.KERNEL, ring.RS_KERNEL])
+def test_ctypes_argtypes_match_the_c_signature(monkeypatch, name):
+    """``ring._library`` declares, for each kernel's launch function, the
+    argument kinds of its ``extern "C"`` signature (pointer, 32- or 64-bit
+    integer) in order: a mismatch would cut a pointer or shift the
+    arguments. The library itself is replaced by a stand-in (nvcc builds it
+    on the card only)."""
+    fake = types.SimpleNamespace(**{name: types.SimpleNamespace(), f"{name}_error_string": types.SimpleNamespace()})
+    monkeypatch.setattr(ring, "load_library", lambda _: fake)
+    lib = ring._library.__wrapped__(name)
+    declared = [_kind_of_ctypes(t) for t in getattr(lib, name).argtypes]
+    assert declared == [_kind_of_c(p) for p in _c_params(name)]
+    assert getattr(lib, name).restype is ctypes.c_int
+
+
+def _event(device, name, us=0.0, kernels=(), children=()):
+    return types.SimpleNamespace(
+        device_type=device, name=name, cpu_children=list(children),
+        kernels=[types.SimpleNamespace(name=k, duration=d) for k, d in kernels],
+        time_range=types.SimpleNamespace(elapsed_us=lambda: us),
+    )
+
+
+@pytest.mark.parametrize("ties", [0, 1, 2])
+def test_profilers_count_a_ctypes_kernel_once(ties):
+    """The profilers leave the gather kernel out of the time the profiler
+    attributes to a range and add its own device events, each once: the
+    profiler ties a kernel launched through ctypes to the ops around it
+    once, twice (the first launch in a profile) or not at all."""
+    from torch.autograd import DeviceType
+
+    from avatarcraft_tpu_torch.utils.timing import device_us_without, kernel_device_us
+
+    full = "(anonymous namespace)::gather_rows_kernel(ShardTable, Plan)"
+    tied = [(full, 23.0)]
+    op = _event(DeviceType.CPU, "_AllGatherTable", kernels=tied * min(ties, 1) + [("memcpy", 1.0)],
+                children=[_event(DeviceType.CPU, "aten::empty", kernels=tied * max(ties - 1, 0))])
+    rng = _event(DeviceType.CPU, "render.gather", children=[op])
+    events = [
+        rng, op, _event(DeviceType.CUDA, full, 23.0),
+        _event(DeviceType.CUDA, "render.gather", 23.0),  # the range's device-side copy
+        _event(DeviceType.CUDA, "reduce_scatter_rows_kernel", 5.0),
+    ]
+    assert device_us_without(rng, ("gather_rows_kernel",)) == 1.0
+    assert device_us_without(rng, ("gather_rows_kernel",)) + kernel_device_us(events, "gather_rows_kernel") == 24.0
