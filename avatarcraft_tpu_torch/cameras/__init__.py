@@ -3,12 +3,14 @@ from avatarcraft_tpu_torch.cameras.paths import (
     default_360_path,
     describe_view,
     pose_spherical,
+    style_360_path,
 )
 from avatarcraft_tpu_torch.cameras.rays import (
     camera_rays,
     canonical_camera,
     dataset_rays,
     pose2rays,
+    sparse_ray_sampling,
 )
 
 __all__ = [
@@ -17,8 +19,10 @@ __all__ = [
     "pose_spherical",
     "default_360_path",
     "describe_view",
+    "style_360_path",
     "camera_rays",
     "pose2rays",
     "canonical_camera",
     "dataset_rays",
+    "sparse_ray_sampling",
 ]

@@ -1,9 +1,12 @@
 """Spherical orbit camera-path generators (host-side numpy), a copy of the
-JAX package's cameras/paths.py without ``style_360_path`` (stylize slice).
+JAX package's cameras/paths.py.
 
 Reproduces the reference path construction exactly (reference:
 utils/render_utils.py:38-76 for pose_spherical, :137-154 default_360_path,
-:80-90 describe_view), returning plain 4x4 camera-to-world matrices.
+:157-209 style_360_path, :80-90 describe_view), returning plain 4x4
+camera-to-world matrices. The noise draws come from a
+``numpy.random.Generator`` in the JAX package's order, so one seed gives
+the same poses in both packages.
 """
 
 from __future__ import annotations
@@ -129,3 +132,60 @@ def default_360_path(
         [frame @ pose_spherical(a, 0.0, dist, add_noise, 1.0, rng) for a in angles]
     )
     return poses.astype(np.float32), describe_view(angles)
+
+
+def style_360_path(
+    center,
+    up,
+    dist: float,
+    res: int = 40,
+    rad: float = 360.0,
+    add_noise: bool = False,
+    noise_scale: float = 1.0,
+    style_head: bool = False,
+    head_offset: float = 0.0,
+    body_part: str = "body",
+    head_rate: float = 0.0,
+    head_dist: float = 0.5,
+    rng: np.random.Generator | None = None,
+):
+    """Front/back-biased orbit + optional head-box cameras
+    (reference: utils/render_utils.py:157-209).
+
+    Returns (poses [n,4,4], descs [n]) where the tail of the list holds the
+    head cameras when ``style_head``.
+    """
+    center = np.asarray(center, np.float64)
+    up = np.asarray(up, np.float64)
+    frame = _orbit_frame(center, up)
+
+    style_angles = np.concatenate(
+        [
+            np.linspace(-180, -120, res // 4),
+            np.linspace(120, 180, res // 4),
+            np.linspace(-60, 60, res // 2),
+        ]
+    )
+    poses = [
+        frame @ pose_spherical(a, 0.0, dist, add_noise, noise_scale, rng)
+        for a in style_angles
+    ]
+    descs = describe_view(style_angles, body_part)
+
+    if style_head and head_rate > 0.0:
+        n_head = int(res * head_rate)
+        head_frame = _orbit_frame(center + up * head_offset, up)
+        head_angles = np.concatenate(
+            [
+                np.linspace(-180, -120, n_head // 2),
+                np.linspace(120, 180, n_head // 2),
+            ]
+        )
+        # head cameras always carry noise (reference: render_utils.py:202)
+        poses += [
+            head_frame @ pose_spherical(a, 0.0, head_dist, True, 1.0, rng)
+            for a in head_angles
+        ]
+        descs += describe_view(head_angles, "face")
+
+    return np.stack(poses).astype(np.float32), descs

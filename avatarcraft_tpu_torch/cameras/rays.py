@@ -2,7 +2,7 @@
 from K^-1 [x, y, 1] transformed by c2w (reference:
 utils/render_utils.py:323-376), and the dataset cameras' rays. Port of the
 JAX package's cameras/rays.py (``canonical_camera``, ``camera_rays``,
-``pose2rays``, ``dataset_rays``)."""
+``pose2rays``, ``dataset_rays``, ``sparse_ray_sampling``)."""
 
 from __future__ import annotations
 
@@ -70,3 +70,17 @@ def dataset_rays(pose, K, h: int, w: int, resolution_level: int = 1, device="cud
     rays_d = v @ pose[:3, :3].T
     rays_o = pose[:3, 3].expand(rays_d.shape)
     return rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+
+
+def sparse_ray_sampling(rays_o, rays_d, stride: int, rng: np.random.Generator):
+    """Stride-subsample a [H, W, 3] ray grid from a random top-left offset
+    (reference: utils/render_utils.py:989-1011), drawing the offsets from
+    ``rng`` as the JAX package does (none at stride 1)."""
+    if stride == 1:
+        return rays_o, rays_d
+    x_off = int(rng.integers(0, stride))
+    y_off = int(rng.integers(0, stride))
+    return (
+        rays_o[x_off::stride, y_off::stride],
+        rays_d[x_off::stride, y_off::stride],
+    )

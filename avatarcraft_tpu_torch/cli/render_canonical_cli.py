@@ -58,7 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "refresh a 129^3 grid from the SDF")
     parser.add_argument("--normal_mode", default=None, choices=["fd7", "fd4", "analytic"],
                         help="normal estimator (default: the artifact's "
-                             "PROVENANCE.json, else fd4); only fd4 is ported")
+                             "PROVENANCE.json, else fd4; analytic = exact "
+                             "forward-mode gradient)")
     parser.add_argument("--mesh_devices", default=0, type=int,
                         help="ray-axis data parallelism; not ported yet")
     return parser

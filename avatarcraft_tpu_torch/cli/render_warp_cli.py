@@ -12,7 +12,8 @@ The camera is view ``--render_view`` of the Blender-format dataset at
 is voxelized, and the samples near it are warped into the canonical field
 by the kNN inverse-LBS warp. Writes one PNG per frame under
 ``<out_dir>/test_views/<exp_name>/``. ``--use_cuda false`` renders on the
-CPU.
+CPU. ``--normal_mode`` (an option of the port) picks the normal estimator:
+fd4 by default, as the JAX package renders.
 """
 
 from __future__ import annotations
@@ -62,6 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--sampler", default="fast", choices=["parity", "fast"],
                         help="fast = per-frame voxelized posed-space occupancy + compacted kNN warp "
                              "(the only sampler ported so far)")
+    parser.add_argument("--normal_mode", default="fd4", choices=["fd7", "fd4", "analytic"],
+                        help="normal estimator of the fast sampler (the JAX package's warp render uses "
+                             "fd4; analytic = exact forward-mode gradient)")
     parser.add_argument("--rest_pose", default=None, choices=["da", "zero"],
                         help="pose the canonical field was trained in. Default: 'da' (reference "
                              "parity) for SMPL bodies, the body's rest_pose marker for .npz bodies")
@@ -114,7 +118,7 @@ def main(argv=None):
     subsample = int(ds.H / opt.resolution)
     rays_o, rays_d = ds.gen_rays_pose(ds.poses[opt.render_view], subsample, device)
 
-    settings = WarpRenderSettings()
+    settings = WarpRenderSettings(normal_mode=opt.normal_mode)
     # the per-chunk budget from the pose sequence itself: no frame is clipped
     budget = derive_warp_budget(world_verts, rays_o, rays_d, settings)
     print(f"[render_warp] derived sample budget: {budget}/chunk (zero-clip over {n_frames} frames)")

@@ -2,7 +2,7 @@
 render and the 64+64 importance-sampled render. Port of the JAX package's
 models/instant_nsr.py (FieldConfig, RenderConfig, init_field_params,
 forward_*, sdf_and_gradient, up_sample, cat_z_vals, render_rays, sdf_tetra,
-field_sdf_grad, FieldFns, network_field_fns, FastRenderConfig,
+the analytic normals, field_sdf_grad, FieldFns, network_field_fns, FastRenderConfig,
 _probe_occupied, count_fast_samples, render_rays_fast with its ``field``,
 ``near_far`` and ``warp_fn``).
 
@@ -318,19 +318,33 @@ def sdf_and_gradient(params: dict, x: torch.Tensor, cfg: FieldConfig, bound: flo
     return _fd7(_sdf_fn(params, cfg, bound, packed), x, bound, epsilon)
 
 
+def _analytic(sdf_fn, x: torch.Tensor):
+    """Exact SDF spatial gradient by forward-mode autodiff: one primal
+    evaluation of ``sdf_fn`` and three tangents (the unit axes), batched by
+    ``torch.func.vmap`` over ``torch.func.jvp`` so that the primal runs once
+    (the JAX package's jax.linearize, models/instant_nsr.py:449). The
+    tangent of the encoder's interpolation reuses the primal's gathered
+    corner rows: no extra table gathers, against fd4's four encoder passes.
+    Reverse-mode autograd runs through the tangents, so a train step can
+    backpropagate the eikonal term and the normals into the tables."""
+    eye = torch.eye(3, dtype=x.dtype, device=x.device)
+    out, tangents = torch.func.vmap(
+        lambda t: torch.func.jvp(sdf_fn, (x,), (t.expand_as(x),)), out_dims=(None, 0)
+    )(eye)
+    return out[:, :1], out[:, 1:], tangents[:, :, 0].T
+
+
 def stencil_sdf_grad(sdf_fn, x: torch.Tensor, bound: float, epsilon: float, mode: str):
     """(sdf [N,1], geo_feat [N,F], grad [N,3]) of ``sdf_fn`` ([M,3] ->
     [M,1+F]) under the chosen normal mode: "fd7" (the reference's central
-    differences) or "fd4" (the tetrahedral stencil). The analytic mode is
-    not ported yet."""
+    differences), "fd4" (the tetrahedral stencil) or "analytic" (the exact
+    gradient by forward-mode autodiff; ``bound`` and ``epsilon`` unused)."""
     if mode == "fd4":
         return _tetra(sdf_fn, x, bound, epsilon)
     if mode == "fd7":
         return _fd7(sdf_fn, x, bound, epsilon)
     if mode == "analytic":
-        raise NotImplementedError(
-            "normal_mode 'analytic' is not ported yet (ROADMAP item 8: analytic normals)"
-        )
+        return _analytic(sdf_fn, x)
     raise ValueError(f"unknown normal_mode: {mode!r}")
 
 

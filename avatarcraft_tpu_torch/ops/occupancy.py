@@ -1,12 +1,16 @@
 """The density grid: its refresh from the SDF, the posed-body grid of a
-warp frame, bit-packed occupancy probes, evenly spread sample selection and
-global compaction. Port of the JAX package's ops/occupancy.py:23-100,192
-and :206-319.
+warp frame, floater pruning, bit-packed occupancy probes, evenly spread
+sample selection and global compaction. Port of the JAX package's
+ops/occupancy.py:23-319.
 
 The probe, selection and compaction functions are the plain versions of the
 port's future kernels K1 (probe + select) and K2 (compaction), ROADMAP
 queue 2, and bit-exact against the JAX package
 (tests/test_torch_occupancy.py). The refresh is K7's plain version.
+
+The flood fill of the floater pruning is K7's other half; it checks for
+convergence every ``FILL_CHECK_EVERY`` dilations, not after each one, so
+the host waits on the card once per check.
 
 The packed table is int32 (torch has no shift/and on uint32); the bit
 pattern equals the JAX package's uint32 table word for word.
@@ -82,6 +86,92 @@ def voxelize_verts(verts: torch.Tensor, bound: float, resolution: int = 129, dil
         # the grid is >= 0, so max-pool's implicit -inf border acts as zeros
         grid = torch.nn.functional.max_pool3d(grid, 3, stride=1, padding=1)
     return grid.reshape(R, R, R)
+
+
+# dilations of the flood fill between two convergence checks (one host
+# sync each); the fill reaches the same fixed point in any case
+FILL_CHECK_EVERY = 8
+
+
+def _dilate(m: torch.Tensor) -> torch.Tensor:
+    """One step of 26-connected growth of a [R,R,R] bool mask: a 3^3
+    max-pool, stride 1, with False outside the grid."""
+    x = m.to(torch.float32)[None, None]
+    return torch.nn.functional.max_pool3d(x, 3, stride=1, padding=1)[0, 0] > 0.5
+
+
+@torch.no_grad()
+def flood_fill_occupancy(occ: torch.Tensor, seed: torch.Tensor, max_iters: int | None = None,
+                         check_every: int = FILL_CHECK_EVERY) -> torch.Tensor:
+    """Grow ``seed`` within ``occ`` to its full 26-connected component(s):
+    iterated 3^3 binary dilation masked by ``occ`` until a sweep adds no
+    cells, at most ``max_iters`` sweeps (default 3R, a worst-case
+    serpentine path). occ/seed: [R,R,R] bool; returns [R,R,R] bool.
+
+    The JAX package tests for growth after every sweep inside its
+    while_loop. Here the sweeps run in rounds of ``check_every`` and the
+    loop ends after the first round that changed nothing: the mask only
+    grows, so the extra sweeps past the fixed point leave it as it is, and
+    the result is the JAX package's bit for bit (a fill cut at
+    ``max_iters`` stops at exactly that many sweeps too)."""
+    R = occ.shape[0]
+    if max_iters is None:
+        max_iters = 3 * R
+    m = seed & occ
+    done = 0
+    while done < max_iters:
+        n = min(check_every, max_iters - done)
+        before = m
+        for _ in range(n):
+            m = _dilate(m) & occ
+        done += n
+        if torch.equal(m, before):
+            break
+    return m
+
+
+@torch.no_grad()
+def prune_grid_floaters(grid: torch.Tensor, prev_grid: torch.Tensor, occ_threshold: float = 10.0) -> torch.Tensor:
+    """In-loop SDS floater control: keep only the occupied components of
+    ``grid`` connected to the PREVIOUS grid's occupancy (temporal-coherence
+    seed), zero the rest. SDS grows isolated floater cells that saturate the
+    same density cap as the body, so no threshold separates them, but they
+    are separable topologically; the avatar evolves continuously from the
+    trusted reconstruction grid. With an empty seed the grid passes through
+    unpruned."""
+    thresh_new = torch.clamp(grid.mean(), max=occ_threshold)
+    thresh_old = torch.clamp(prev_grid.mean(), max=occ_threshold)
+    occ = grid > thresh_new
+    seed = occ & (prev_grid > thresh_old)
+    filled = flood_fill_occupancy(occ, seed)
+    keep = torch.where(seed.any(), filled, occ)
+    return torch.where(keep, grid, torch.zeros_like(grid))
+
+
+def _edge_pad(g: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Pad every axis of a [R,R,R] grid by repeating its edge cells."""
+    return torch.nn.functional.pad(g[None, None], (lo, hi) * 3, mode="replicate")[0, 0]
+
+
+@torch.no_grad()
+def pool_grid(grid: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Conservative max-pool of a [R,R,R] grid to ceil(R/factor)^3: every
+    coarse cell covers (and dominates) its fine neighborhood, so occupancy
+    never reports a false negative; then a one-cell dilation at the coarse
+    level (edge-padded)."""
+    R = grid.shape[0]
+    g = _edge_pad(grid, 0, (-R) % factor)
+    Rp = g.shape[0]
+    w = factor
+    g = g.reshape(Rp // w, w, Rp // w, w, Rp // w, w).amax(dim=(1, 3, 5))
+    p = _edge_pad(g, 1, 1)
+    R2 = g.shape[0]
+    out = g
+    for dx in (0, 1, 2):
+        for dy in (0, 1, 2):
+            for dz in (0, 1, 2):
+                out = torch.maximum(out, p[dx : dx + R2, dy : dy + R2, dz : dz + R2])
+    return out
 
 
 def pack_occupancy_bits(grid: torch.Tensor, threshold) -> torch.Tensor:

@@ -3,8 +3,11 @@
 
     python -m avatarcraft_tpu_torch.profile_render               # canonical
     python -m avatarcraft_tpu_torch.profile_render --path warp   # animated
+    python -m avatarcraft_tpu_torch.profile_render --normal_mode analytic
 
-canonical: the bench's cameras. warp: the bench's warp view of the demo
+canonical: the bench's cameras, with the artifact's normal estimator (fd4)
+or ``--normal_mode`` (its field evaluation stays in ``render.field_fd4``).
+warp: the bench's warp view of the demo
 body in frames 0-5 of the demo poses (the budget derived over them), whose
 frames add the ``render.voxelize`` and ``render.warp`` ranges.
 
@@ -48,10 +51,11 @@ N_FRAMES = 4  # profiled frames, after two warm-up frames
 GATHER_KERNEL = "gather_rows_kernel"
 
 
-def canonical_frames():
+def canonical_frames(normal_mode: str | None = None):
     """(2 warm-up frames, N_FRAMES profiled frames, budget): each frame a
     call that renders it."""
     params, fcfg, grid, cfg = bench.load_artifact("cuda")
+    cfg = dataclasses.replace(cfg, normal_mode=normal_mode or cfg.normal_mode)
     rays = [pose2rays(bench.RES, bench.RES, p, device="cuda") for p in bench.bench_poses()]
     _, budget = bench.derive_budget(rays, cfg, grid)
     cfg = dataclasses.replace(cfg, sample_budget=budget)
@@ -76,10 +80,13 @@ def warp_frames():
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description="where a 256x256 frame's device time goes")
     ap.add_argument("--path", default="canonical", choices=["canonical", "warp"])
-    path = ap.parse_args(argv).path
+    ap.add_argument("--normal_mode", default=None, choices=["fd7", "fd4", "analytic"],
+                    help="the canonical path's normal estimator (default: the artifact's)")
+    args = ap.parse_args(argv)
+    path = args.path
     if not torch.cuda.is_available():
         raise SystemExit("profile_render measures a CUDA card; none is available")
-    warmup, frames, budget = (warp_frames if path == "warp" else canonical_frames)()
+    warmup, frames, budget = warp_frames() if path == "warp" else canonical_frames(args.normal_mode)
     for frame in warmup:
         frame()
     torch.cuda.synchronize()
@@ -114,6 +121,7 @@ def main(argv=None) -> dict:
     )[:15]
     result = {
         "path": path,
+        "normal_mode": args.normal_mode,
         "device": torch.cuda.get_device_name(0),
         "card": card_line(),
         "frames": n,

@@ -1,8 +1,24 @@
-"""Where a reconstruction train step's time goes: the fast trainer's step
-(``workloads.reconstruct.make_train_step_fast``) at the artifact's width,
-batch 1600, on one card.
+"""Where a reconstruction train step's or an SDS step's time goes, on one
+card.
 
-    python -m avatarcraft_tpu_torch.profile_train
+    python -m avatarcraft_tpu_torch.profile_train                 # reconstruct
+    python -m avatarcraft_tpu_torch.profile_train --path stylize
+
+stylize: the stylize CLI's trainer at its defaults (``stylize_cli.setup``:
+the committed artifact, the toy guidance, lava, 256x256, 4096-ray patches,
+the derived budget; refreshes off while timing). For the coarse stage (a
+64x64 frame, one patch) and the fine stage (256x256, 16 patches): after
+STYLIZE_WARMUP steps, STYLIZE_TIMED steps on the host clock (ms per step,
+steps/s, peak memory), then STYLIZE_PROFILED steps under torch.profiler:
+device ms per step of each ``stylize.*`` range (gather, phaseA, sds,
+phaseB with the autograd engine's kernels, refresh), of the ``render.*``
+stages and Adam's step inside them, device busy, idle share, launches per
+step and the top kernels; then the grid refresh and the floater pruning
+timed alone (CUDA events).
+
+reconstruct: the fast trainer's step
+(``workloads.reconstruct.make_train_step_fast``) at the artifact's width,
+batch 1600.
 
 The image set is rendered here from the baked artifact (``artifact_image_set``:
 8 bench cameras at 128x128); the field starts from ``init_field_params`` at
@@ -19,7 +35,9 @@ kernels that take most device time. Prints one JSON line that names the card. Ne
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -28,12 +46,13 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from avatarcraft_tpu_torch import bench
+from avatarcraft_tpu_torch.cli import stylize_cli
 from avatarcraft_tpu_torch.constants import CANONICAL_ZOOM_FACTOR
 from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig, init_field_params
 from avatarcraft_tpu_torch.parallel.table_mp import trainable_shards
 from avatarcraft_tpu_torch.utils.checkpoint import leaves
 from avatarcraft_tpu_torch.utils.device import card_line
-from avatarcraft_tpu_torch.utils.timing import device_us_without, kernel_device_us
+from avatarcraft_tpu_torch.utils.timing import cuda_ms, device_us_without, kernel_device_us
 from avatarcraft_tpu_torch.workloads.canonical_render import make_fast_frame_renderer
 from avatarcraft_tpu_torch.workloads.reconstruct import (
     ImageSet,
@@ -92,28 +111,49 @@ def _batches(ds: ImageSet, cfg: ReconstructConfig, device):
                    torch.as_tensor(ds.gather_rgb(vi, pi), device=device))
 
 
-def _phase_device_ms(prof) -> dict:
-    """Device ms of each ``train.*`` phase over the profiled steps, from the
-    real step's ranges: the kernels launched inside each range on the
-    calling thread, plus, for ``train.backward``, every kernel that the
+def _phase_device_ms(prof, prefix: str = "train", phases=PHASES, backward: str = "backward") -> dict:
+    """Device ms of each ``<prefix>.*`` phase over the profiled steps, from
+    the real step's ranges: the kernels launched inside each range on the
+    calling thread, plus, for the ``backward`` phase, every kernel that the
     autograd engine's own threads launched; the two table kernels are
     launched through ctypes, and the profiler ties them to the ops around
     them once, twice or not at all, so the ranges leave them out and their
-    own device events are added, each once (the gather to
-    ``train.gather``, the reduce-scatter to ``train.backward``)."""
+    own device events are added, each once (the gather to ``gather``, the
+    reduce-scatter to ``backward``)."""
     events = prof.events()
-    ranges = [e for e in events if e.name.startswith("train.") and e.device_type == DeviceType.CPU]
+    ranges = [e for e in events if e.name.startswith(prefix + ".") and e.device_type == DeviceType.CPU]
     main_thread = ranges[0].thread
-    ms = dict.fromkeys(PHASES, 0.0)
+    ms = dict.fromkeys(phases, 0.0)
     for e in ranges:
-        ms[e.name[len("train."):]] += device_us_without(e, KERNEL_EVENTS) / 1e3
-    ms["backward"] += sum(
+        ms[e.name[len(prefix) + 1:]] += device_us_without(e, KERNEL_EVENTS) / 1e3
+    ms[backward] += sum(
         device_us_without(e, KERNEL_EVENTS) for e in events
         if e.device_type == DeviceType.CPU and e.thread != main_thread and e.cpu_parent is None
     ) / 1e3
-    for name, phase in zip(KERNEL_EVENTS, ("gather", "backward")):
+    for name, phase in zip(KERNEL_EVENTS, ("gather", backward)):
         ms[phase] += kernel_device_us(events, name) / 1e3
     return ms
+
+
+def _device_events(prof) -> list:
+    """The profile's kernels and copies: the device's copies of host ranges
+    (train.*, render.*, the optimizer's Optimizer.step#Adam.step) carry a
+    host event's name; kernels never do."""
+    host_names = {e.name for e in prof.events() if e.device_type == DeviceType.CPU}
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA and e.name not in host_names]
+
+
+def _top_kernels(prof, n_steps: int, k: int = 15) -> list:
+    host_names = {e.name for e in prof.events() if e.device_type == DeviceType.CPU}
+    kernels = sorted(
+        (
+            (e.key, e.device_time_total / 1e3 / n_steps, e.count // n_steps)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.key not in host_names
+        ),
+        key=lambda kv: -kv[1],
+    )[:k]
+    return [{"name": name[:80], "ms_per_step": ms, "calls_per_step": c} for name, ms, c in kernels]
 
 
 def main() -> dict:
@@ -149,10 +189,7 @@ def main() -> dict:
             step(rest, shards, poses, *next(batches), grid, bg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
-    # the device's copies of host ranges (train.*, render.*, the optimizer's
-    # Optimizer.step#Adam.step) carry a host event's name; kernels never do
-    host_names = {e.name for e in prof.events() if e.device_type == DeviceType.CPU}
-    device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA and e.name not in host_names]
+    device_events = _device_events(prof)
     busy_us = sum(e.time_range.elapsed_us() for e in device_events)
     phases = {k: v / PROFILED for k, v in _phase_device_ms(prof).items()}
     stages = {
@@ -164,14 +201,6 @@ def main() -> dict:
         k: sum(e.time_range.elapsed_us() for e in device_events if k in e.name) / 1e3 / PROFILED
         for k in KERNEL_EVENTS
     }
-    kernels = sorted(
-        (
-            (e.key, e.device_time_total / 1e3 / PROFILED, e.count // PROFILED)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.key not in host_names
-        ),
-        key=lambda kv: -kv[1],
-    )[:15]
     result = {
         "device": torch.cuda.get_device_name(0),
         "card": card_line(),
@@ -187,11 +216,122 @@ def main() -> dict:
         "stage_device_ms_per_step": stages,
         "table_kernel_ms_per_step": kernel_ms,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "top_kernels": [{"name": k[:80], "ms_per_step": ms, "calls_per_step": c} for k, ms, c in kernels],
+        "top_kernels": _top_kernels(prof, PROFILED),
     }
     print(json.dumps(result))
     return result
 
 
+# -- the stylize path --------------------------------------------------------
+
+STYLIZE_PHASES = ("gather", "phaseA", "sds", "phaseB", "refresh")
+# the stylize CLI at its defaults on the committed artifact and toy guidance
+STYLIZE_ARGV = [
+    "--weights_path", bench.ARTIFACT_CKPT, "--guidance_type", "toy", "--tgt_text", "lava",
+    "--toy_weights", os.path.join(bench.REPO_ROOT, "artifacts", "toy_guidance"), "--i_mesh", "1000000",
+]
+STYLIZE_WARMUP, STYLIZE_TIMED, STYLIZE_PROFILED = 2, 6, 2
+
+
+def stylize_trainer(grid_update_every: int | None = None):
+    """The stylize CLI's trainer (``stylize_cli.setup``) at the CLI's
+    defaults, ``--guidance_type toy --tgt_text lava``, on the card."""
+    opt = stylize_cli.build_parser().parse_args(STYLIZE_ARGV)
+    return stylize_cli.setup(opt, grid_update_every)
+
+
+def stylize_views(trainer, epoch: int, n: int) -> list:
+    """n (pose, desc) of the epoch's schedule, drawn from the trainer's rng
+    as its own loop draws them (repeated when n exceeds an epoch)."""
+    poses, descs = trainer.epoch_poses(epoch)
+    order = trainer.rng.permutation(len(poses))
+    return [(poses[order[i % len(order)]], descs[order[i % len(order)]]) for i in range(n)]
+
+
+def time_stylize_steps(trainer, epoch: int, n: int) -> list[float]:
+    """Host seconds of each of n SDS steps (each ends in a synchronize)."""
+    out = []
+    for pose, desc in stylize_views(trainer, epoch, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_view(pose, desc, epoch)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def profile_stylize_steps(trainer, epoch: int, n: int) -> dict:
+    """torch.profiler over n SDS steps: device ms per step of each
+    ``stylize.*`` range (phaseB takes the autograd engine's kernels and the
+    reduce-scatter, gather the all-gather), device busy, idle share, top
+    kernels."""
+    views = stylize_views(trainer, epoch, n)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for pose, desc in views:
+            trainer.train_view(pose, desc, epoch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    busy_us = sum(e.time_range.elapsed_us() for e in _device_events(prof))
+    phases = _phase_device_ms(prof, "stylize", STYLIZE_PHASES, "phaseB")
+    # inside the ranges: the render stages' forward and Adam's step
+    inner = {
+        e.key: e.device_time_total / 1e3 / n
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CPU and (e.key.startswith("render.") or e.key.startswith("Optimizer.step"))
+    }
+    return {
+        "profiled_wall_ms_per_step": wall * 1e3 / n,
+        "device_busy_ms_per_step": busy_us / 1e3 / n,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "device_launches_per_step": len(_device_events(prof)) / n,
+        "range_device_ms_per_step": {k: v / n for k, v in phases.items()},
+        "unranged_device_ms_per_step": (busy_us / 1e3 - sum(phases.values())) / n,
+        "inner_device_ms_per_step": inner,
+        "top_kernels": _top_kernels(prof, n, 10),
+    }
+
+
+def time_refresh(trainer, reps: int = 3) -> dict:
+    """CUDA-event ms of the grid refresh (the field's SDF on the 129^3
+    lattice, with its gather) and of the floater pruning of the refreshed
+    grid against the live one, each the mean of ``reps`` calls."""
+    from avatarcraft_tpu_torch.ops.occupancy import prune_grid_floaters
+
+    new = trainer._refresh_grid(trainer.params(), trainer.grid)
+    prune = lambda: prune_grid_floaters(new, trainer.grid)  # noqa: E731
+    refresh = lambda: trainer._refresh_grid(trainer.params(), trainer.grid)  # noqa: E731
+    return {"refresh_ms": cuda_ms(refresh, iters=reps, warmup=1), "prune_ms": cuda_ms(prune, iters=reps, warmup=1)}
+
+
+def stylize_main() -> dict:
+    """SDS steps at coarse (64x64 frame, one 4096-ray patch) and fine
+    (256x256, 16 patches): ms per step on the host clock, steps/s, and the
+    profiled split by range. Refreshes are off in the timed steps."""
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train measures a CUDA card; none is available")
+    trainer, _ = stylize_trainer(grid_update_every=0)
+    result = {"device": torch.cuda.get_device_name(0), "card": card_line(),
+              "normal_mode": trainer.fast_cfg.normal_mode, "sample_budget": trainer.fast_cfg.sample_budget}
+    fine_epoch = trainer.cfg.coarse_epochs
+    for stage, epoch in (("coarse", 0), ("fine", fine_epoch)):
+        time_stylize_steps(trainer, epoch, STYLIZE_WARMUP)
+        torch.cuda.reset_peak_memory_stats()
+        secs = time_stylize_steps(trainer, epoch, STYLIZE_TIMED)
+        result[stage] = {
+            "ms_per_step": 1e3 * sum(secs) / len(secs),
+            "steps_per_sec": len(secs) / sum(secs),
+            "step_ms": [1e3 * x for x in secs],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            **profile_stylize_steps(trainer, epoch, STYLIZE_PROFILED),
+        }
+    result["refresh"] = time_refresh(trainer)
+    print(json.dumps(result))
+    return result
+
+
 if __name__ == "__main__":
-    main()
+    ap = argparse.ArgumentParser(description="where a train step's or an SDS step's time goes on the card")
+    ap.add_argument("--path", default="reconstruct", choices=["reconstruct", "stylize"])
+    (stylize_main if ap.parse_args().path == "stylize" else main)()

@@ -1,0 +1,382 @@
+"""SDS avatar stylization, the fast (occupancy-guided) sampler: port of the
+JAX package's workloads/stylize.py (``StylizeConfig``,
+``make_phaseA_render_fast``, ``make_phaseB_step_fast``, ``StylizeTrainer``;
+reference: stylize.py:31-217). The NeRF-Art two-phase structure stays:
+
+* **Phase A** (no gradients): render the full (subsampled) frame through the
+  style field, then the SDS image-space gradient (``SDSGuidance``).
+* **Phase B**: re-render the frame in ``batch_size``-ray patches; each
+  patch's loss is <rgb, g> (``rgb.backward(gradient=g)``, reference:
+  stylize.py:163) + w_eikonal x eikonal + w_opacity x smooth_l1(opacity,
+  opacity of the frozen ground-truth field), the regularizers scaled by
+  chunk/4096 (the reference's 4096-ray patches). The patches' gradients
+  accumulate into one Adam step.
+
+The camera, background and prompt schedule draws from a
+``numpy.random.Generator`` in the JAX package's order, so one seed gives the
+same poses, head boxes, view order, backgrounds and stride offsets. SDS's t
+and noise and the noise backgrounds draw from a ``torch.Generator``.
+
+The finest grid stays row-sharded (``parallel/table_mp.py``), as in the
+fast reconstruction trainer: once per SDS step the shards are gathered
+(``all_gather_rows``) and the field's lookup tables packed in f32; phase A
+reads them detached, and every phase-B patch backpropagates into a detached
+copy of them (cast to the field's table dtype per patch, so each patch's
+table cotangent is rounded as the JAX package rounds it, and the patches add
+in f32). One backward through the packing then carries the step's table
+gradient to the rest of the tree and, through ``reduce_scatter_rows``, to
+the shards: one gather and one reduce-scatter per step. The frozen
+ground-truth field is gathered and packed once, at setup.
+
+Profiler ranges: ``stylize.gather``, ``stylize.phaseA``, ``stylize.sds``,
+``stylize.phaseB`` (the patches, the packing's backward and Adam) and
+``stylize.refresh`` (grid refresh, floater pruning, clip guard).
+
+The parity sampler (64+64 importance sampling, ``make_phaseA_render`` /
+``make_phaseB_step``) comes with the parity pipeline (ROADMAP item 19).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from avatarcraft_tpu_torch.cameras import pose2rays, sparse_ray_sampling, style_360_path
+from avatarcraft_tpu_torch.constants import (
+    BLACK_BKG,
+    CAN_HEAD_CAMERA_DIST,
+    CAN_HEAD_OFFSET,
+    CANONICAL_CAMERA_DIST_TRAIN,
+    NOISE_BKG,
+    NSR_BOUND,
+    WHITE_BKG,
+)
+from avatarcraft_tpu_torch.models.diffusion import SDSGuidance
+from avatarcraft_tpu_torch.models.instant_nsr import (
+    _DTYPES,
+    FastRenderConfig,
+    FieldConfig,
+    count_fast_samples,
+    materialize_field_tables,
+    network_field_fns,
+    render_rays_fast,
+)
+from avatarcraft_tpu_torch.ops.occupancy import prune_grid_floaters
+from avatarcraft_tpu_torch.parallel.ring import all_gather_table
+from avatarcraft_tpu_torch.parallel.table_mp import gathered_params, shard_grid_rows, trainable_shards
+from avatarcraft_tpu_torch.utils.background import select_background
+from avatarcraft_tpu_torch.utils.checkpoint import leaves, map_leaves
+from avatarcraft_tpu_torch.workloads.reconstruct import make_grid_update_fn, smooth_l1
+
+PARITY_REFUSAL = ("the parity sampler of stylize is not ported yet (ROADMAP item 19, parity pipeline); "
+                  "use sampler 'fast'")
+
+
+@dataclasses.dataclass(frozen=True)
+class StylizeConfig:
+    tgt_text: str = "zombie"
+    guidance_scale: float = 100.0
+    coarse_epochs: int = 40
+    fine_epochs: int = 20
+    n_cap: int = 100  # views per epoch (reference: stylize.py:318)
+    H: int = 256
+    W: int = 256
+    subsample_scale: int = 4  # coarse-stage stride (reference: stylize.py:98-106)
+    batch_size: int = 4096  # rays per patch (reference: stylize.py:397)
+    lr: float = 5e-3
+    w_eikonal: float = 0.01
+    w_opacity: float = 1e5  # reference: stylize.py:193 (smooth_l1 * 1e5)
+    use_opacity: bool = True
+    stylize_head: bool = True
+    coarse_head: float = 0.2
+    fine_head: float = 0.5
+    augment_bkg: bool = True
+    augment_cam: bool = True
+    augment_text: bool = True
+    white_bkg: bool = True
+    seed: int = 42
+    # "fast" = occupancy-guided K-sample rendering against a density grid,
+    # refreshed during training since SDS reshapes the geometry; the JAX
+    # package's default, "parity", is not ported yet (ROADMAP item 19)
+    sampler: str = "fast"
+    grid_update_every: int = 200
+    # at every grid refresh keep only the occupied components connected to
+    # the previous grid's occupancy (ops/occupancy.prune_grid_floaters)
+    prune_floaters: bool = True
+
+
+def cast_tables(packed: dict, dtype: torch.dtype) -> dict:
+    """The packed lookup tables cast to ``dtype`` (the field's table dtype)."""
+    return map_leaves(packed, lambda t: t.to(dtype))
+
+
+def make_phaseA_render_fast(fcfg: FieldConfig, fast_cfg: FastRenderConfig, chunk: int):
+    """phaseA(params, rays_o [N,3], rays_d [N,3], bg [N,3], grid, packed=None)
+    -> (rgb [N,3], depth [N]): the occupancy-guided full-frame render in
+    ``chunk``-ray calls, without gradients. ``packed``: the field's lookup
+    tables in its table dtype (built from ``params`` when omitted)."""
+
+    @torch.no_grad()
+    def phaseA(params, rays_o, rays_d, bg, grid, packed=None):
+        n = rays_o.shape[0]
+        if n % chunk:
+            raise ValueError(f"{n} rays are not a whole number of {chunk}-ray chunks")
+        field = network_field_fns(params, fcfg, fast_cfg.bound, packed)
+        rgb, depth = [], []
+        for i in range(0, n, chunk):
+            out = render_rays_fast(params, rays_o[i : i + chunk], rays_d[i : i + chunk], fcfg, fast_cfg, grid,
+                                   bg[i : i + chunk], field)
+            rgb.append(out["rgb"])
+            depth.append(out["depth"])
+        return torch.cat(rgb), torch.cat(depth)
+
+    return phaseA
+
+
+def make_phaseB_step_fast(fcfg: FieldConfig, fast_cfg: FastRenderConfig, w_eikonal: float, use_opacity: bool,
+                          chunk: int, w_opacity: float = 1e5):
+    """step(params, tables, gt, rays_o, rays_d, g_rgb, bg, grid) -> the
+    summed patch loss (detached): for each ``chunk``-ray patch, the loss
+    <rgb, g> + reg_scale (w_eikonal eikonal + w_opacity smooth_l1(clip(
+    opacity), clip(opacity of the ground truth))) and its backward, which
+    adds into the .grad of ``params``' MLP and variance leaves and of
+    ``tables`` (f32 leaves, cast to the field's table dtype per patch).
+    ``gt``: (params, FieldFns) of the frozen ground truth. reg_scale =
+    chunk/4096 keeps the reference's SDS:regularizer balance at other patch
+    sizes (the SDS term sums over rays, the regularizers are means)."""
+    reg_scale = chunk / 4096.0
+    table_dtype = _DTYPES[fcfg.packed_dtype]
+
+    def patch_loss(params, packed, gt, ro, rd, g, bg, grid):
+        field = network_field_fns(params, fcfg, fast_cfg.bound, packed)
+        out = render_rays_fast(params, ro, rd, fcfg, fast_cfg, grid, bg, field)
+        loss = torch.sum(out["rgb"] * g) + reg_scale * w_eikonal * out["gradient_error"]
+        if use_opacity:
+            with torch.no_grad():
+                out_gt = render_rays_fast(gt[0], ro, rd, fcfg, fast_cfg, grid, bg, gt[1])
+            op_pred = torch.clamp(out["weight_sum"], 0.0, 1.0)
+            op_gt = torch.clamp(out_gt["weight_sum"], 0.0, 1.0)
+            loss = loss + reg_scale * w_opacity * smooth_l1(op_pred, op_gt)
+        return loss
+
+    def step(params, tables, gt, rays_o, rays_d, g_rgb, bg, grid):
+        n = rays_o.shape[0]
+        if n % chunk:
+            raise ValueError(f"{n} rays are not a whole number of {chunk}-ray patches")
+        total = torch.zeros((), device=rays_o.device)
+        for i in range(0, n, chunk):
+            sl = slice(i, i + chunk)
+            loss = patch_loss(params, cast_tables(tables, table_dtype), gt, rays_o[sl], rays_d[sl],
+                              g_rgb[sl], bg[sl], grid)
+            loss.backward()
+            total += loss.detach()
+        return total
+
+    return step
+
+
+def make_optimizer(lr: float, params) -> torch.optim.Adam:
+    """optax.adam(lr): betas (0.9, 0.999), eps 1e-8, a constant rate."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+@dataclasses.dataclass
+class StylizeTrainer:
+    """Orchestrates the per-view SDS update on the device of
+    ``params_style`` (host-side schedule, device math).
+
+    ``params_style`` / ``params_gt``: parameter trees of the canonical field
+    (the trainer trains clones of ``params_style``; ``params_gt`` is the
+    frozen reference of the opacity loss). ``grid``: the density grid of the
+    fast sampler (refreshed from the field when None), re-refreshed every
+    ``cfg.grid_update_every`` SDS steps because SDS reshapes the geometry.
+    ``fast_cfg``: the fast render's settings (its ``sample_budget`` from
+    ``cli.stylize_cli.derive_sample_budget``)."""
+
+    cfg: StylizeConfig
+    fcfg: FieldConfig
+    guidance: SDSGuidance
+    params_style: dict
+    params_gt: dict
+    grid: torch.Tensor | None = None
+    fast_cfg: FastRenderConfig | None = None
+
+    def __post_init__(self):
+        c = self.cfg
+        if c.sampler != "fast":
+            raise NotImplementedError(PARITY_REFUSAL)
+        self.rest, self.shards, self.splice = trainable_shards(self.params_style)
+        self.params_style = None  # the trainer's copy is (rest, shards): params()
+        self.device = self.shards[0].device
+        self.opt = make_optimizer(c.lr, leaves(self.rest) + self.shards)
+        self.rng = np.random.default_rng(c.seed)
+        self.generator = torch.Generator(self.device).manual_seed(c.seed)
+        if self.fast_cfg is None:
+            self.fast_cfg = FastRenderConfig(bound=NSR_BOUND)
+        self._phaseA = {}
+        self._phaseB = self._make_phaseB()
+        self._refresh_grid = make_grid_update_fn(self.fcfg, NSR_BOUND)
+        with torch.no_grad(), record_function("stylize.gather"):
+            # the frozen ground truth: gathered and packed once
+            rest_gt, shards_gt, splice_gt = shard_grid_rows(self.params_gt)
+            self.params_gt = splice_gt(rest_gt, all_gather_table(shards_gt))
+            field_gt = network_field_fns(self.params_gt, self.fcfg, self.fast_cfg.bound,
+                                         materialize_field_tables(self.params_gt, self.fcfg))
+        self.gt = (self.params_gt, field_gt)
+        if self.grid is None:
+            self.grid = self._refresh_grid(self.params(), torch.zeros((129,) * 3, device=self.device))
+        self._step_count = 0
+        self._text_cache: dict[str, torch.Tensor] = {}
+        self.stats = {"refreshes": 0, "clip_guard_trips": 0}
+
+    def _make_phaseB(self):
+        c = self.cfg
+        return make_phaseB_step_fast(self.fcfg, self.fast_cfg, c.w_eikonal, c.use_opacity, c.batch_size,
+                                     c.w_opacity)
+
+    def params(self) -> dict:
+        """The current full parameter tree (detached, the table gathered)."""
+        return gathered_params(self.rest, self.shards, self.splice)
+
+    # -- schedule -----------------------------------------------------------
+    def epoch_poses(self, epoch: int):
+        c = self.cfg
+        head_rate = c.coarse_head if epoch < c.coarse_epochs else c.fine_head
+        center, up = np.zeros(3), np.array([0.0, 1.0, 0.0])
+        return style_360_path(
+            center, up, CANONICAL_CAMERA_DIST_TRAIN, c.n_cap,
+            add_noise=c.augment_cam, noise_scale=2.0 if c.augment_cam else 1.0,
+            style_head=c.stylize_head, head_offset=CAN_HEAD_OFFSET,
+            head_rate=head_rate if c.stylize_head else 0.0,
+            head_dist=CAN_HEAD_CAMERA_DIST, rng=self.rng,
+        )
+
+    def text_embedding(self, prompt: str) -> torch.Tensor:
+        if prompt not in self._text_cache:
+            self._text_cache[prompt] = self.guidance.get_text_embeds([prompt])
+        return self._text_cache[prompt]
+
+    def view_rays(self, pose: np.ndarray, epoch: int):
+        """(rays_o [n,3], rays_d [n,3], th, tw): the view's rays at the
+        stage's stride from a random offset (coarse: subsample_scale; fine:
+        min(1, subsample_scale // 2), the JAX package's expression, which is
+        1 for every subsample_scale >= 2)."""
+        c = self.cfg
+        stride = c.subsample_scale if epoch < c.coarse_epochs else min(1, c.subsample_scale // 2)
+        rays_o, rays_d = pose2rays(c.H, c.W, pose, device=self.device)
+        rays_o, rays_d = sparse_ray_sampling(rays_o.reshape(c.H, c.W, 3), rays_d.reshape(c.H, c.W, 3), stride,
+                                             self.rng)
+        th, tw = rays_o.shape[:2]
+        return rays_o.reshape(-1, 3), rays_d.reshape(-1, 3), th, tw
+
+    # -- one view = one optimizer step ---------------------------------------
+    def _gather_tables(self):
+        """(params, packed32, tables): the step's parameter tree with the
+        table gathered (through autograd), its lookup tables packed in f32
+        (through autograd), and detached f32 copies of those tables that
+        require grad, for the patches to backpropagate into."""
+        with record_function("stylize.gather"):  # all_gather_rows
+            params = self.splice(self.rest, all_gather_table(self.shards))
+            packed32 = materialize_field_tables(params, dataclasses.replace(self.fcfg, packed_dtype="float32"))
+            tables = map_leaves(packed32, lambda t: t.detach().requires_grad_())
+        return params, packed32, tables
+
+    def train_view(self, pose: np.ndarray, desc: str, epoch: int) -> torch.Tensor:
+        """One SDS step on one view; returns the summed phase-B loss
+        (detached, on the device)."""
+        c = self.cfg
+        rays_o, rays_d, th, tw = self.view_rays(pose, epoch)
+        n_rays = th * tw
+        bkg_key = (
+            int(self.rng.integers(WHITE_BKG, NOISE_BKG + 1))
+            if c.augment_bkg
+            else (WHITE_BKG if c.white_bkg else BLACK_BKG)
+        )
+        bg = select_background(n_rays, bkg_key, self.generator, self.device)
+        prompt = f"{desc} {c.tgt_text}" if c.augment_text else c.tgt_text
+        text_emb = self.text_embedding(prompt)
+        chunk = min(c.batch_size, n_rays)
+
+        self.opt.zero_grad(set_to_none=True)
+        params, packed32, tables = self._gather_tables()
+        table_dtype = _DTYPES[self.fcfg.packed_dtype]
+        with record_function("stylize.phaseA"):
+            if chunk not in self._phaseA:
+                self._phaseA[chunk] = make_phaseA_render_fast(self.fcfg, self.fast_cfg, chunk)
+            with torch.no_grad():
+                rgb_full, _ = self._phaseA[chunk](params, rays_o, rays_d, bg, self.grid,
+                                                  cast_tables(tables, table_dtype))
+        with record_function("stylize.sds"):
+            img = rgb_full.reshape(1, th, tw, 3).permute(0, 3, 1, 2)
+            g_img = self.guidance.sds_image_grad(text_emb, img, c.guidance_scale, generator=self.generator)
+            g_rgb = g_img.permute(0, 2, 3, 1).reshape(-1, 3)
+        with record_function("stylize.phaseB"):
+            if chunk != c.batch_size:
+                raise ValueError(f"a {th}x{tw} frame is smaller than one {c.batch_size}-ray patch")
+            loss = self._phaseB(params, tables, self.gt, rays_o, rays_d, g_rgb, bg, self.grid)
+            # the packing's backward, then all_gather_rows' (reduce_scatter_rows)
+            grads = [t.grad if t.grad is not None else torch.zeros_like(t) for t in leaves(tables)]
+            torch.autograd.backward(leaves(packed32), grads)
+            self.opt.step()
+        self._step_count += 1
+        if c.grid_update_every and self._step_count % c.grid_update_every == 0:
+            with record_function("stylize.refresh"):
+                new_grid = self._refresh_grid(self.params(), self.grid)
+                if c.prune_floaters:
+                    # seeded by the previous (already pruned) occupancy: each
+                    # refresh keeps only components connected to it
+                    new_grid = prune_grid_floaters(new_grid, self.grid)
+                self.grid = new_grid
+                self.stats["refreshes"] += 1
+                self._budget_clip_guard(rays_o, rays_d)
+        return loss
+
+    def _budget_clip_guard(self, rays_o, rays_d):
+        """Zero-clip invariant for the compaction budget: after each grid
+        refresh, count the probe-selected samples of the current view
+        against the live grid per phase-B chunk; if the budget would drop
+        samples (SDS inflates occupancy over training), turn compaction off
+        rather than silently zero trailing rays (compaction drops in flat
+        order)."""
+        c = self.cfg
+        if not self.fast_cfg.sample_budget:
+            return
+        n = rays_o.shape[0]
+        chunk = min(c.batch_size, n)
+        worst = max(
+            int(count_fast_samples(rays_o[i : i + chunk], rays_d[i : i + chunk], self.fast_cfg, self.grid))
+            for i in range(0, n - chunk + 1, chunk)
+        )
+        if worst > self.fast_cfg.sample_budget:
+            print(
+                f"[stylize] CLIP GUARD: grid refresh at step {self._step_count} "
+                f"selects {worst} samples/chunk > budget {self.fast_cfg.sample_budget}; "
+                f"disabling compaction",
+                flush=True,
+            )
+            self.fast_cfg = dataclasses.replace(self.fast_cfg, sample_budget=0)
+            self._phaseA = {}
+            self._phaseB = self._make_phaseB()
+            self.stats["clip_guard_trips"] += 1
+
+    def train(self, max_steps: int | None = None, on_step: Callable | None = None) -> int:
+        """The coarse-to-fine schedule: per epoch a fresh pose set, visited in
+        a random order, one SDS step per view. ``on_step(step, trainer)``
+        runs after each step. Returns the number of steps."""
+        c = self.cfg
+        step = 0
+        for epoch in range(c.coarse_epochs + c.fine_epochs):
+            poses, descs = self.epoch_poses(epoch)
+            order = self.rng.permutation(len(poses))
+            for i in order:
+                self.train_view(poses[i], descs[i], epoch)
+                if on_step is not None:
+                    on_step(step, self)
+                step += 1
+                if max_steps is not None and step >= max_steps:
+                    return step
+        return step

@@ -144,11 +144,12 @@ class WarpRenderSettings:
     bound: float = NSR_BOUND
     chunk: int = 8192  # rays per chunk (reference: render_warp.py:93, 64*128)
     geo_threshold: float = DEFAULT_GEO_THRESH
+    normal_mode: str = "fd4"  # the JAX package's fast warp render: fd4
 
 
 def _fast_config(settings: WarpRenderSettings, sample_budget: int = 0) -> FastRenderConfig:
     return FastRenderConfig(n_probes=N_PROBES, k_samples=K_SAMPLES, bound=settings.bound,
-                            sample_budget=sample_budget)
+                            sample_budget=sample_budget, normal_mode=settings.normal_mode)
 
 
 def warp_worst_count(world_verts: list, rays_o: torch.Tensor, rays_d: torch.Tensor,

@@ -61,7 +61,34 @@ Phases, each printed with its start, end and wall seconds:
               512^2/4 x 1e-6, each with an occupied share in [1e-3, 0.5];
               one fast train step from the artifact on 32x32 rays on the
               card and on the CPU: losses within 1e-4 relative, every MLP
-              and variance gradient within 1e-2 x its max|g|.
+              and variance gradient within 1e-2 x its max|g|;
+9. stylize -- the stylize CLI (cli.stylize_cli.main) on the committed
+              artifact with the toy guidance, --sampler fast --guidance_type
+              toy --tgt_text lava at its defaults (256x256, 4096-ray
+              patches, the derived budget) for 6 coarse SDS steps, the last
+              with a validation render; the final checkpoint written, loaded
+              through load_params_with_config equal to the trainer's
+              parameters and rendered through the canonical fast renderer;
+              the style moved, everything finite; then a trainer with no
+              coarse epoch for 4 fine steps (256x256, 16 patches, the
+              antialiased 256 -> 64 resize), the grid refreshed, pruned and
+              clip-guarded once at step 4. The table kernels: one gather and
+              one reduce-scatter per SDS step, plus one gather each for the
+              ground truth at setup, the validation render, the final save
+              and the refresh. Prints SDS steps/s at coarse and fine, device
+              ms per stylize.* range and peak memory;
+10. stylize_card_vs_cpu -- the toy UNet's eps on one input, card against
+              CPU, within 1e-5; one SDS step of the artifact's coarse frame
+              (64x64, one patch) with f32 tables from the same state on
+              both, t and the noise injected: phase A within 2e-3, the SDS gradient of one
+              image within 4.02e-3 (2 x 201 x the eps bound), phase B and
+              Adam on that one gradient: the loss within 1e-4 relative, the
+              MLP and variance gradients within 1e-2 x max|g|, the updated
+              MLP parameters within 1e-6 where |g| > 1e-2 max|g| and 2 lr
+              elsewhere (Adam's first step is lr x sign(g)); the same step
+              with the artifact's bf16 tables is printed, not held;
+11. analytic_card_vs_cpu -- a 32x32 frame with analytic normals, card
+              against CPU, within 2e-3.
 
 Before the last line it prints one JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -73,7 +100,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import sys
+import tempfile
 import time
 import traceback
 
@@ -83,16 +112,21 @@ import torch
 import avatarcraft_tpu_torch
 from avatarcraft_tpu_torch import bench, profile_train
 from avatarcraft_tpu_torch.cameras import pose2rays
+from avatarcraft_tpu_torch.cli import stylize_cli
+from avatarcraft_tpu_torch.models.diffusion import SDSGuidance
 from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig, RenderConfig, count_fast_samples
+from avatarcraft_tpu_torch.models.sd import unet_apply
+from avatarcraft_tpu_torch.models.toy_guidance import load_toy_guidance, make_toy_modules
 from avatarcraft_tpu_torch.parallel import ring
 from avatarcraft_tpu_torch.parallel.table_mp import TableMPTrainStep, trainable_shards
-from avatarcraft_tpu_torch.utils.checkpoint import leaves
+from avatarcraft_tpu_torch.utils.checkpoint import leaves, load_params_with_config
 from avatarcraft_tpu_torch.utils import cuda_build, style_delta
 from avatarcraft_tpu_torch.utils.device import card_line
 from avatarcraft_tpu_torch.utils.timing import cold_device_ms, cuda_ms, cuda_ms_cold, device_names
 from avatarcraft_tpu_torch.warp import WarpData
 from avatarcraft_tpu_torch.workloads import reconstruct
 from avatarcraft_tpu_torch.workloads.canonical_render import make_fast_frame_renderer
+from avatarcraft_tpu_torch.workloads.stylize import StylizeConfig, StylizeTrainer
 from avatarcraft_tpu_torch.workloads.warp_render import (
     WarpRenderSettings,
     derive_warp_budget,
@@ -119,6 +153,18 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 LAVA_DELTA = os.path.join(HERE, "artifacts", "styled", "multi_lava_delta.npz")
 STYLED_GOLDEN = os.path.join(HERE, "tests", "golden_styled_warp_32.npy")
 STYLED_RES, STYLED_FRAME = 32, 10  # tests/test_styled_warp.py:56-84
+TOY_DIR = os.path.join(HERE, "artifacts", "toy_guidance")
+# stylize: the CLI's coarse steps and the fine trainer's steps (its grid
+# refresh, pruning and clip guard at the last one)
+STYLIZE_COARSE_STEPS, STYLIZE_FINE_STEPS = 6, 4
+STYLIZE_TIMED = 8  # further coarse steps timed on the CLI's trainer
+# card against CPU, the toy guidance: eps of one input (full f32 on the
+# card; the CPU tests hold JAX to the port at this bound), and the SDS
+# gradient of one image: classifier-free guidance at 100 turns an eps error
+# e into up to 201 e, and the toy encoder's pullback doubles it
+EPS_ATOL = 1e-5
+SDS_ATOL = 2 * 201 * EPS_ATOL
+SDS_T = 500  # the injected timestep of the card-vs-CPU SDS step
 KERNELS = {
     ring.KERNEL: {
         "route": "cuda",
@@ -573,6 +619,215 @@ def check_train_card_vs_cpu() -> None:
         raise AssertionError(f"train step gradients differ by {worst} x max|g|")
 
 
+def _expect_launches(path: str, launches: dict, want: dict) -> None:
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"{path}: kernel launches {launches}, expected {want}")
+
+
+def _mlp_leaves(tree) -> dict:
+    """{name: tensor} of the MLP and variance leaves of a parameter tree."""
+    out = {f"sdf.{i}.{k}": t for i, layer in enumerate(tree["sdf"]) for k, t in layer.items()}
+    out.update({f"color.{i}.{k}": t for i, layer in enumerate(tree["color"]) for k, t in layer.items()})
+    out["variance"] = tree["variance"]
+    return out
+
+
+def check_stylize() -> dict:
+    """The stylize CLI for STYLIZE_COARSE_STEPS coarse steps, then a fine
+    trainer for STYLIZE_FINE_STEPS steps; returns the table kernels'
+    launches of the two runs (each counted from zero)."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_stylize_")
+    try:
+        n = STYLIZE_COARSE_STEPS
+        _reset_launches()
+        trainer = stylize_cli.main(profile_train.STYLIZE_ARGV + [
+            "--max_steps", str(n), "--i_val", str(n), "--i_save", "1000000", "--out_dir", out_dir,
+            "--exp_name", "lava",
+        ])
+        torch.cuda.synchronize()
+        cli = _read_launches("stylize (CLI)", [ring.KERNEL, ring.RS_KERNEL])
+        # a gather and a reduce-scatter per step; a gather each for the
+        # ground truth, the validation render and the final save
+        _expect_launches("stylize (CLI)", cli, {ring.KERNEL: n + 3, ring.RS_KERNEL: n})
+        exp_dir = os.path.join(out_dir, "lava")
+        files = sorted(os.listdir(exp_dir))
+        print(f"stylize CLI wrote {files}; budget {trainer.fast_cfg.sample_budget}, normal mode "
+              f"{trainer.fast_cfg.normal_mode}", flush=True)
+        if f"lava_{n:04d}_body.png" not in files or "lava_final.pth.tar" not in files:
+            raise AssertionError(f"stylize CLI outputs: {files}")
+
+        base, fcfg, _, fast = bench.load_artifact("cuda")
+        params = trainer.params()
+        if not all(torch.isfinite(t).all() for t in leaves(params)):
+            raise AssertionError("stylize: non-finite parameters after the CLI run")
+        moved = max(float((a - b).abs().max()) for a, b in zip(leaves(_mlp_leaves(params)),
+                                                                 leaves(_mlp_leaves(base))))
+        loaded, lcfg = load_params_with_config(os.path.join(exp_dir, "lava_final.pth.tar"), "cuda")
+        if not (lcfg == fcfg and all(torch.equal(a, b) for a, b in zip(leaves(loaded), leaves(params)))):
+            raise AssertionError("stylize: the final checkpoint does not load as the trainer's parameters")
+        render = make_fast_frame_renderer(loaded, lcfg, trainer.fast_cfg, trainer.grid, chunk=64 * 64)
+        ro, rd = pose2rays(64, 64, bench.bench_poses()[0], device="cuda")
+        frame = render(ro, rd)["rgb"]
+        print(f"stylize: the MLPs moved by up to {moved:.4g}; the final checkpoint renders a 64x64 frame with "
+              f"{int(((frame - 1).abs().sum(-1) > 0.1).sum())} foreground pixels", flush=True)
+        if not (moved > 0 and torch.isfinite(frame).all() and (frame < 0.99).any()):
+            raise AssertionError("stylize: the style did not move or the checkpoint's frame is empty")
+
+        coarse_s = profile_train.time_stylize_steps(trainer, 0, STYLIZE_TIMED)
+        coarse_prof = profile_train.profile_stylize_steps(trainer, 0, 2)
+        grid0 = trainer.grid
+        fine_cfg = dataclasses.replace(trainer.cfg, coarse_epochs=0, fine_epochs=1,
+                                       grid_update_every=STYLIZE_FINE_STEPS)
+        fine = StylizeTrainer(fine_cfg, fcfg, trainer.guidance, base, base, grid=grid0, fast_cfg=trainer.fast_cfg)
+        del trainer, params, loaded, render
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        fine_s = profile_train.time_stylize_steps(fine, 0, STYLIZE_FINE_STEPS)
+        torch.cuda.synchronize()
+        fine_launches = _read_launches("stylize (fine)", [ring.KERNEL, ring.RS_KERNEL])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # a gather and a reduce-scatter per step, a gather for the refresh
+        m = STYLIZE_FINE_STEPS
+        _expect_launches("stylize (fine)", fine_launches, {ring.KERNEL: m + 1, ring.RS_KERNEL: m})
+        ro, _, th, tw = fine.view_rays(bench.bench_poses()[0], 0)
+        if (th, tw) != (256, 256) or fine.stats["refreshes"] != 1:
+            raise AssertionError(f"stylize fine: a {th}x{tw} frame, {fine.stats['refreshes']} refreshes")
+        share = _occupied_share(fine.grid, fine.fast_cfg.occ_threshold)
+        if not (torch.isfinite(fine.grid).all() and MIN_OCCUPIED_SHARE <= share <= MAX_OCCUPIED_SHARE):
+            raise AssertionError(f"stylize fine: refreshed grid finite {bool(torch.isfinite(fine.grid).all())}, "
+                                 f"occupied share {share}")
+        fine_prof = profile_train.profile_stylize_steps(fine, 0, 1)
+        summary = {
+            "card": card_line(),
+            "sample_budget": fine.fast_cfg.sample_budget,
+            "clip_guard_trips": fine.stats["clip_guard_trips"],
+            "refreshed_occupied_share": share,
+            "coarse_steps_per_sec": len(coarse_s) / sum(coarse_s),
+            "coarse_step_ms": [1e3 * x for x in coarse_s],
+            # steps 2 and 3: after the first step's warm-up, before the refresh
+            "fine_steps_per_sec": 2 / sum(fine_s[1:3]),
+            "fine_step_ms": [1e3 * x for x in fine_s],
+            "fine_peak_mem_gib": peak,
+            "coarse_profile": coarse_prof,
+            "fine_profile": fine_prof,
+        }
+        print("stylize: " + json.dumps(summary), flush=True)
+        print(f"stylize: {summary['coarse_steps_per_sec']:.2f} SDS steps/s coarse (64x64), "
+              f"{summary['fine_steps_per_sec']:.3f} fine (256x256); peak {peak:.2f} GiB", flush=True)
+        return {k: cli[k] + fine_launches[k] for k in cli}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _sds_step_record(device: str, noise: torch.Tensor, packed_dtype: str, cpu: dict | None = None) -> dict:
+    """One coarse SDS step of the artifact (64x64 frame, one patch, white
+    background) on ``device`` with its tables packed in ``packed_dtype``,
+    t = SDS_T and ``noise`` injected. With ``cpu`` (the CPU's record) the
+    card's SDS gradient is also computed on the CPU's image, and phase B
+    runs on the CPU's gradient."""
+    params, fcfg, grid, fast = bench.load_artifact(device)
+    fcfg = dataclasses.replace(fcfg, packed_dtype=packed_dtype)
+    toy, tcfg, embs = load_toy_guidance(TOY_DIR, device)
+    guide = SDSGuidance(make_toy_modules(toy, tcfg, embs))
+    cfg = StylizeConfig(tgt_text="lava", augment_bkg=False, coarse_epochs=1, fine_epochs=0, grid_update_every=0)
+    trainer = StylizeTrainer(cfg, fcfg, guide, params, params, grid=grid, fast_cfg=fast)
+    rec = {}
+    sds = guide.sds_image_grad
+
+    def injected(emb, img, gs, pred_depth=None, **kw):
+        rec["img"] = img.cpu()
+        g = sds(emb, img, gs, t_override=SDS_T, noise_override=noise.to(device))
+        rec["g"] = g.cpu()
+        if cpu is None:
+            return g
+        rec["g_same_img"] = sds(emb, cpu["img"].to(device), gs, t_override=SDS_T,
+                                noise_override=noise.to(device)).cpu()
+        return cpu["g"].to(device)
+
+    guide.sds_image_grad = injected
+    poses, descs = trainer.epoch_poses(0)
+    i = int(trainer.rng.permutation(len(poses))[0])
+    rec["loss"] = float(trainer.train_view(poses[i], descs[i], 0))
+    mlp = _mlp_leaves(trainer.rest)
+    rec["grad"] = {k: trainer.opt.state[t]["exp_avg"].cpu() / 0.1 for k, t in mlp.items()}
+    rec["params"] = {k: t.detach().cpu() for k, t in mlp.items()}
+    return rec
+
+
+def check_stylize_card_vs_cpu() -> None:
+    """The toy UNet, then one SDS step stage by stage, each stage from the
+    same inputs on both devices. The step runs with f32 tables: with the
+    artifact's bf16 tables a corner sum that the card and the CPU add in
+    other orders can round to the other bf16 neighbour (2^-8 relative),
+    which the fd4 normals multiply by 1/(4 eps) = 50 (the grid refresh
+    check compares f32 tables for the same reason); the bf16 step's
+    differences are printed, not held."""
+    gen = torch.Generator().manual_seed(0)
+    # the toy UNet alone on one input
+    lat = torch.randn((2, 3, 64, 64), generator=gen)
+    t = torch.tensor([SDS_T, 37], dtype=torch.int32)
+    eps = {}
+    for device in ("cpu", "cuda"):
+        toy, tcfg, embs = load_toy_guidance(TOY_DIR, device)
+        with torch.no_grad():
+            eps[device] = unet_apply(toy, tcfg.unet, lat.to(device), t.to(device), embs[[0, 3]]).cpu()
+    eps_err = float((eps["cuda"] - eps["cpu"]).abs().max())
+    noise = torch.randn((1, 3, 64, 64), generator=gen)
+    cpu = _sds_step_record("cpu", noise, "bfloat16")
+    card = _sds_step_record("cuda", noise, "bfloat16", cpu)
+    print(f"stylize card vs CPU, bf16 tables (not held): phase A 64x64 "
+          f"{float((card['img'] - cpu['img']).abs().max()):.3g}, SDS gradient of each device's own image "
+          f"{float((card['g'] - cpu['g']).abs().max()):.3g}, of one image "
+          f"{float((card['g_same_img'] - cpu['g']).abs().max()):.3g}; loss {card['loss']:.9g} / "
+          f"{cpu['loss']:.9g}", flush=True)
+    cpu = _sds_step_record("cpu", noise, "float32")
+    card = _sds_step_record("cuda", noise, "float32", cpu)
+    img_err = float((card["img"] - cpu["img"]).abs().max())
+    sds_err = float((card["g_same_img"] - cpu["g"]).abs().max())
+    own_err = float((card["g"] - cpu["g"]).abs().max())
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    grad_rel = max(float((card["grad"][k] - g).abs().max() / g.abs().max()) for k, g in cpu["grad"].items())
+    lr = StylizeConfig().lr
+    big_err, any_err = 0.0, 0.0
+    for k, g in cpu["grad"].items():
+        d = (card["params"][k] - cpu["params"][k]).abs()
+        big = g.abs() > 1e-2 * g.abs().max()
+        big_err = max(big_err, float(d[big].max()) if big.any() else 0.0)
+        any_err = max(any_err, float(d.max()))
+    print(f"stylize card vs CPU, f32 tables: toy eps {eps_err:.3g} (atol {EPS_ATOL}) on |eps| up to "
+          f"{float(eps['cpu'].abs().max()):.3g}; phase A 64x64 {img_err:.3g} (atol {CARD_VS_CPU_ATOL}); SDS "
+          f"gradient of one image {sds_err:.3g} (atol {SDS_ATOL:.3g}), of each device's own image {own_err:.3g} "
+          f"(not held), max |g| {float(cpu['g'].abs().max()):.3g}; loss {card['loss']:.9g} / {cpu['loss']:.9g} "
+          f"(rel {loss_rel:.3g}, rtol {TRAIN_LOSS_RTOL}); MLP gradients {grad_rel:.3g} x max|g| (tolerance "
+          f"{TRAIN_GRAD_REL}); updated MLP parameters {big_err:.3g} where |g| > 1e-2 max|g| (atol 1e-6), "
+          f"{any_err:.3g} elsewhere (atol {2 * lr})", flush=True)
+    if not (eps_err <= EPS_ATOL and img_err <= CARD_VS_CPU_ATOL and sds_err <= SDS_ATOL):
+        raise AssertionError("stylize card vs CPU: the guidance or phase A differ")
+    if not (np.isfinite(card["loss"]) and loss_rel <= TRAIN_LOSS_RTOL and grad_rel <= TRAIN_GRAD_REL):
+        raise AssertionError("stylize card vs CPU: phase B differs")
+    if not (big_err <= 1e-6 and any_err <= 2 * lr):
+        raise AssertionError("stylize card vs CPU: the Adam step differs")
+
+
+def check_analytic_card_vs_cpu() -> None:
+    """A 32x32 frame of the artifact with analytic normals, card and CPU,
+    the budget derived on the CPU."""
+    pose = bench.bench_poses()[0]
+    frames, budget = {}, None
+    for device in ("cpu", "cuda"):
+        params, fcfg, grid, cfg = bench.load_artifact(device)
+        ro, rd = pose2rays(32, 32, pose, device=device)
+        if budget is None:
+            budget = int(int(count_fast_samples(ro, rd, cfg, grid)) * 1.02)
+        cfg = dataclasses.replace(cfg, sample_budget=budget, normal_mode="analytic")
+        frames[device] = make_fast_frame_renderer(params, fcfg, cfg, grid, chunk=32 * 32)(ro, rd)["rgb"].cpu()
+    err = float((frames["cuda"] - frames["cpu"]).abs().max())
+    print(f"32x32 analytic frame, card vs CPU: max abs diff {err:.3g} (atol {CARD_VS_CPU_ATOL})", flush=True)
+    if not (torch.isfinite(frames["cuda"]).all() and err <= CARD_VS_CPU_ATOL and (frames["cuda"] < 0.99).any()):
+        raise AssertionError(f"analytic frames: card and CPU differ by {err}, or the frame is empty")
+
+
 def main() -> int:
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -599,6 +854,12 @@ def main() -> int:
             check_card_vs_cpu()
             check_refresh_card_vs_cpu()
             check_train_card_vs_cpu()
+        with Phase("stylize"):
+            paths["stylize"] = check_stylize()
+        with Phase("stylize_card_vs_cpu"):
+            check_stylize_card_vs_cpu()
+        with Phase("analytic_card_vs_cpu"):
+            check_analytic_card_vs_cpu()
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         print("chip_smoke: FAILED", flush=True)

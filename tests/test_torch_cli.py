@@ -50,6 +50,23 @@ def test_renders_pngs_on_cpu(tmp_path):
     assert np.ptp(img) > 50
 
 
+@pytest.mark.skipif(not os.path.exists(bench.ARTIFACT_CKPT), reason="artifact not present")
+def test_renders_analytic_normals_on_cpu(tmp_path):
+    """--normal_mode analytic renders (it raised before the analytic
+    normals were ported), within a few levels of the fd4 frame."""
+    from test_torch_guards import _read_png
+
+    imgs = {}
+    for mode in ("analytic", "fd4"):
+        cli.main(ARGS + [
+            "--use_cuda", "false", "--render_h", "12", "--render_w", "16", "--trajectory_resolution", "1",
+            "--batch_size", "48", "--out_dir", str(tmp_path), "--exp_name", mode, "--normal_mode", mode,
+        ])
+        imgs[mode] = _read_png(str(tmp_path / "canonical_360" / mode / f"{mode}_body_can_0000.png")).astype(int)
+    assert (imgs["analytic"] < 250).any()
+    assert np.abs(imgs["analytic"] - imgs["fd4"]).mean() < 8
+
+
 def test_renders_with_refreshed_grid(tmp_path, capsys):
     """Without --grid_path the CLI refreshes a 129^3 grid from the SDF of a
     small field (written here as a reference state dict with its sidecar)
@@ -153,3 +170,17 @@ def test_warp_cli_renders_pngs_on_cpu(warp_inputs, tmp_path):
     jax_cli.main(warp_inputs + WARP_ROOT_ARGS + ["--exp_name", "j"])
     want = read_png(str(tmp_path / "test_views" / "j" / "j_0000.png"))  # written by Pillow, with row filters
     assert np.abs(img.astype(int) - want.astype(int)).max() <= 1
+
+
+def test_warp_cli_analytic_normals_on_cpu(warp_inputs, tmp_path):
+    """--normal_mode analytic on the warp CLI renders the body, within a
+    few levels of the fd4 frame."""
+    from avatarcraft_tpu_torch.cli import render_warp_cli
+    from test_torch_guards import _read_png
+
+    imgs = {}
+    for mode in ("analytic", "fd4"):
+        render_warp_cli.main(warp_inputs + WARP_ROOT_ARGS + ["--exp_name", mode, "--normal_mode", mode])
+        imgs[mode] = _read_png(str(tmp_path / "test_views" / mode / f"{mode}_0000.png")).astype(int)
+    assert (imgs["analytic"] < 250).any()
+    assert np.abs(imgs["analytic"] - imgs["fd4"]).mean() < 8

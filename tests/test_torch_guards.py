@@ -1,5 +1,6 @@
 """Guards for what the card's machine needs of the PyTorch port: it imports
-without JAX, the JAX package, imageio or cv2; chip_smoke.py fails loudly
+without JAX, the JAX package, imageio or cv2 (the modules of every slice
+reached); entry points default to the card; chip_smoke.py fails loudly
 without a card or without the package; kernels build for sm_90a into a
 directory git ignores; the wrapper never falls back to the CPU."""
 
@@ -43,6 +44,16 @@ WARP_MODULES = (
     "avatarcraft_tpu_torch.cli.render_warp_cli",
     "avatarcraft_tpu_torch.utils.style_delta",
 )
+# modules of the stylize slice
+STYLIZE_MODULES = (
+    "avatarcraft_tpu_torch.models.sd",
+    "avatarcraft_tpu_torch.models.diffusion",
+    "avatarcraft_tpu_torch.models.toy_guidance",
+    "avatarcraft_tpu_torch.utils.background",
+    "avatarcraft_tpu_torch.workloads.stylize",
+    "avatarcraft_tpu_torch.cli.options",
+    "avatarcraft_tpu_torch.cli.stylize_cli",
+)
 
 
 def _env_without_repo():
@@ -61,7 +72,7 @@ import avatarcraft_tpu_torch
 for m in pkgutil.walk_packages(avatarcraft_tpu_torch.__path__, "avatarcraft_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-missing = [m for m in {TRAIN_MODULES + WARP_MODULES!r} if m not in sys.modules]
+missing = [m for m in {TRAIN_MODULES + WARP_MODULES + STYLIZE_MODULES!r} if m not in sys.modules]
 print("imports ok" if not missing else f"not imported: {{missing}}")
 """
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
@@ -203,6 +214,22 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build.build(list(KERNELS))
+
+
+def test_stylize_entry_points_default_to_cuda():
+    """Every entry point of the stylize slice that puts tensors on a device
+    takes it explicitly and defaults to ``cuda``; the trainer runs where its
+    parameters are; the CLI runs on the card unless --use_cuda false."""
+    import inspect
+
+    from avatarcraft_tpu_torch.cli import stylize_cli
+    from avatarcraft_tpu_torch.models import diffusion, toy_guidance
+    from avatarcraft_tpu_torch.utils import background
+
+    for fn in (diffusion.make_dummy_modules, toy_guidance.load_toy_guidance, background.select_background):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    opt = stylize_cli.build_parser().parse_args([])
+    assert opt.use_cuda is True and opt.sampler == "fast"
 
 
 def test_bench_refuses_cpu():

@@ -1,5 +1,6 @@
-"""Near/far, bit-packed occupancy, sample selection and compaction of the
-PyTorch port against the JAX package, on the CPU.
+"""Near/far, bit-packed occupancy, sample selection, compaction and floater
+pruning (flood fill, prune, pool) of the PyTorch port against the JAX
+package, on the CPU.
 
 Tolerance: none. These functions are integer logic on f32 inputs computed
 with the same f32 operations in the same order, so every output is
@@ -112,3 +113,75 @@ def test_compact_and_scatter_bit_exact(rng, budget):
     scatter = jax.jit(jocc.scatter_to_flat, static_argnums=(2,))
     want = scatter(jnp.asarray(vals), jsel, T, jnp.asarray(n_kept))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _blobby_grid(rng, R=24, n_blobs=6):
+    """Densities: a few random boxes at 100 over a 0..1 floor, in the
+    first R-6 cells of each axis, and one isolated 2^3 box in the far
+    corner."""
+    g = rng.random((R, R, R)).astype(np.float32)
+    for _ in range(n_blobs):
+        lo = rng.integers(0, R - 10, 3)
+        hi = lo + rng.integers(1, 5, 3)
+        g[lo[0] : hi[0], lo[1] : hi[1], lo[2] : hi[2]] = 100.0
+    g[-3:-1, -3:-1, -3:-1] = 100.0
+    return g
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_prune_grid_floaters_matches_jax(seed):
+    rng = np.random.default_rng(seed)
+    grid = _blobby_grid(rng)
+    prev = np.where(rng.random(grid.shape) < 0.02, 100.0, 0.0).astype(np.float32)
+    prev[:12] = np.where(grid[:12] > 50, 100.0, 0.0)  # the blobs near the origin are seeded
+    prev[-6:] = 0.0  # the corner box floats
+    want = np.asarray(jax.jit(jocc.prune_grid_floaters)(grid, prev))
+    got = occ.prune_grid_floaters(_t(grid), _t(prev))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want[-3:-1, -3:-1, -3:-1] == 0).all() and (want > 50).any()  # the floater pruned, the seeded kept
+
+
+def test_prune_grid_floaters_empty_seed_matches_jax():
+    """No occupied cell of the new grid was occupied before: every
+    occupied cell is kept (the floor below the threshold is zeroed)."""
+    grid = _blobby_grid(np.random.default_rng(5))
+    prev = np.zeros_like(grid)
+    prev[0, 0, 0] = 100.0 if grid[0, 0, 0] < 50 else 0.0
+    want = np.asarray(jax.jit(jocc.prune_grid_floaters)(grid, prev))
+    got = occ.prune_grid_floaters(_t(grid), _t(prev))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(want[grid > 50], grid[grid > 50])
+    assert (want[grid < 1.0] == 0).all()
+
+
+@pytest.mark.parametrize("max_iters,check_every", [(None, 8), (None, 1), (None, 7), (7, 8), (7, 3), (0, 8)])
+def test_flood_fill_matches_jax(max_iters, check_every):
+    """A serpentine corridor longer than the default 3R sweeps (so the
+    default fill is cut too) beside a random component, filled from one end
+    to convergence or a cut at several convergence-check periods; and an
+    empty seed."""
+    R = 20
+    m = np.zeros((R, R, R), bool)
+    for x in range(R):
+        if x % 2 == 0:
+            m[x, :, 5] = True
+        else:
+            m[x, R - 1 if (x // 2) % 2 == 0 else 0, 5] = True
+    m[:, :, 12] = np.random.default_rng(0).random((R, R)) < 0.5
+    seed = np.zeros_like(m)
+    seed[0, 0, 5] = True
+    seed[3, 3, 12] = True
+    for s in (seed, np.zeros_like(m)):
+        want = np.asarray(jocc.flood_fill_occupancy(jnp.asarray(m), jnp.asarray(s), max_iters))
+        got = occ.flood_fill_occupancy(_t(m), _t(s), max_iters, check_every=check_every)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert want.sum() > (2 if s.any() and max_iters != 0 else -1)
+    assert want.sum() == 0
+
+
+@pytest.mark.parametrize("R,factor", [(17, 2), (16, 2), (13, 3)])
+def test_pool_grid_matches_jax(R, factor):
+    g = np.random.default_rng(R).random((R, R, R)).astype(np.float32) * 100
+    want = np.asarray(jocc.pool_grid(jnp.asarray(g), factor))
+    got = occ.pool_grid(_t(g), factor)
+    np.testing.assert_array_equal(got.numpy(), want)

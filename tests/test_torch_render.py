@@ -7,7 +7,11 @@ Tolerances:
 * rendered colors: 2e-3 absolute, the pin tests/test_styled_warp.py:112
   holds the JAX package's own renders to (fd4 normals difference bf16
   features at eps=0.005, which amplifies last-bit differences);
-* sample counts: exact (integer logic, see test_torch_occupancy.py).
+* sample counts: exact (integer logic, see test_torch_occupancy.py);
+* analytic normals (forward-mode through the field, f32 tables): the SDF
+  and features FIELD_ATOL, the gradient FIELD_ATOL x max|grad| (the
+  tangents run through the same f32 matmuls); an analytic 32x32 frame of
+  the committed artifact (bf16 tables): the 2e-3 render pin.
 """
 
 import dataclasses
@@ -98,10 +102,15 @@ def test_field_outputs_match(rng):
 
 
 def test_unported_modes_raise():
+    """The hash encoder is still to port; the analytic normal mode, ported
+    since (tests/test_torch_stylize.py holds it against JAX), no longer
+    raises."""
     _, params, fcfg = _small_field()
     x = torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        nsr.field_sdf_grad(params, x, fcfg, 1.6, 0.005, "analytic")
+    sdf, feat, grad = nsr.field_sdf_grad(params, x, fcfg, 1.6, 0.005, "analytic")
+    assert sdf.shape == (4, 1) and grad.shape == (4, 3) and torch.isfinite(grad).all()
+    with pytest.raises(ValueError, match="unknown normal_mode"):
+        nsr.field_sdf_grad(params, x, fcfg, 1.6, 0.005, "fd5")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         nsr.materialize_field_tables(params, dataclasses.replace(fcfg, encoder="hashgrid"))
 
@@ -195,5 +204,47 @@ def test_artifact_frame_matches_jax(artifact, n_shards):
     )
     got = make_fast_frame_renderer(params, fcfg, cfg, grid, chunk=32 * 32, n_shards=n_shards)(ro, rd)["rgb"]
     assert np.isfinite(got.numpy()).all()
+    assert (np.abs(want - 1.0).sum(-1) > 0.1).sum() > 20  # the body is in view
+    np.testing.assert_allclose(got.numpy(), want, atol=RENDER_ATOL, rtol=0)
+
+
+def _field_with_tables(seed=0):
+    """_small_field with a random first layer over the encoding, so that
+    the SDF and its gradient depend on the tables, and a surface (bias
+    -1)."""
+    jparams, _, fcfg = _small_field(seed)
+    rng = np.random.default_rng(seed + 100)
+    v = rng.normal(size=jparams["sdf"][0]["v"].shape).astype(np.float32) * 0.3
+    jparams["sdf"][0] = {**jparams["sdf"][0], "v": jnp.asarray(v), "g": jnp.linalg.norm(v, axis=1)}
+    jparams["sdf"][-1]["b"] = jparams["sdf"][-1]["b"].at[0].add(-1.0)
+    return jparams, params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu"), fcfg
+
+
+def test_analytic_normals_match_jax(rng):
+    jparams, params, fcfg = _field_with_tables()
+    x = rng.uniform(-1.5, 1.5, size=(400, 3)).astype(np.float32)
+    jfield = jnsr.network_field_fns(jparams, SMALL_JAX_FCFG, 1.6)
+    want = jax.jit(lambda xx: jnsr.field_sdf_grad(jfield, xx, 1.6, 0.005, "analytic"))(jnp.asarray(x))
+    got = nsr.field_sdf_grad(params, _t(x), fcfg, 1.6, 0.005, "analytic")
+    for g, w, atol in zip(got, want, (FIELD_ATOL, FIELD_ATOL, FIELD_ATOL * float(np.abs(want[2]).max()))):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), atol=atol, rtol=0)
+    # the exact gradient of the piecewise-trilinear field, close to fd7's
+    fd7 = nsr.field_sdf_grad(params, _t(x), fcfg, 1.6, 1e-3, "fd7")[2]
+    assert float((fd7 - got[2]).abs().median()) < 0.05 * float(got[2].abs().median())
+
+
+@needs_artifact
+def test_analytic_artifact_frame_matches_jax(artifact):
+    """A 32x32 frame of the committed artifact with analytic normals and
+    no budget, through the port's frame renderer and JAX's render."""
+    params, fcfg, grid, cfg, jparams, jfcfg, jgrid = artifact
+    pose = bench.bench_poses()[1]
+    ro, rd = pose2rays(32, 32, pose, device="cpu")
+    jro, jrd = jax_pose2rays(32, 32, pose)
+    cfg = dataclasses.replace(cfg, normal_mode="analytic", sample_budget=0)
+    jcfg = _jax_fast_cfg(cfg)
+    want = np.asarray(jax.jit(lambda p, oo, dd, g: jnsr.render_rays_fast(p, oo, dd, jfcfg, jcfg, g, 1.0)["rgb"])(
+        jparams, jro, jrd, jgrid))
+    got = make_fast_frame_renderer(params, fcfg, cfg, grid, chunk=32 * 32)(ro, rd)["rgb"]
     assert (np.abs(want - 1.0).sum(-1) > 0.1).sum() > 20  # the body is in view
     np.testing.assert_allclose(got.numpy(), want, atol=RENDER_ATOL, rtol=0)

@@ -1,0 +1,148 @@
+"""The port's stylize CLI against the JAX package's, on the CPU: the
+derived sample budget on the committed artifact (exact, at 128x128 and
+64x64), the refusals of
+what is not ported yet (each names its ROADMAP item and writes nothing),
+and a two-step CPU run whose final checkpoint loads."""
+
+import dataclasses
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from avatarcraft_tpu.cli import stylize_cli as jcli
+from avatarcraft_tpu.models import instant_nsr as jnsr
+from avatarcraft_tpu.ops.grid_encoder import PyramidSpec as JaxPyramidSpec
+from avatarcraft_tpu.workloads import stylize as jsty
+from avatarcraft_tpu_torch import bench
+from avatarcraft_tpu_torch.cli import stylize_cli
+from avatarcraft_tpu_torch.models import instant_nsr as nsr
+from avatarcraft_tpu_torch.ops import occupancy as occ
+from avatarcraft_tpu_torch.utils.checkpoint import leaves, load_params_with_config, params_from_jax
+from avatarcraft_tpu_torch.workloads import stylize
+from avatarcraft_tpu_torch.workloads.reconstruct import make_grid_update_fn
+
+needs_artifact = pytest.mark.skipif(
+    not (os.path.exists(bench.ARTIFACT_CKPT) and os.path.exists(bench.ARTIFACT_GRID)),
+    reason="artifact not present",
+)
+JAX_FCFG = jnsr.FieldConfig(
+    encoder="tpu_pyramid",
+    pyramid=JaxPyramidSpec(grid_resolutions=(4, 8), grid_dim=2, plane_resolutions=(17,), plane_dim=2),
+    packed_dtype="float32",
+)
+
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: tier-1 runs six
+    pytest workers on the machine's cores, and workers whose torch ops each
+    spread over every core oversubscribe it (a CPU-heavy test then runs up
+    to ten times slower than alone). Restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def artifact():
+    params, fcfg, grid, cfg = bench.load_artifact("cpu")
+    return params, fcfg, grid, cfg
+
+
+def _small_field():
+    """A small field with a surface whose SDF depends on its tables, as
+    the port's tree with its FieldConfig."""
+    rng = np.random.default_rng(0)
+    jparams = jnsr.init_field_params(jax.random.PRNGKey(0), JAX_FCFG)
+    for key in ("grids", "planes"):
+        jparams[key] = [jnp.asarray(rng.normal(size=t.shape).astype(np.float32) * 0.3) for t in jparams[key]]
+    v = rng.normal(size=jparams["sdf"][0]["v"].shape).astype(np.float32) * 0.3
+    jparams["sdf"][0] = {**jparams["sdf"][0], "v": jnp.asarray(v), "g": jnp.linalg.norm(v, axis=1)}
+    jparams["sdf"][-1]["b"] = jparams["sdf"][-1]["b"].at[0].add(-1.0)
+    fcfg = nsr.FieldConfig(**{
+        **dataclasses.asdict(JAX_FCFG),
+        "grid": nsr.HashGridSpec(**dataclasses.asdict(JAX_FCFG.grid)),
+        "pyramid": nsr.PyramidSpec(**dataclasses.asdict(JAX_FCFG.pyramid)),
+    })
+    return params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu"), fcfg
+
+
+@pytest.fixture(scope="module")
+def refreshed_grid(artifact):
+    """The grid the CLI derives its budget from by default: the artifact's
+    field refreshed into an empty grid."""
+    params, fcfg, _, cfg = artifact
+    return make_grid_update_fn(fcfg, cfg.bound)(params, occ.init_density_grid(129))
+
+
+@needs_artifact
+@pytest.mark.parametrize("res,chunk", [(128, 4096), (64, 1024)])
+def test_derive_sample_budget_matches_jax(artifact, refreshed_grid, res, chunk):
+    """The schedule's 48 poses at res x res in chunk-ray calls (the CLI's
+    256x256 frames cost four times the 128x128 case's 12 s here; the
+    function is the same at every size)."""
+    _, _, _, cfg = artifact
+    probe = dataclasses.replace(cfg, sample_budget=0)
+    scfg, jscfg = stylize.StylizeConfig(H=res, W=res), jsty.StylizeConfig(H=res, W=res)
+    got = stylize_cli.derive_sample_budget(scfg, refreshed_grid, probe, chunk)
+    want = jcli.derive_sample_budget(jscfg, jnp.asarray(refreshed_grid.numpy()),
+                                     jnsr.FastRenderConfig(**dataclasses.asdict(probe)), chunk)
+    assert got == want and 0 < got < chunk * probe.k_samples
+
+
+REFUSALS = [
+    (["--sampler", "parity"], "ROADMAP item 19"),
+    (["--sd_weights", "/x/sd"], "ROADMAP item 17"),
+    (["--implicit_model", "neus"], "ROADMAP item 20"),
+    (["--guidance_type", "clip"], "JAX package refuses"),
+    (["--encoder", "hashgrid"], "ROADMAP item 19"),
+    (["--i_mesh", "1000"], "ROADMAP item 21"),  # the default schedule reaches step 1000
+    (["--i_mesh", "5", "--max_steps", "5"], "ROADMAP item 21"),
+    (["--guidance_type", "toy", "--tgt_text", "zombie", "--i_mesh", "100000"], "trained toy style"),
+]
+
+
+@pytest.mark.parametrize("argv,msg", REFUSALS)
+def test_cli_refusals_write_nothing(tmp_path, argv, msg):
+    out = tmp_path / "out"
+    base = ["--weights_path", bench.ARTIFACT_CKPT, "--use_cuda", "false", "--out_dir", str(out)]
+    with pytest.raises(SystemExit, match=msg):
+        stylize_cli.main(base + argv)
+    assert not out.exists()
+
+
+def test_cli_runs_on_cpu(tmp_path):
+    """A two-step CPU run of the CLI on a small field with the stand-in
+    guidance, its density grid from --grid_path and a small explicit
+    budget (the CPU's cost; the derived budget and the grid refreshed from
+    the field are held above and run on the card in chip_smoke.py's
+    stylize phase, which also checks the validation PNG): the options file
+    and the final checkpoint, which loads as the trainer's parameters."""
+    params, fcfg = _small_field()
+    from avatarcraft_tpu_torch.utils.checkpoint import save_params_with_config
+
+    ckpt = str(tmp_path / "field.pth.tar")
+    save_params_with_config(params, ckpt, fcfg)
+    grid_path = str(tmp_path / "grid.npy")
+    np.save(grid_path, np.where(np.random.default_rng(0).random((17, 17, 17)) < 0.4, 50.0, 0.5).astype(np.float32))
+    out = tmp_path / "out"
+    trainer = stylize_cli.main([
+        "--weights_path", ckpt, "--use_cuda", "false", "--out_dir", str(out), "--exp_name", "t",
+        "--max_steps", "2", "--i_val", "100", "--i_mesh", "100000", "--sample_budget", "4096",
+        "--grid_path", grid_path,
+    ])
+    assert trainer.fast_cfg.normal_mode == "fd4"  # no PROVENANCE.json beside the checkpoint
+    assert trainer.fast_cfg.sample_budget == 4096 and tuple(trainer.grid.shape) == (17, 17, 17)
+    files = sorted(os.listdir(out / "t"))
+    assert files == ["t_args.txt", "t_final.pth.tar", "t_final.pth.tar.fieldcfg.json"]
+    loaded, lcfg = load_params_with_config(str(out / "t" / "t_final.pth.tar"), device="cpu")
+    assert dataclasses.asdict(lcfg) == dataclasses.asdict(fcfg)
+    for a, b in zip(leaves(loaded), leaves(trainer.params())):
+        assert torch.equal(a, b)
+    assert not torch.equal(loaded["sdf"][0]["v"], params["sdf"][0]["v"])  # the style moved
