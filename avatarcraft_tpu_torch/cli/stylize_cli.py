@@ -7,16 +7,20 @@ JAX package's.
         --guidance_type toy --tgt_text lava --i_mesh 100000 --max_steps 200
 
 ``--guidance_type toy`` reads the trained toy denoiser from ``--toy_weights``
-(config.json + params_torch.npz); ``diffusion`` without ``--sd_weights``
+(config.json + params_torch.npz); ``diffusion`` with ``--sd_weights DIR``
+loads Stable Diffusion (``--sd_version`` 1.5, or 2.0 for SD 2.0-depth, which
+conditions on the frame's depth) from DIR's unet.pt, vae.pt,
+text_encoder.pt and tokenizer/merges.txt (``models/sd.py::
+load_stable_diffusion_modules``); ``diffusion`` without ``--sd_weights``
 runs the deterministic stand-in guidance (a pipeline smoke run, no
 meaningful styles). Validation renders are PNGs, checkpoints ``.pth.tar``
 with their field-config sidecar. ``--use_cuda false`` runs on the CPU.
 
 Refused before anything is written, each naming its ROADMAP item:
-``--sampler parity`` (19), ``--sd_weights`` (17), ``--implicit_model neus``
-(20), a checkpoint whose encoder is not the pyramid (19), an ``--i_mesh``
-the run would reach (mesh extraction, 21); ``--guidance_type clip`` is
-refused as the JAX package refuses it.
+``--sampler parity`` (19), ``--implicit_model neus`` (20), a checkpoint
+whose encoder is not the pyramid (19), an ``--i_mesh`` the run would reach
+(mesh extraction, 21); ``--guidance_type clip`` is refused as the JAX
+package refuses it.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from avatarcraft_tpu_torch.constants import (
 )
 from avatarcraft_tpu_torch.models.diffusion import SDSGuidance, make_dummy_modules
 from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig, count_fast_samples
+from avatarcraft_tpu_torch.models.sd import load_stable_diffusion_modules
 from avatarcraft_tpu_torch.models.toy_guidance import STYLES, load_toy_guidance, make_toy_modules, style_index
 from avatarcraft_tpu_torch.ops.occupancy import init_density_grid
 from avatarcraft_tpu_torch.utils.checkpoint import (
@@ -77,7 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--guidance_scale", default=100, type=float)
     parser.add_argument("--sd_version", default="1.5", type=str, choices=["1.5", "2.0"])
     parser.add_argument("--sd_weights", default=None, type=str,
-                        help="converted Stable Diffusion weights (not ported yet, ROADMAP item 17)")
+                        help="directory of Stable Diffusion state dicts: unet.pt, vae.pt, text_encoder.pt, "
+                             "tokenizer/merges.txt")
     parser.add_argument("--use_opacity", default=True, type=options.str2bool)
     parser.add_argument("--w_opacity", default=1e5, type=float,
                         help="opacity-loss weight (reference: stylize.py:193)")
@@ -135,9 +141,6 @@ def refusal(opt, cfg: StylizeConfig) -> str | None:
         return "--sampler parity: " + PARITY_REFUSAL
     if opt.guidance_type == "clip":
         return "--guidance_type clip: CLIP guidance is dead in the reference too (the JAX package refuses it)"
-    if opt.sd_weights:
-        return ("--sd_weights: the Stable Diffusion modules (VAE, CLIP, the state-dict loaders) are not ported "
-                "yet (ROADMAP item 17); use --guidance_type toy")
     if opt.implicit_model != "instant_nsr":
         return f"--implicit_model {opt.implicit_model} is not ported yet (ROADMAP item 20, legacy models)"
     if opt.encoder == "hashgrid":
@@ -193,6 +196,10 @@ def build_guidance(opt, device) -> SDSGuidance:
         params, tcfg, embs = load_toy_guidance(opt.toy_weights, device)
         print(f"[stylize] toy guidance from {opt.toy_weights} (styles: {', '.join(tcfg.styles)})")
         return SDSGuidance(make_toy_modules(params, tcfg, embs))
+    if opt.sd_weights:
+        modules = load_stable_diffusion_modules(opt.sd_weights, version=opt.sd_version, device=device)
+        print(f"[stylize] loaded Stable Diffusion {opt.sd_version} from {opt.sd_weights}")
+        return SDSGuidance(modules)
     print("[stylize] WARNING: no --sd_weights given; using the deterministic stand-in guidance "
           "(pipeline smoke mode, no meaningful styles).")
     return SDSGuidance(make_dummy_modules(image_size=512, device=device))

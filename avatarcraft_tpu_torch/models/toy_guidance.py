@@ -1,7 +1,8 @@
 """The in-environment trained SDS guidance (the "toy" conditional denoiser):
-port of the JAX package's models/toy_guidance.py (``STYLES``,
-``style_index``, ``ToyGuidanceConfig``, the style embeddings,
-``make_toy_modules`` and the loader).
+port of the JAX package's models/toy_guidance.py (the style palettes and
+targets ``style_map`` / ``apply_style``, ``style_index``,
+``ToyGuidanceConfig``, ``make_toy_modules``, the DDPM trainer and the
+checkpoint's save and load).
 
 A pixel-space conditional UNet (``models/sd.py`` at a miniature config)
 DDPM-trained on procedural style targets; conditioning is one fixed
@@ -11,12 +12,12 @@ the body of the lava") resolve to the style keyword they contain.
 
 Weights: ``artifacts/toy_guidance/params_torch.npz`` beside the JAX
 package's orbax checkpoint. It holds that checkpoint's leaves under
-``params/<path>`` (the JAX tree's keys joined by "/", in its flattening
-order) and the ``style_embeddings`` array, which the JAX package draws from
+``params/<path>`` (the JAX tree's keys joined by "/", HWIO convolutions)
+and the ``style_embeddings`` array, which the JAX package draws from
 ``jax.random.PRNGKey(seed)`` and which the port cannot draw itself. Run
 ``python tests/test_torch_toy_guidance.py`` to regenerate it (it needs the
-JAX package and orbax). The DDPM trainer and the palette targets
-(``style_map``, ``apply_style``) are still to port (ROADMAP item 15).
+JAX package and orbax); ``save_toy_guidance`` writes the same format from
+the port's trees.
 """
 
 from __future__ import annotations
@@ -28,12 +29,24 @@ import os
 import numpy as np
 import torch
 
-from avatarcraft_tpu_torch.models.diffusion import GuidanceModules
-from avatarcraft_tpu_torch.models.sd import UNetConfig, unet_apply, unet_params_from_jax
+from avatarcraft_tpu_torch.models.diffusion import DiffusionSchedule, GuidanceModules
+from avatarcraft_tpu_torch.models.sd import UNetConfig, full_f32, params_from_jax, unet_apply
 
+# luminance -> color control points (evenly spaced in [0, 1])
+STYLE_PALETTES: dict[str, tuple] = {
+    "lava": ((0.10, 0.00, 0.00), (0.62, 0.05, 0.00),
+             (0.95, 0.45, 0.05), (1.00, 0.95, 0.30)),
+    "emerald": ((0.00, 0.05, 0.02), (0.02, 0.35, 0.15),
+                (0.10, 0.70, 0.35), (0.80, 1.00, 0.85)),
+    "porcelain": ((0.20, 0.25, 0.35), (0.55, 0.60, 0.70),
+                  (0.85, 0.88, 0.95), (1.00, 1.00, 1.00)),
+}
 # the style keywords of the committed checkpoint, in its order
-STYLES: tuple = ("lava", "emerald", "porcelain")
+STYLES: tuple = tuple(STYLE_PALETTES)
 WEIGHTS_FILE = "params_torch.npz"
+# the config.json keys, in the JAX package's order
+CONFIG_KEYS = ("image_size", "emb_dim", "seq_len", "block_out_channels", "layers_per_block",
+               "attention_head_dim", "norm_groups", "attn_blocks", "styles", "seed")
 
 
 def style_index(prompt: str) -> int:
@@ -44,6 +57,30 @@ def style_index(prompt: str) -> int:
         if name in prompt:
             return i
     return -1
+
+
+def style_map(rgb: torch.Tensor, style: int | str) -> torch.Tensor:
+    """Palette mapping: [..., 3] colors -> [..., 3] palette colors by
+    luminance (piecewise-linear over the style's control points)."""
+    if isinstance(style, str):
+        style = STYLES.index(style)
+    pal = torch.tensor(list(STYLE_PALETTES.values())[style], dtype=rgb.dtype, device=rgb.device)  # [K, 3]
+    lum = torch.clamp(0.2126 * rgb[..., 0] + 0.7152 * rgb[..., 1] + 0.0722 * rgb[..., 2], 0.0, 1.0)
+    k = pal.shape[0]
+    x = lum * (k - 1)
+    i0 = torch.clamp(torch.floor(x).to(torch.int64), 0, k - 2)
+    f = (x - i0)[..., None]
+    return pal[i0] * (1.0 - f) + pal[i0 + 1] * f
+
+
+def apply_style(rgb: torch.Tensor, alpha: torch.Tensor, style: int | str) -> torch.Tensor:
+    """The procedural target: the foreground's luminance mapped through the
+    style's palette, the background (1 - alpha) left as it is.
+
+    rgb:   [..., 3] composited render colors in [0, 1]
+    alpha: [...] foreground coverage (the render's weight_sum)
+    """
+    return style_map(rgb, style) * alpha[..., None] + rgb * (1.0 - alpha[..., None])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,4 +178,114 @@ def load_toy_guidance(path: str, device="cuda"):
         for block in tree[side]:
             block.setdefault("attns", [])
             block.setdefault(conv, None)
-    return unet_params_from_jax(tree, device), cfg, embeddings
+    return params_from_jax(tree, device), cfg, embeddings
+
+
+
+# ---------------------------------------------------------------------------
+# DDPM training
+# ---------------------------------------------------------------------------
+
+
+def make_ddpm_loss(cfg: ToyGuidanceConfig, embeddings: torch.Tensor,
+                   schedule: DiffusionSchedule = DiffusionSchedule(), uncond_dropout: float = 0.1):
+    """loss(params, imgs [B, H, W, 3] in [0, 1], style_ids [B], generator,
+    t=None, noise=None, drop=None): the eps-prediction objective
+    mean((eps(x_t, t, c) - noise)^2), x_t = sqrt(a_t) x0 + sqrt(1 - a_t)
+    noise, x0 the images scaled to [-1, 1]. t [B] in [0, T), the noise and
+    the uncond dropout (drop [B] bool: the row conditions on the null
+    embedding) are drawn from ``generator`` in that order unless given."""
+    alphas = torch.as_tensor(schedule.alphas_cumprod, device=embeddings.device)
+    n_styles = len(cfg.styles)
+
+    def loss_fn(params, imgs, style_ids, generator=None, t=None, noise=None, drop=None):
+        B, dev = imgs.shape[0], imgs.device
+        x0 = imgs.permute(0, 3, 1, 2) * 2.0 - 1.0  # NCHW in [-1, 1]
+        if t is None:
+            t = torch.randint(0, schedule.num_train_timesteps, (B,), generator=generator, device=dev)
+        if noise is None:
+            noise = torch.randn(x0.shape, generator=generator, dtype=x0.dtype, device=dev)
+        if drop is None:
+            drop = torch.rand((B,), generator=generator, device=dev) < uncond_dropout
+        a_t = alphas[t][:, None, None, None]
+        xt = torch.sqrt(a_t) * x0 + torch.sqrt(1.0 - a_t) * noise
+        ids = torch.where(drop, n_styles, style_ids)
+        eps = unet_apply(params, cfg.unet, xt, t, embeddings[ids])
+        return torch.mean((eps - noise) ** 2)
+
+    return loss_fn
+
+
+def make_toy_train_step(cfg: ToyGuidanceConfig, embeddings: torch.Tensor, optimizer: torch.optim.Optimizer,
+                        schedule: DiffusionSchedule = DiffusionSchedule(), uncond_dropout: float = 0.1):
+    """step(params, imgs [B, H, W, 3], style_ids [B], generator=None, **draws)
+    -> the loss (detached): one step of ``optimizer`` (over ``params``'
+    leaves, which require grad; ``torch.optim.Adam(leaves(params), lr)``
+    is ``optax.adam(lr)``) on the eps-prediction objective. With
+    probability ``uncond_dropout`` a row conditions on the null embedding,
+    so that classifier-free guidance has a trained uncond branch. ``draws``
+    (t, noise, drop) override the generator's. The backward runs in full
+    f32, as the forward."""
+    loss_fn = make_ddpm_loss(cfg, embeddings, schedule, uncond_dropout)
+
+    def step(params, imgs, style_ids, generator=None, **draws):
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(params, imgs, style_ids, generator, **draws)
+        with full_f32(imgs.device):
+            loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def make_toy_train_scan(cfg: ToyGuidanceConfig, embeddings: torch.Tensor, optimizer: torch.optim.Optimizer,
+                        schedule: DiffusionSchedule = DiffusionSchedule(), uncond_dropout: float = 0.1):
+    """scan_steps(params, imgs_batches [S, B, H, W, 3], ids_batches [S, B],
+    generator) -> the S losses [S]: ``make_toy_train_step`` over the S
+    batches in order, with one optimizer (the JAX package scans them
+    inside one executable; here they are S calls)."""
+    step = make_toy_train_step(cfg, embeddings, optimizer, schedule, uncond_dropout)
+
+    def scan_steps(params, imgs_batches, ids_batches, generator=None):
+        return torch.stack([step(params, imgs, ids, generator) for imgs, ids in zip(imgs_batches, ids_batches)])
+
+    return scan_steps
+
+
+# ---------------------------------------------------------------------------
+# Persistence
+# ---------------------------------------------------------------------------
+
+
+def _flatten(tree, prefix: str) -> dict:
+    """{"<prefix>/a/0/b": leaf}: the tree's leaves under its keys joined by
+    "/" (empty lists and None hold none)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    elif tree is None:
+        return {}
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flatten(v, f"{prefix}/{k}"))
+    return out
+
+
+def save_toy_guidance(path: str, params: dict, cfg: ToyGuidanceConfig, embeddings: torch.Tensor) -> None:
+    """config.json and params_torch.npz, as ``load_toy_guidance`` reads them:
+    the leaves in the JAX package's layout (HWIO convolutions) and the
+    style embeddings. (The JAX package's orbax checkpoint is not written.)"""
+    os.makedirs(path, exist_ok=True)
+
+    def jax_layout(t):
+        a = t.detach().cpu().numpy()
+        return a.transpose(2, 3, 1, 0) if a.ndim == 4 else a
+
+    flat = {k: jax_layout(v) for k, v in _flatten(params, "params").items()}
+    np.savez(os.path.join(path, WEIGHTS_FILE), style_embeddings=embeddings.detach().cpu().numpy(), **flat)
+    with open(os.path.join(path, "config.json"), "w") as fp:
+        json.dump({k: getattr(cfg, k) for k in CONFIG_KEYS}, fp, indent=1)

@@ -12,8 +12,8 @@ body in frames 0-5 of the demo poses (the budget derived over them), whose
 frames add the ``render.voxelize`` and ``render.warp`` ranges.
 
 After two warm-up frames it profiles ``N_FRAMES`` frames and prints one
-JSON line: wall ms per frame, device busy ms per frame (the sum of the CUDA
-kernels' and copies' durations) and the idle share, the device ms per frame
+JSON line: wall ms per frame, device busy ms per frame (the union of the
+CUDA kernels' and copies' intervals) and the idle share, the device ms per frame
 of each ``render.*`` profiler range (the stage a future kernel takes over),
 and the kernels that take most device time. Needs a CUDA card.
 
@@ -38,7 +38,7 @@ from torch.profiler import ProfilerActivity, profile
 from avatarcraft_tpu_torch import bench
 from avatarcraft_tpu_torch.cameras import pose2rays
 from avatarcraft_tpu_torch.utils.device import card_line
-from avatarcraft_tpu_torch.utils.timing import device_us_without, kernel_device_us
+from avatarcraft_tpu_torch.utils.timing import busy_us, device_us_without, kernel_device_us
 from avatarcraft_tpu_torch.warp import WarpData
 from avatarcraft_tpu_torch.workloads.canonical_render import make_fast_frame_renderer
 from avatarcraft_tpu_torch.workloads.warp_render import (
@@ -104,7 +104,7 @@ def main(argv=None) -> dict:
     device_events = [
         e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.name.startswith("render.")
     ]
-    busy_us = sum(e.time_range.elapsed_us() for e in device_events)
+    busy = busy_us(device_events)
     stages = {}
     for e in prof.events():
         if e.name.startswith("render.") and e.device_type == DeviceType.CPU:
@@ -127,8 +127,8 @@ def main(argv=None) -> dict:
         "frames": n,
         "sample_budget": budget,
         "wall_ms_per_frame": wall * 1e3 / n,
-        "device_busy_ms_per_frame": busy_us / 1e3 / n,
-        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "device_busy_ms_per_frame": busy / 1e3 / n,
+        "device_idle_share": 1.0 - busy / 1e6 / wall,
         "stage_device_ms_per_frame": stages,
         "top_kernels": [{"name": k[:80], "ms_per_frame": ms, "calls_per_frame": c} for k, ms, c in kernels],
     }

@@ -2,19 +2,25 @@
 card.
 
     python -m avatarcraft_tpu_torch.profile_train                 # reconstruct
-    python -m avatarcraft_tpu_torch.profile_train --path stylize
+    python -m avatarcraft_tpu_torch.profile_train --path stylize [--guidance sd]
 
 stylize: the stylize CLI's trainer at its defaults (``stylize_cli.setup``:
-the committed artifact, the toy guidance, lava, 256x256, 4096-ray patches,
-the derived budget; refreshes off while timing). For the coarse stage (a
-64x64 frame, one patch) and the fine stage (256x256, 16 patches): after
-STYLIZE_WARMUP steps, STYLIZE_TIMED steps on the host clock (ms per step,
-steps/s, peak memory), then STYLIZE_PROFILED steps under torch.profiler:
-device ms per step of each ``stylize.*`` range (gather, phaseA, sds,
-phaseB with the autograd engine's kernels, refresh), of the ``render.*``
+the committed artifact, lava, 256x256, 4096-ray patches, the derived
+budget; refreshes off while timing) with the toy guidance, or with
+``--guidance sd`` Stable Diffusion 1.5 at its full width from seeded random
+weights behind the toy tokenizer (``models/sd.py::
+random_stable_diffusion_modules``, 512x512 into the VAE; no weight files).
+For the coarse stage (a 64x64 frame, one patch) and the fine stage
+(256x256, 16 patches): after STYLIZE_WARMUP steps, STYLIZE_TIMED steps on
+the host clock (ms per step, steps/s, peak memory), then STYLIZE_PROFILED
+steps under torch.profiler: device ms per step of each ``stylize.*`` range
+(gather, phaseA, sds: the UNet's pair, vae: the resize, the encode and its
+pullback, phaseB with the autograd engine's kernels, refresh), of the ``render.*``
 stages and Adam's step inside them, device busy, idle share, launches per
 step and the top kernels; then the grid refresh and the floater pruning
-timed alone (CUDA events).
+timed alone (CUDA events). A range's device ms sums its kernels' durations;
+device busy is the union of all kernels' intervals, which is less where
+kernels run side by side (some of cuDNN's f32 convolutions do).
 
 reconstruct: the fast trainer's step
 (``workloads.reconstruct.make_train_step_fast``) at the artifact's width,
@@ -48,11 +54,13 @@ from torch.profiler import ProfilerActivity, profile
 from avatarcraft_tpu_torch import bench
 from avatarcraft_tpu_torch.cli import stylize_cli
 from avatarcraft_tpu_torch.constants import CANONICAL_ZOOM_FACTOR
+from avatarcraft_tpu_torch.models.diffusion import SDSGuidance
 from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig, init_field_params
+from avatarcraft_tpu_torch.models.sd import random_stable_diffusion_modules
 from avatarcraft_tpu_torch.parallel.table_mp import trainable_shards
 from avatarcraft_tpu_torch.utils.checkpoint import leaves
 from avatarcraft_tpu_torch.utils.device import card_line
-from avatarcraft_tpu_torch.utils.timing import cuda_ms, device_us_without, kernel_device_us
+from avatarcraft_tpu_torch.utils.timing import busy_us, cuda_ms, device_us_without, kernel_device_us
 from avatarcraft_tpu_torch.workloads.canonical_render import make_fast_frame_renderer
 from avatarcraft_tpu_torch.workloads.reconstruct import (
     ImageSet,
@@ -114,22 +122,26 @@ def _batches(ds: ImageSet, cfg: ReconstructConfig, device):
 def _phase_device_ms(prof, prefix: str = "train", phases=PHASES, backward: str = "backward") -> dict:
     """Device ms of each ``<prefix>.*`` phase over the profiled steps, from
     the real step's ranges: the kernels launched inside each range on the
-    calling thread, plus, for the ``backward`` phase, every kernel that the
-    autograd engine's own threads launched; the two table kernels are
-    launched through ctypes, and the profiler ties them to the ops around
-    them once, twice or not at all, so the ranges leave them out and their
-    own device events are added, each once (the gather to ``gather``, the
-    reduce-scatter to ``backward``)."""
+    calling thread; every kernel that the autograd engine's own threads
+    launched goes to the range open on the calling thread when its op
+    began (a backward runs there while its caller waits: the VAE's
+    pullback in ``stylize.vae``), else to the ``backward`` phase. The two table
+    kernels are launched through ctypes, and the profiler ties them to the
+    ops around them once, twice or not at all, so the ranges leave them out
+    and their own device events are added, each once (the gather to
+    ``gather``, the reduce-scatter to ``backward``)."""
     events = prof.events()
     ranges = [e for e in events if e.name.startswith(prefix + ".") and e.device_type == DeviceType.CPU]
     main_thread = ranges[0].thread
     ms = dict.fromkeys(phases, 0.0)
     for e in ranges:
         ms[e.name[len(prefix) + 1:]] += device_us_without(e, KERNEL_EVENTS) / 1e3
-    ms[backward] += sum(
-        device_us_without(e, KERNEL_EVENTS) for e in events
-        if e.device_type == DeviceType.CPU and e.thread != main_thread and e.cpu_parent is None
-    ) / 1e3
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.thread != main_thread and e.cpu_parent is None:
+            start = e.time_range.start
+            phase = next((r.name[len(prefix) + 1:] for r in ranges
+                          if r.time_range.start <= start <= r.time_range.end), backward)
+            ms[phase] += device_us_without(e, KERNEL_EVENTS) / 1e3
     for name, phase in zip(KERNEL_EVENTS, ("gather", backward)):
         ms[phase] += kernel_device_us(events, name) / 1e3
     return ms
@@ -190,7 +202,7 @@ def main() -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
     device_events = _device_events(prof)
-    busy_us = sum(e.time_range.elapsed_us() for e in device_events)
+    busy = busy_us(device_events)
     phases = {k: v / PROFILED for k, v in _phase_device_ms(prof).items()}
     stages = {
         e.key: e.device_time_total / 1e3 / PROFILED
@@ -209,10 +221,12 @@ def main() -> dict:
         "ms_per_step": ms_per_step,
         "rays_per_sec": cfg.batch_size / ms_per_step * 1e3,
         "profiled_wall_ms_per_step": wall * 1e3 / PROFILED,
-        "device_busy_ms_per_step": busy_us / 1e3 / PROFILED,
-        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "device_busy_ms_per_step": busy / 1e3 / PROFILED,
+        "device_idle_share": 1.0 - busy / 1e6 / wall,
         "phase_device_ms_per_step": phases,
-        "unphased_device_ms_per_step": busy_us / 1e3 / PROFILED - sum(phases.values()),
+        # the kernels' summed time outside the phases
+        "unphased_device_ms_per_step": sum(e.time_range.elapsed_us() for e in device_events) / 1e3 / PROFILED
+        - sum(phases.values()),
         "stage_device_ms_per_step": stages,
         "table_kernel_ms_per_step": kernel_ms,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -224,7 +238,7 @@ def main() -> dict:
 
 # -- the stylize path --------------------------------------------------------
 
-STYLIZE_PHASES = ("gather", "phaseA", "sds", "phaseB", "refresh")
+STYLIZE_PHASES = ("gather", "phaseA", "sds", "vae", "phaseB", "refresh")
 # the stylize CLI at its defaults on the committed artifact and toy guidance
 STYLIZE_ARGV = [
     "--weights_path", bench.ARTIFACT_CKPT, "--guidance_type", "toy", "--tgt_text", "lava",
@@ -233,11 +247,26 @@ STYLIZE_ARGV = [
 STYLIZE_WARMUP, STYLIZE_TIMED, STYLIZE_PROFILED = 2, 6, 2
 
 
-def stylize_trainer(grid_update_every: int | None = None):
+SD_SEED = 0
+
+
+def sd_guidance(version: str = "1.5", device="cuda") -> SDSGuidance:
+    """Stable Diffusion ``version`` at its full width, its parameters drawn
+    from a generator seeded SD_SEED on ``device``, behind the toy tokenizer."""
+    gen = torch.Generator(device).manual_seed(SD_SEED)
+    return SDSGuidance(random_stable_diffusion_modules(gen, version))
+
+
+def stylize_trainer(grid_update_every: int | None = None, guidance: SDSGuidance | None = None):
     """The stylize CLI's trainer (``stylize_cli.setup``) at the CLI's
-    defaults, ``--guidance_type toy --tgt_text lava``, on the card."""
+    defaults, ``--guidance_type toy --tgt_text lava``, on the card, with
+    ``guidance`` in place of the toy guidance where given (the trainer's
+    budget and grid do not depend on it)."""
     opt = stylize_cli.build_parser().parse_args(STYLIZE_ARGV)
-    return stylize_cli.setup(opt, grid_update_every)
+    trainer, fcfg = stylize_cli.setup(opt, grid_update_every)
+    if guidance is not None:
+        trainer.guidance = guidance
+    return trainer, fcfg
 
 
 def stylize_views(trainer, epoch: int, n: int) -> list:
@@ -262,9 +291,9 @@ def time_stylize_steps(trainer, epoch: int, n: int) -> list[float]:
 
 def profile_stylize_steps(trainer, epoch: int, n: int) -> dict:
     """torch.profiler over n SDS steps: device ms per step of each
-    ``stylize.*`` range (phaseB takes the autograd engine's kernels and the
-    reduce-scatter, gather the all-gather), device busy, idle share, top
-    kernels."""
+    ``stylize.*`` range (the autograd engine's kernels go to the range open
+    when their op began, the reduce-scatter to phaseB, the all-gather to
+    gather), device busy, idle share, top kernels."""
     views = stylize_views(trainer, epoch, n)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -273,7 +302,8 @@ def profile_stylize_steps(trainer, epoch: int, n: int) -> dict:
             trainer.train_view(pose, desc, epoch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
-    busy_us = sum(e.time_range.elapsed_us() for e in _device_events(prof))
+    device_events = _device_events(prof)
+    busy = busy_us(device_events)
     phases = _phase_device_ms(prof, "stylize", STYLIZE_PHASES, "phaseB")
     # inside the ranges: the render stages' forward and Adam's step
     inner = {
@@ -283,11 +313,13 @@ def profile_stylize_steps(trainer, epoch: int, n: int) -> dict:
     }
     return {
         "profiled_wall_ms_per_step": wall * 1e3 / n,
-        "device_busy_ms_per_step": busy_us / 1e3 / n,
-        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-        "device_launches_per_step": len(_device_events(prof)) / n,
+        "device_busy_ms_per_step": busy / 1e3 / n,
+        "device_idle_share": 1.0 - busy / 1e6 / wall,
+        "device_launches_per_step": len(device_events) / n,
         "range_device_ms_per_step": {k: v / n for k, v in phases.items()},
-        "unranged_device_ms_per_step": (busy_us / 1e3 - sum(phases.values())) / n,
+        # the kernels' summed time outside the ranges
+        "unranged_device_ms_per_step": (sum(e.time_range.elapsed_us() for e in device_events) / 1e3
+                                        - sum(phases.values())) / n,
         "inner_device_ms_per_step": inner,
         "top_kernels": _top_kernels(prof, n, 10),
     }
@@ -305,14 +337,15 @@ def time_refresh(trainer, reps: int = 3) -> dict:
     return {"refresh_ms": cuda_ms(refresh, iters=reps, warmup=1), "prune_ms": cuda_ms(prune, iters=reps, warmup=1)}
 
 
-def stylize_main() -> dict:
+def stylize_main(guidance: str = "toy") -> dict:
     """SDS steps at coarse (64x64 frame, one 4096-ray patch) and fine
-    (256x256, 16 patches): ms per step on the host clock, steps/s, and the
-    profiled split by range. Refreshes are off in the timed steps."""
+    (256x256, 16 patches) with the toy guidance or SD 1.5 (``guidance``
+    'sd'): ms per step on the host clock, steps/s, and the profiled split
+    by range. Refreshes are off in the timed steps."""
     if not torch.cuda.is_available():
         raise SystemExit("profile_train measures a CUDA card; none is available")
-    trainer, _ = stylize_trainer(grid_update_every=0)
-    result = {"device": torch.cuda.get_device_name(0), "card": card_line(),
+    trainer, _ = stylize_trainer(grid_update_every=0, guidance=sd_guidance() if guidance == "sd" else None)
+    result = {"device": torch.cuda.get_device_name(0), "card": card_line(), "guidance": guidance,
               "normal_mode": trainer.fast_cfg.normal_mode, "sample_budget": trainer.fast_cfg.sample_budget}
     fine_epoch = trainer.cfg.coarse_epochs
     for stage, epoch in (("coarse", 0), ("fine", fine_epoch)):
@@ -334,4 +367,10 @@ def stylize_main() -> dict:
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description="where a train step's or an SDS step's time goes on the card")
     ap.add_argument("--path", default="reconstruct", choices=["reconstruct", "stylize"])
-    (stylize_main if ap.parse_args().path == "stylize" else main)()
+    ap.add_argument("--guidance", default="toy", choices=["toy", "sd"],
+                    help="stylize: the toy guidance, or SD 1.5 at full width from random weights")
+    args = ap.parse_args()
+    if args.path == "stylize":
+        stylize_main(args.guidance)
+    else:
+        main()

@@ -1,6 +1,6 @@
 """Save and load ``.pth.tar`` checkpoints and their ``.fieldcfg.json``
 sidecars; port of the ``.pth.tar`` side of the JAX package's
-utils/checkpoint.py. Orbax directories are not read (ROADMAP item 15).
+utils/checkpoint.py. Orbax directories are not read (ROADMAP item 24).
 
 The parameter tree has the JAX package's layout, with float32 tensors for
 leaves:
@@ -217,7 +217,7 @@ def safe_load_params(path: str, device="cuda") -> dict:
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path} is a directory (an orbax checkpoint); reading orbax checkpoints is not "
-            "ported yet (ROADMAP item 15): save the parameters as .pth.tar"
+            "ported yet (ROADMAP item 24): save the parameters as .pth.tar"
         )
     return load_torch_checkpoint(path, device)
 

@@ -111,3 +111,17 @@ def kernel_device_us(events, name: str) -> float:
     """Device microseconds of the profiler's device events named like
     ``name``, each counted once."""
     return sum(e.time_range.elapsed_us() for e in events if e.device_type == DeviceType.CUDA and name in e.name)
+
+
+def busy_us(device_events) -> float:
+    """Microseconds in which at least one of ``device_events`` ran: the
+    union of their intervals (kernels on other streams, such as some of
+    cuDNN's convolutions, overlap, and their durations summed can exceed
+    the wall time)."""
+    total, end = 0.0, float("-inf")
+    for e in sorted(device_events, key=lambda e: e.time_range.start):
+        start, stop = e.time_range.start, e.time_range.end
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total

@@ -28,9 +28,11 @@ gradient to the rest of the tree and, through ``reduce_scatter_rows``, to
 the shards: one gather and one reduce-scatter per step. The frozen
 ground-truth field is gathered and packed once, at setup.
 
-Profiler ranges: ``stylize.gather``, ``stylize.phaseA``, ``stylize.sds``,
-``stylize.phaseB`` (the patches, the packing's backward and Adam) and
-``stylize.refresh`` (grid refresh, floater pruning, clip guard).
+Profiler ranges: ``stylize.gather``, ``stylize.phaseA``, ``stylize.vae``
+(the resize and the encode), ``stylize.sds`` (the UNet's classifier-free
+pair and the guided gradient), ``stylize.vae`` again (the encode's
+pullback), ``stylize.phaseB`` (the patches, the packing's backward and
+Adam) and ``stylize.refresh`` (grid refresh, floater pruning, clip guard).
 
 The parity sampler (64+64 importance sampling, ``make_phaseA_render`` /
 ``make_phaseB_step``) comes with the parity pipeline (ROADMAP item 19).
@@ -308,13 +310,16 @@ class StylizeTrainer:
             if chunk not in self._phaseA:
                 self._phaseA[chunk] = make_phaseA_render_fast(self.fcfg, self.fast_cfg, chunk)
             with torch.no_grad():
-                rgb_full, _ = self._phaseA[chunk](params, rays_o, rays_d, bg, self.grid,
-                                                  cast_tables(tables, table_dtype))
-        with record_function("stylize.sds"):
-            img = rgb_full.reshape(1, th, tw, 3).permute(0, 3, 1, 2)
-            g_img = self.guidance.sds_image_grad(text_emb, img, c.guidance_scale, generator=self.generator)
-            g_rgb = g_img.permute(0, 2, 3, 1).reshape(-1, 3)
+                rgb_full, depth_full = self._phaseA[chunk](params, rays_o, rays_d, bg, self.grid,
+                                                           cast_tables(tables, table_dtype))
+        img = rgb_full.reshape(1, th, tw, 3).permute(0, 3, 1, 2)
+        # SD 2.0-depth conditions the UNet on the frame's depth
+        pred_depth = depth_full.reshape(1, 1, th, tw) if self.guidance.m.use_depth else None
+        g_img = self.guidance.sds_image_grad(text_emb, img, c.guidance_scale, pred_depth=pred_depth,
+                                             generator=self.generator,
+                                             scope=lambda part: record_function("stylize." + part))
         with record_function("stylize.phaseB"):
+            g_rgb = g_img.permute(0, 2, 3, 1).reshape(-1, 3)
             if chunk != c.batch_size:
                 raise ValueError(f"a {th}x{tw} frame is smaller than one {c.batch_size}-ray patch")
             loss = self._phaseB(params, tables, self.gt, rays_o, rays_d, g_rgb, bg, self.grid)

@@ -88,7 +88,42 @@ Phases, each printed with its start, end and wall seconds:
               elsewhere (Adam's first step is lr x sign(g)); the same step
               with the artifact's bf16 tables is printed, not held;
 11. analytic_card_vs_cpu -- a 32x32 frame with analytic normals, card
-              against CPU, within 2e-3.
+              against CPU, within 2e-3;
+12. sd_stylize -- Stable Diffusion 1.5 at its full width (UNet 320/640/
+              1280/1280, 8 heads, context 768; VAE 128/256/512/512; CLIP-L
+              49,408 x 768, 12 layers) from seeded random weights on the
+              card behind the toy tokenizer, 512x512 into the VAE, driving
+              the stylize CLI's trainer on the committed artifact
+              (profile_train.stylize_trainer): SD_COARSE_STEPS coarse steps
+              (64x64 frame) and SD_FINE_STEPS fine ones (256x256, 16
+              patches), in each stage the first a warm-up, the last
+              profiled, the others timed; every loss, SDS image gradient
+              and parameter gradient finite, the SDS gradient nonzero; one
+              gather and one reduce-scatter per step, counted exactly.
+              Prints SDS steps/s, device ms per stylize.* range (gather,
+              phaseA, vae, sds, phaseB), the idle share and peak memory
+              per stage;
+13. txt2img -- prompt_to_img at 512x512 with those SD 1.5 modules, 4 PNDM
+              steps and 4 DDIM steps: uint8 [1, 512, 512, 3]; prints ms
+              per UNet call and per decode;
+14. sd_depth -- one coarse SDS step with SD 2.0-depth at its full width
+              (in_channels 5, context 1024, heads 5/10/20/20, CLIP 1024
+              wide, 23 layers) and the frame's depth: the depth reaches the
+              guidance, the gradient is finite and nonzero; one gather and
+              one reduce-scatter;
+15. toy_ddpm -- 20 Adam steps of the toy guidance's DDPM trainer at the
+              committed width, batch 32 of 64x64 palette targets: every
+              loss finite; prints steps/s;
+16. sd_card_vs_cpu -- Stable Diffusion at a reduced width (UNet 64/128/
+              256/256, VAE 32/64/128/128, CLIP 2 layers; 256x256 into the
+              VAE), one set of random weights on the card and the CPU, t,
+              the noise and the latents injected: CLIP's embeddings and the
+              UNet's eps within 1e-5 x max|ref|, the SDS image gradient at
+              1.5 and at 2.0-depth within 201 x that, 2 PNDM steps within
+              (2 x 7.5 + 1) x that; one toy DDPM step's loss within 1e-5
+              relative, its gradients within 1e-3 x each leaf's max|g| plus
+              1e-5 x the largest. Every error is printed before any is
+              held.
 
 Before the last line it prints one JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -113,13 +148,21 @@ import avatarcraft_tpu_torch
 from avatarcraft_tpu_torch import bench, profile_train
 from avatarcraft_tpu_torch.cameras import pose2rays
 from avatarcraft_tpu_torch.cli import stylize_cli
+from avatarcraft_tpu_torch.models import sd
+from avatarcraft_tpu_torch.models.clip_tokenizer import make_toy_tokenizer
 from avatarcraft_tpu_torch.models.diffusion import SDSGuidance
 from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig, RenderConfig, count_fast_samples
 from avatarcraft_tpu_torch.models.sd import unet_apply
-from avatarcraft_tpu_torch.models.toy_guidance import load_toy_guidance, make_toy_modules
+from avatarcraft_tpu_torch.models.toy_guidance import (
+    load_toy_guidance,
+    make_ddpm_loss,
+    make_toy_modules,
+    make_toy_train_step,
+    style_map,
+)
 from avatarcraft_tpu_torch.parallel import ring
 from avatarcraft_tpu_torch.parallel.table_mp import TableMPTrainStep, trainable_shards
-from avatarcraft_tpu_torch.utils.checkpoint import leaves, load_params_with_config
+from avatarcraft_tpu_torch.utils.checkpoint import leaves, load_params_with_config, map_leaves
 from avatarcraft_tpu_torch.utils import cuda_build, style_delta
 from avatarcraft_tpu_torch.utils.device import card_line
 from avatarcraft_tpu_torch.utils.timing import cold_device_ms, cuda_ms, cuda_ms_cold, device_names
@@ -165,6 +208,33 @@ STYLIZE_TIMED = 8  # further coarse steps timed on the CLI's trainer
 EPS_ATOL = 1e-5
 SDS_ATOL = 2 * 201 * EPS_ATOL
 SDS_T = 500  # the injected timestep of the card-vs-CPU SDS step
+# Stable Diffusion at full width: the trainer's coarse and fine steps, in
+# each stage a warm-up, timed ones and a profiled one
+SD_COARSE_STEPS, SD_FINE_STEPS = 4, 3
+SD_TXT2IMG_STEPS = 4
+TOY_DDPM_STEPS, TOY_DDPM_BATCH = 20, 32
+# card against CPU at a reduced Stable Diffusion width
+SD_SMALL = {
+    "1.5": (sd.UNetConfig(block_out_channels=(64, 128, 256, 256)), sd.VAEConfig(block_out_channels=(32, 64, 128, 128)),
+            sd.CLIPTextConfig(num_layers=2)),
+    "2.0": (sd.UNetConfig(block_out_channels=(64, 128, 256, 256), in_channels=5, cross_attention_dim=1024,
+                          attention_head_dim=(2, 4, 8, 8)),
+            sd.VAEConfig(block_out_channels=(32, 64, 128, 128)),
+            sd.CLIPTextConfig(hidden_size=1024, num_layers=2, num_heads=16)),
+}
+SD_SMALL_IMAGE = 256
+# the UNet's eps (and CLIP's embeddings) card against CPU, relative to
+# max|ref|: f32 sums in other orders (cuDNN against the CPU's convolutions)
+SD_EPS_REL = 1e-5
+# classifier-free guidance at 100 turns an eps error e into up to 201 e
+# before the clamp; at 7.5 into up to 16 e, which PNDM's coefficients (at
+# most about 1 here) carry into the latents
+SD_SDS_REL = 201 * SD_EPS_REL
+SD_PNDM_REL = (2 * 7.5 + 1) * SD_EPS_REL
+# a toy DDPM step, card against CPU: the loss, and each gradient leaf
+# against its own max|g| plus a floor for leaves whose gradient is zero but
+# for rounding (the CPU tests hold the port to JAX at 1e-4 and 1e-6)
+DDPM_LOSS_RTOL, DDPM_GRAD_REL, DDPM_GRAD_FLOOR = 1e-5, 1e-3, 1e-5
 KERNELS = {
     ring.KERNEL: {
         "route": "cuda",
@@ -828,6 +898,235 @@ def check_analytic_card_vs_cpu() -> None:
         raise AssertionError(f"analytic frames: card and CPU differ by {err}, or the frame is empty")
 
 
+def _record_sds(guidance: SDSGuidance, seen: list) -> None:
+    """Wrap ``guidance.sds_image_grad`` to keep, for each call, whether its
+    gradient is finite, its max |g| and the depth it was given (devices
+    read after the step's own synchronize)."""
+    sds = guidance.sds_image_grad
+
+    def recorded(emb, img, gs, pred_depth=None, **kw):
+        g = sds(emb, img, gs, pred_depth=pred_depth, **kw)
+        seen.append((torch.isfinite(g).all(), g.abs().max(), None if pred_depth is None else tuple(pred_depth.shape)))
+        return g
+
+    guidance.sds_image_grad = recorded
+
+
+def _check_sds_seen(path: str, seen: list, n: int, depth=None) -> None:
+    if len(seen) != n:
+        raise AssertionError(f"{path}: {len(seen)} SDS calls for {n} steps")
+    for finite, top, d in seen:
+        if not (bool(finite) and float(top) > 0.0 and d == depth):
+            raise AssertionError(f"{path}: SDS gradient finite {bool(finite)}, max |g| {float(top)}, depth {d}")
+
+
+def _sd_steps(trainer, epoch: int, n: int) -> list[float]:
+    """Host seconds of n SDS steps of the epoch's schedule, each ending in a
+    synchronize; each step's loss and parameter gradients must be finite."""
+    secs = []
+    for pose, desc in profile_train.stylize_views(trainer, epoch, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.train_view(pose, desc, epoch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        grads = [t.grad for t in leaves(trainer.rest) + trainer.shards if t.grad is not None]
+        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        if not (grads and bool(torch.isfinite(loss)) and bool(finite)):
+            raise AssertionError(f"SDS step: loss {float(loss)}, {len(grads)} gradients, all finite {bool(finite)}")
+    return secs
+
+
+def check_sd_stylize():
+    """SD 1.5 at full width driving the stylize trainer: coarse and fine
+    steps; returns (the table kernels' launches, the guidance)."""
+    torch.cuda.reset_peak_memory_stats()
+    guidance = profile_train.sd_guidance("1.5")
+    seen = []
+    _record_sds(guidance, seen)
+    trainer, _ = profile_train.stylize_trainer(grid_update_every=0, guidance=guidance)
+    ucfg = guidance.m.configs["unet"]
+    print(f"sd_stylize: SD 1.5 UNet {ucfg.block_out_channels}, {ucfg.attention_head_dim} heads, context "
+          f"{ucfg.cross_attention_dim}; image {guidance.m.image_size}; modules on the card, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB with the trainer", flush=True)
+    torch.cuda.synchronize()
+    _reset_launches()
+    summary = {"card": card_line(), "sample_budget": trainer.fast_cfg.sample_budget}
+    for stage, epoch, n in (("coarse", 0, SD_COARSE_STEPS), ("fine", trainer.cfg.coarse_epochs, SD_FINE_STEPS)):
+        torch.cuda.reset_peak_memory_stats()
+        secs = _sd_steps(trainer, epoch, n - 1)
+        timed = secs[1:]  # the first step is a warm-up
+        prof = profile_train.profile_stylize_steps(trainer, epoch, 1)
+        summary[stage] = {
+            "steps_per_sec": len(timed) / sum(timed),
+            "step_ms": [1e3 * x for x in secs],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            **prof,
+        }
+    torch.cuda.synchronize()
+    launches = _read_launches("sd_stylize", [ring.KERNEL, ring.RS_KERNEL])
+    steps = SD_COARSE_STEPS + SD_FINE_STEPS
+    _expect_launches("sd_stylize", launches, {ring.KERNEL: steps, ring.RS_KERNEL: steps})
+    _check_sds_seen("sd_stylize", seen, steps)
+    print("sd_stylize: " + json.dumps(summary), flush=True)
+    for stage in ("coarse", "fine"):
+        r = summary[stage]
+        ranges = ", ".join(f"{k} {v:.2f}" for k, v in r["range_device_ms_per_step"].items())
+        print(f"sd_stylize {stage}: {r['steps_per_sec']:.3f} SDS steps/s; device ms per step: {ranges}; idle share "
+              f"{r['device_idle_share']:.3f}; peak {r['peak_mem_gib']:.2f} GiB", flush=True)
+    return launches, guidance
+
+
+def check_txt2img(guidance: SDSGuidance) -> None:
+    """prompt_to_img at 512x512, PNDM and DDIM, SD_TXT2IMG_STEPS each; the
+    UNet calls and the decodes timed one by one (synchronized)."""
+    m = guidance.m
+    unet_ms, decode_ms = [], []
+
+    def timed(fn, out):
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*args)
+            torch.cuda.synchronize()
+            out.append(1e3 * (time.perf_counter() - t0))
+            return r
+        return call
+
+    g = SDSGuidance(dataclasses.replace(m, unet=timed(m.unet, unet_ms), vae_decode=timed(m.vae_decode, decode_ms)))
+    for scheduler in ("pndm", "ddim"):
+        img = g.prompt_to_img("a photo of the hulk", 512, 512, SD_TXT2IMG_STEPS, scheduler=scheduler,
+                              generator=torch.Generator("cuda").manual_seed(0))
+        if not (isinstance(img, np.ndarray) and img.dtype == np.uint8 and img.shape == (1, 512, 512, 3)):
+            raise AssertionError(f"txt2img {scheduler}: {type(img)} {getattr(img, 'dtype', None)} "
+                                 f"{getattr(img, 'shape', None)}")
+        print(f"txt2img {scheduler}: uint8 {img.shape}, mean {float(img.mean()):.2f}", flush=True)
+    side = 512 // m.latent_scale
+    print(f"txt2img: {len(unet_ms)} UNet calls (batch 2, {side}x{side} latents), ms each {[round(x, 2) for x in unet_ms]}; "
+          f"{len(decode_ms)} decodes to 512x512, ms each {[round(x, 2) for x in decode_ms]}", flush=True)
+
+
+def check_sd_depth() -> dict:
+    """One coarse SDS step of the stylize trainer with SD 2.0-depth at full
+    width; the frame's depth [1, 1, 64, 64] reaches the guidance."""
+    guidance = profile_train.sd_guidance("2.0")
+    seen = []
+    _record_sds(guidance, seen)
+    trainer, _ = profile_train.stylize_trainer(grid_update_every=0, guidance=guidance)
+    torch.cuda.synchronize()
+    _reset_launches()
+    secs = _sd_steps(trainer, 0, 1)
+    launches = _read_launches("sd_depth", [ring.KERNEL, ring.RS_KERNEL])
+    _expect_launches("sd_depth", launches, {ring.KERNEL: 1, ring.RS_KERNEL: 1})
+    _check_sds_seen("sd_depth", seen, 1, depth=(1, 1, 64, 64))
+    print(f"sd_depth: one coarse SDS step conditioned on the frame's depth in {1e3 * secs[0]:.1f} ms, max |g| "
+          f"{float(seen[0][1]):.4g}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return launches
+
+
+def _palette_targets(gen, n: int, size: int, device) -> tuple:
+    """(images [n, size, size, 3], style ids [n]): smooth random colors
+    mapped through each row's style palette (the toy guidance's targets)."""
+    ids = torch.arange(n, device=device) % 3
+    rgb = torch.nn.functional.interpolate(torch.rand((n, 3, size // 8, size // 8), generator=gen, device=device),
+                                          size=(size, size), mode="bilinear", align_corners=False)
+    rgb = rgb.permute(0, 2, 3, 1)
+    return torch.stack([style_map(rgb[i], int(ids[i])) for i in range(n)]), ids
+
+
+def check_toy_ddpm() -> None:
+    params, cfg, embs = load_toy_guidance(TOY_DIR, "cuda")
+    params = map_leaves(params, lambda t: t.requires_grad_())
+    step = make_toy_train_step(cfg, embs, torch.optim.Adam(leaves(params), lr=1e-4))
+    gen = torch.Generator("cuda").manual_seed(0)
+    imgs, ids = _palette_targets(gen, TOY_DDPM_BATCH, cfg.image_size, "cuda")
+    losses = [step(params, imgs, ids, gen)]  # the first step builds what the rest reuse
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(params, imgs, ids, gen) for _ in range(TOY_DDPM_STEPS - 1)]
+    torch.cuda.synchronize()
+    rate = (TOY_DDPM_STEPS - 1) / (time.perf_counter() - t0)
+    values = [float(l) for l in losses]
+    print(f"toy_ddpm: {TOY_DDPM_STEPS} steps at the committed width {cfg.block_out_channels}, batch "
+          f"{TOY_DDPM_BATCH} of {cfg.image_size}x{cfg.image_size}: {rate:.2f} steps/s; losses "
+          f"{[round(v, 5) for v in values]}", flush=True)
+    if not np.isfinite(values).all():
+        raise AssertionError(f"toy_ddpm: losses {values}")
+
+
+def _small_sd(version: str, device: str):
+    """(GuidanceModules, trees) of SD_SMALL[version] from a CPU generator
+    seeded 1, on ``device``."""
+    ucfg, vcfg, tcfg = SD_SMALL[version]
+    gen = torch.Generator().manual_seed(1)
+    trees = (sd.init_unet_params(gen, ucfg), sd.init_vae_encoder_params(gen, vcfg),
+             sd.init_vae_decoder_params(gen, vcfg), sd.init_clip_text_params(gen, tcfg))
+    trees = [map_leaves(t, lambda x: x.to(device)) for t in trees]
+    return sd.assemble_stable_diffusion_modules(*trees, make_toy_tokenizer(), SD_SMALL[version], SD_SMALL_IMAGE,
+                                                use_depth=version == "2.0")
+
+
+def _rel(card: torch.Tensor, cpu: torch.Tensor) -> float:
+    return float((card.cpu() - cpu).abs().max() / cpu.abs().max())
+
+
+def check_sd_card_vs_cpu() -> None:
+    rng = np.random.default_rng(0)
+    rows = []  # (what, error, tolerance)
+    img = torch.from_numpy(rng.random((1, 3, 64, 64)).astype(np.float32))
+    depth = torch.from_numpy((rng.random((1, 1, 64, 64)) * 2 + 1).astype(np.float32))
+    lat_side = SD_SMALL_IMAGE // 8
+    for version in ("1.5", "2.0"):
+        mods = {d: _small_sd(version, d) for d in ("cpu", "cuda")}
+        ucfg = SD_SMALL[version][0]
+        emb = {d: SDSGuidance(m).get_text_embeds(["a photo of the hulk"]) for d, m in mods.items()}
+        rows.append((f"{version} CLIP embeddings", _rel(emb["cuda"], emb["cpu"]), SD_EPS_REL))
+        lat = torch.from_numpy(rng.normal(size=(2, ucfg.in_channels, lat_side, lat_side)).astype(np.float32))
+        t = torch.tensor([731, 731], dtype=torch.int32)
+        with torch.no_grad():
+            eps = {d: m.unet(lat.to(d), t.to(d), emb["cpu"].to(d)) for d, m in mods.items()}
+        rows.append((f"{version} UNet eps", _rel(eps["cuda"], eps["cpu"]), SD_EPS_REL))
+        noise = torch.from_numpy(rng.normal(size=(1, 4, lat_side, lat_side)).astype(np.float32))
+        g = {d: SDSGuidance(m).sds_image_grad(emb["cpu"].to(d), img.to(d), 100.0,
+                                              pred_depth=depth.to(d) if version == "2.0" else None, t_override=400,
+                                              noise_override=noise.to(d)) for d, m in mods.items()}
+        rows.append((f"{version} SDS image gradient", _rel(g["cuda"], g["cpu"]), SD_SDS_REL))
+        if version == "1.5":
+            x0 = torch.from_numpy(rng.normal(size=(1, 4, lat_side, lat_side)).astype(np.float32))
+            pndm = {d: SDSGuidance(m).produce_latents(emb["cpu"].to(d), SD_SMALL_IMAGE, SD_SMALL_IMAGE, 2,
+                                                      latents=x0.to(d)) for d, m in mods.items()}
+            rows.append(("1.5 PNDM latents after 2 steps", _rel(pndm["cuda"], pndm["cpu"]), SD_PNDM_REL))
+        del mods
+
+    # one toy DDPM step from the committed weights, the draws injected
+    gen = torch.Generator().manual_seed(2)
+    imgs, ids = _palette_targets(gen, 8, 64, "cpu")
+    draws = {"t": torch.randint(0, 1000, (8,), generator=gen), "noise": torch.randn((8, 3, 64, 64), generator=gen),
+             "drop": torch.rand((8,), generator=gen) < 0.5}
+    out = {}
+    for d in ("cpu", "cuda"):
+        params, cfg, embs = load_toy_guidance(TOY_DIR, d)
+        params = map_leaves(params, lambda t: t.requires_grad_())
+        loss = make_ddpm_loss(cfg, embs, uncond_dropout=0.5)(params, imgs.to(d), ids.to(d),
+                                                             **{k: v.to(d) for k, v in draws.items()})
+        loss.backward()
+        out[d] = (float(loss.detach()), [t.grad.cpu() for t in leaves(params)])
+    (loss_card, g_card), (loss_cpu, g_cpu) = out["cuda"], out["cpu"]
+    floor = DDPM_GRAD_FLOOR * max(float(g.abs().max()) for g in g_cpu)
+    # each leaf's largest difference over its bound DDPM_GRAD_REL max|g_leaf| + floor
+    grad_ratio = max(float((a - b).abs().max() / (DDPM_GRAD_REL * b.abs().max() + floor)) for a, b in zip(g_card, g_cpu))
+    grad_rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(g_card, g_cpu) if b.abs().max() > 0)
+    rows.append(("toy DDPM loss (relative)", abs(loss_card - loss_cpu) / abs(loss_cpu), DDPM_LOSS_RTOL))
+    rows.append(("toy DDPM gradients, the worst leaf's difference over its bound", grad_ratio, 1.0))
+    for what, err, tol in rows:
+        print(f"sd card vs CPU: {what} {err:.3g} (tolerance {tol:.3g})", flush=True)
+    print(f"sd card vs CPU: toy DDPM loss {loss_card:.9g} / {loss_cpu:.9g}; worst gradient leaf "
+          f"{grad_rel:.3g} x its max|g|", flush=True)
+    bad = [what for what, err, tol in rows if not err <= tol]
+    if bad:
+        raise AssertionError(f"sd card vs CPU: outside tolerance: {bad}")
+
+
 def main() -> int:
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -860,6 +1159,17 @@ def main() -> int:
             check_stylize_card_vs_cpu()
         with Phase("analytic_card_vs_cpu"):
             check_analytic_card_vs_cpu()
+        with Phase("sd_stylize"):
+            paths["sd_stylize"], sd15 = check_sd_stylize()
+        with Phase("txt2img"):
+            check_txt2img(sd15)
+        del sd15
+        with Phase("sd_depth"):
+            paths["sd_depth"] = check_sd_depth()
+        with Phase("toy_ddpm"):
+            check_toy_ddpm()
+        with Phase("sd_card_vs_cpu"):
+            check_sd_card_vs_cpu()
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         print("chip_smoke: FAILED", flush=True)

@@ -184,7 +184,7 @@ def test_safe_load_params_refuses_orbax_dir(tmp_path):
     path = str(tmp_path / "p.pth.tar")
     ckpt.save_torch_checkpoint(params, path)
     _assert_same_tree(ckpt.safe_load_params(path, device="cpu"), params)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 24"):
         ckpt.safe_load_params(str(tmp_path), device="cpu")
 
 

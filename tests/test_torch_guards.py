@@ -1,6 +1,6 @@
 """Guards for what the card's machine needs of the PyTorch port: it imports
-without JAX, the JAX package, imageio or cv2 (the modules of every slice
-reached); entry points default to the card; chip_smoke.py fails loudly
+without JAX, the JAX package, imageio, cv2, regex, transformers or
+diffusers (the modules of every slice reached); entry points default to the card; chip_smoke.py fails loudly
 without a card or without the package; kernels build for sm_90a into a
 directory git ignores; the wrapper never falls back to the CPU."""
 
@@ -24,7 +24,7 @@ from avatarcraft_tpu_torch.utils.png import integerify_img, write_png
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(avatarcraft_tpu_torch.__file__))
-BLOCKED = ("jax", "jaxlib", "imageio", "cv2", "avatarcraft_tpu")
+BLOCKED = ("jax", "jaxlib", "imageio", "cv2", "avatarcraft_tpu", "regex", "transformers", "diffusers")
 KERNELS = (ring.KERNEL, ring.RS_KERNEL)
 # modules of the training slice, which the import guard must reach
 TRAIN_MODULES = (
@@ -54,6 +54,10 @@ STYLIZE_MODULES = (
     "avatarcraft_tpu_torch.cli.options",
     "avatarcraft_tpu_torch.cli.stylize_cli",
 )
+# modules of the Stable Diffusion guidance slice
+SD_MODULES = (
+    "avatarcraft_tpu_torch.models.clip_tokenizer",
+)
 
 
 def _env_without_repo():
@@ -72,7 +76,7 @@ import avatarcraft_tpu_torch
 for m in pkgutil.walk_packages(avatarcraft_tpu_torch.__path__, "avatarcraft_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-missing = [m for m in {TRAIN_MODULES + WARP_MODULES + STYLIZE_MODULES!r} if m not in sys.modules]
+missing = [m for m in {TRAIN_MODULES + WARP_MODULES + STYLIZE_MODULES + SD_MODULES!r} if m not in sys.modules]
 print("imports ok" if not missing else f"not imported: {{missing}}")
 """
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
@@ -136,7 +140,7 @@ def test_port_never_names_the_jax_package():
         with open(path) as fp:
             text = fp.read()
         assert not re.search(r"avatarcraft_tpu(?!_torch)", text), path
-        assert not re.search(r"^\s*(import|from)\s+(jax|imageio|cv2)\b", text, re.M), path
+        assert not re.search(r"^\s*(import|from)\s+(jax|imageio|cv2|regex|transformers|diffusers)\b", text, re.M), path
 
 
 def test_chip_smoke_without_card_fails():
@@ -223,10 +227,12 @@ def test_stylize_entry_points_default_to_cuda():
     import inspect
 
     from avatarcraft_tpu_torch.cli import stylize_cli
-    from avatarcraft_tpu_torch.models import diffusion, toy_guidance
+    from avatarcraft_tpu_torch.models import diffusion, sd, toy_guidance
     from avatarcraft_tpu_torch.utils import background
 
-    for fn in (diffusion.make_dummy_modules, toy_guidance.load_toy_guidance, background.select_background):
+    for fn in (diffusion.make_dummy_modules, toy_guidance.load_toy_guidance, background.select_background,
+               sd.load_stable_diffusion_modules, sd.unet_params_from_torch, sd.vae_encoder_params_from_torch,
+               sd.vae_decoder_params_from_torch, sd.clip_text_params_from_torch, sd.params_from_jax):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
     opt = stylize_cli.build_parser().parse_args([])
     assert opt.use_cuda is True and opt.sampler == "fast"

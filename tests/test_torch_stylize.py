@@ -280,7 +280,7 @@ def _trainers(packed_dtype, cfg_kw, budget):
     embs = np.asarray(jtoy.style_embeddings(JAX_TINY))
     jguide = jdiff.SDSGuidance(jtoy.make_toy_modules(jtoy_params, JAX_TINY))
     guide = diffusion.SDSGuidance(toy_guidance.make_toy_modules(
-        sd.unet_params_from_jax(jax.tree_util.tree_map(np.asarray, jtoy_params), "cpu"), TINY, _t(embs)))
+        sd.params_from_jax(jax.tree_util.tree_map(np.asarray, jtoy_params), "cpu"), TINY, _t(embs)))
     jfast = jnsr.FastRenderConfig(n_probes=32, k_samples=8, sample_budget=budget)
     fast = nsr.FastRenderConfig(n_probes=32, k_samples=8, sample_budget=budget)
     cfg = dict(tgt_text="lava", H=32, W=32, batch_size=64, n_cap=8, lr=5e-3, sampler="fast", **cfg_kw)

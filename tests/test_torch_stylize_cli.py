@@ -2,7 +2,9 @@
 derived sample budget on the committed artifact (exact, at 128x128 and
 64x64), the refusals of
 what is not ported yet (each names its ROADMAP item and writes nothing),
-and a two-step CPU run whose final checkpoint loads."""
+and two-step CPU runs whose final checkpoints load: with the stand-in
+guidance, and with Stable Diffusion loaded by --sd_weights from tiny
+state-dict files."""
 
 import dataclasses
 import os
@@ -98,7 +100,6 @@ def test_derive_sample_budget_matches_jax(artifact, refreshed_grid, res, chunk):
 
 REFUSALS = [
     (["--sampler", "parity"], "ROADMAP item 19"),
-    (["--sd_weights", "/x/sd"], "ROADMAP item 17"),
     (["--implicit_model", "neus"], "ROADMAP item 20"),
     (["--guidance_type", "clip"], "JAX package refuses"),
     (["--encoder", "hashgrid"], "ROADMAP item 19"),
@@ -117,13 +118,9 @@ def test_cli_refusals_write_nothing(tmp_path, argv, msg):
     assert not out.exists()
 
 
-def test_cli_runs_on_cpu(tmp_path):
-    """A two-step CPU run of the CLI on a small field with the stand-in
-    guidance, its density grid from --grid_path and a small explicit
-    budget (the CPU's cost; the derived budget and the grid refreshed from
-    the field are held above and run on the card in chip_smoke.py's
-    stylize phase, which also checks the validation PNG): the options file
-    and the final checkpoint, which loads as the trainer's parameters."""
+def _cli_run(tmp_path, *extra):
+    """A two-step CPU run of the CLI on a small field, its density grid
+    from --grid_path and a small explicit budget; (trainer, the field)."""
     params, fcfg = _small_field()
     from avatarcraft_tpu_torch.utils.checkpoint import save_params_with_config
 
@@ -131,14 +128,15 @@ def test_cli_runs_on_cpu(tmp_path):
     save_params_with_config(params, ckpt, fcfg)
     grid_path = str(tmp_path / "grid.npy")
     np.save(grid_path, np.where(np.random.default_rng(0).random((17, 17, 17)) < 0.4, 50.0, 0.5).astype(np.float32))
-    out = tmp_path / "out"
     trainer = stylize_cli.main([
-        "--weights_path", ckpt, "--use_cuda", "false", "--out_dir", str(out), "--exp_name", "t",
+        "--weights_path", ckpt, "--use_cuda", "false", "--out_dir", str(tmp_path / "out"), "--exp_name", "t",
         "--max_steps", "2", "--i_val", "100", "--i_mesh", "100000", "--sample_budget", "4096",
-        "--grid_path", grid_path,
+        "--grid_path", grid_path, *extra,
     ])
-    assert trainer.fast_cfg.normal_mode == "fd4"  # no PROVENANCE.json beside the checkpoint
-    assert trainer.fast_cfg.sample_budget == 4096 and tuple(trainer.grid.shape) == (17, 17, 17)
+    return trainer, params, fcfg
+
+
+def _assert_final_checkpoint(out, trainer, params, fcfg):
     files = sorted(os.listdir(out / "t"))
     assert files == ["t_args.txt", "t_final.pth.tar", "t_final.pth.tar.fieldcfg.json"]
     loaded, lcfg = load_params_with_config(str(out / "t" / "t_final.pth.tar"), device="cpu")
@@ -146,3 +144,46 @@ def test_cli_runs_on_cpu(tmp_path):
     for a, b in zip(leaves(loaded), leaves(trainer.params())):
         assert torch.equal(a, b)
     assert not torch.equal(loaded["sdf"][0]["v"], params["sdf"][0]["v"])  # the style moved
+
+
+def test_cli_runs_with_sd_weights_on_cpu(tmp_path, monkeypatch):
+    """--sd_weights: Stable Diffusion 1.5 loaded through the loader from
+    unet.pt, vae.pt, text_encoder.pt and tokenizer/ written at the tiny
+    width (the loader takes the tiny geometry and a 32x32 image size in
+    place of SD 1.5's, which these files do not have), two SDS steps on
+    the CPU, the final checkpoint written."""
+    from functools import partial
+
+    from avatarcraft_tpu_torch.models import sd
+    from tests.test_torch_sd import _write_sd_files
+
+    sd_dir = tmp_path / "sd"
+    sd_dir.mkdir()
+    jcfgs = _write_sd_files(sd_dir, "1.5")
+    pcfgs = [cls(**dataclasses.asdict(c)) for cls, c in zip((sd.UNetConfig, sd.VAEConfig, sd.CLIPTextConfig), jcfgs)]
+    calls = []
+
+    def load(path, version, device):
+        calls.append((path, version, device))
+        return partial(sd.load_stable_diffusion_modules, unet_config=pcfgs[0], vae_config=pcfgs[1],
+                       clip_config=pcfgs[2], image_size=32)(path, version, device=device)
+
+    monkeypatch.setattr(stylize_cli, "load_stable_diffusion_modules", load)
+    trainer, params, fcfg = _cli_run(tmp_path, "--sd_weights", str(sd_dir))
+    assert calls == [(str(sd_dir), "1.5", "cpu")]
+    m = trainer.guidance.m
+    assert m.image_size == 32 and m.latent_scale == 2 and m.tokenizer is not None and not m.use_depth
+    _assert_final_checkpoint(tmp_path / "out", trainer, params, fcfg)
+
+
+def test_cli_runs_on_cpu(tmp_path):
+    """A two-step CPU run of the CLI on a small field with the stand-in
+    guidance, its density grid from --grid_path and a small explicit
+    budget (the CPU's cost; the derived budget and the grid refreshed from
+    the field are held above and run on the card in chip_smoke.py's
+    stylize phase, which also checks the validation PNG): the options file
+    and the final checkpoint, which loads as the trainer's parameters."""
+    trainer, params, fcfg = _cli_run(tmp_path)
+    assert trainer.fast_cfg.normal_mode == "fd4"  # no PROVENANCE.json beside the checkpoint
+    assert trainer.fast_cfg.sample_budget == 4096 and tuple(trainer.grid.shape) == (17, 17, 17)
+    _assert_final_checkpoint(tmp_path / "out", trainer, params, fcfg)

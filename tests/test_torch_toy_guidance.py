@@ -154,7 +154,7 @@ def test_init_unet_params_tree():
 
 def test_unet_eps_matches_jax_tiny(rng):
     jparams = jtoy.init_toy_params(jax.random.PRNGKey(3), JAX_TINY)
-    params = sd.unet_params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    params = sd.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
     lat = rng.normal(size=(2, 3, 16, 16)).astype(np.float32)
     t = np.asarray([500, 37], np.int32)
     ctx = rng.normal(size=(2, 2, 8)).astype(np.float32)
