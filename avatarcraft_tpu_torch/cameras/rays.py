@@ -52,14 +52,17 @@ def pose2rays(h: int, w: int, c2w, device="cuda"):
     return camera_rays(canonical_camera(h, w), c2w, device=device)
 
 
-def dataset_rays(pose, K, h: int, w: int, resolution_level: int = 1, device="cuda"):
+def dataset_rays(pose, K, h: int, w: int, resolution_level: int = 1, device="cuda", out_hw=None):
     """Rays of a dataset camera, SMPLDataset.gen_rays_pose's convention
     (reference: utils/SMPLDataset.py:86-103): the pixel grid sampled with
     linspace(0, W-1, W // l), directions normalize([(x-cx)/fx, -(y-cy)/fy,
-    -1]) rotated by pose[:3,:3]. Returns (rays_o [hw, 3], rays_d [hw, 3])
-    on ``device``. (The JAX package's ``out_hw`` serves the silhouette
-    sampler of training, ROADMAP item 12.)"""
-    lh, lw = int(h // resolution_level), int(w // resolution_level)
+    -1]) rotated by pose[:3,:3]; ``out_hw`` (h', w') sets the sample grid's
+    size instead (the silhouette sampler's square). Returns (rays_o [hw, 3],
+    rays_d [hw, 3]) on ``device``."""
+    if out_hw is not None:
+        lh, lw = out_hw
+    else:
+        lh, lw = int(h // resolution_level), int(w // resolution_level)
     tx = linspace(0.0, w - 1, lw, device)
     ty = linspace(0.0, h - 1, lh, device)
     px, py = torch.meshgrid(tx, ty, indexing="xy")  # [lh, lw]

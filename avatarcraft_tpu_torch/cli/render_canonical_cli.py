@@ -25,7 +25,8 @@ from avatarcraft_tpu_torch.constants import CAN_HEAD_CAMERA_DIST, CAN_HEAD_OFFSE
 from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig
 from avatarcraft_tpu_torch.ops.occupancy import init_density_grid
 from avatarcraft_tpu_torch.utils.checkpoint import artifact_normal_mode, load_params_with_config
-from avatarcraft_tpu_torch.utils.png import integerify_img, write_png
+from avatarcraft_tpu_torch.utils.metrics import integerify_img
+from avatarcraft_tpu_torch.utils.png import write_png
 from avatarcraft_tpu_torch.workloads.canonical_render import make_fast_frame_renderer
 from avatarcraft_tpu_torch.workloads.reconstruct import make_grid_update_fn
 

@@ -29,7 +29,8 @@ from avatarcraft_tpu_torch.data import SMPLMultiviewDataset
 from avatarcraft_tpu_torch.data.amass import load_pose_sequence
 from avatarcraft_tpu_torch.models.smpl import load_smpl, synthetic_smpl_params
 from avatarcraft_tpu_torch.utils.checkpoint import load_params_with_config
-from avatarcraft_tpu_torch.utils.png import integerify_img, write_png
+from avatarcraft_tpu_torch.utils.metrics import integerify_img
+from avatarcraft_tpu_torch.utils.png import write_png
 from avatarcraft_tpu_torch.warp import WarpData
 from avatarcraft_tpu_torch.workloads.warp_render import (
     WarpRenderSettings,

@@ -53,7 +53,8 @@ from avatarcraft_tpu_torch.utils.checkpoint import (
     map_leaves,
     save_params_with_config,
 )
-from avatarcraft_tpu_torch.utils.png import integerify_img, write_png
+from avatarcraft_tpu_torch.utils.metrics import integerify_img
+from avatarcraft_tpu_torch.utils.png import write_png
 from avatarcraft_tpu_torch.workloads.reconstruct import make_grid_update_fn
 from avatarcraft_tpu_torch.workloads.stylize import (
     PARITY_REFUSAL,
@@ -96,7 +97,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--i_val", default=100, type=int)
     parser.add_argument("--i_save", default=1000, type=int)
     parser.add_argument("--i_mesh", default=1000, type=int,
-                        help="mesh export period (not ported yet, ROADMAP item 21: a run must not reach it)")
+                        help="mesh export period (the stylize CLI does not export meshes yet, ROADMAP item 21: a run must not reach it)")
     parser.add_argument("--augment_bkg", default=True, type=options.str2bool)
     parser.add_argument("--augment_cam", default=True, type=options.str2bool)
     parser.add_argument("--augment_text", default=True, type=options.str2bool)
@@ -144,11 +145,12 @@ def refusal(opt, cfg: StylizeConfig) -> str | None:
     if opt.implicit_model != "instant_nsr":
         return f"--implicit_model {opt.implicit_model} is not ported yet (ROADMAP item 20, legacy models)"
     if opt.encoder == "hashgrid":
-        return "--encoder hashgrid: the hash encoder is not ported yet (ROADMAP item 19, kernel K8)"
+        return ("--encoder hashgrid: stylization with the hash grid is not held against the JAX package yet "
+                "(ROADMAP item 19); the port stylizes the pyramid encoder")
     steps = planned_steps(cfg, opt.max_steps)
     if opt.i_mesh > 0 and opt.i_mesh <= steps:
-        return (f"--i_mesh {opt.i_mesh}: this run of {steps} steps would export a mesh, and mesh extraction "
-                "is not ported yet (ROADMAP item 21); pass an --i_mesh above the step count")
+        return (f"--i_mesh {opt.i_mesh}: this run of {steps} steps would export a mesh, which the port's stylize "
+                "CLI does not do yet (ROADMAP item 21); pass an --i_mesh above the step count")
     if opt.guidance_type == "toy" and style_index(opt.tgt_text) < 0:
         return f"--tgt_text must name a trained toy style ({', '.join(STYLES)})"
     if not opt.weights_path:
@@ -243,8 +245,8 @@ def setup(opt, grid_update_every: int | None = None):
     if opt.encoder and opt.encoder != fcfg.encoder:
         fcfg = dataclasses.replace(fcfg, encoder=opt.encoder)
     if fcfg.encoder != "tpu_pyramid":
-        raise SystemExit(f"{opt.weights_path}: encoder {fcfg.encoder!r} is not ported yet "
-                         "(ROADMAP item 19, kernel K8); the port runs the pyramid encoder")
+        raise SystemExit(f"{opt.weights_path}: encoder {fcfg.encoder!r}: stylization with the hash grid is not "
+                         "held against the JAX package yet (ROADMAP item 19); the port stylizes the pyramid encoder")
     print(f"[stylize] field: encoder={fcfg.encoder} device={device}")
     params_style = map_leaves(params_gt, torch.Tensor.clone)
 

@@ -1,17 +1,20 @@
 """The NeuS field (weight-norm SDF + color MLPs), the occupancy-guided fast
 render and the 64+64 importance-sampled render. Port of the JAX package's
-models/instant_nsr.py (FieldConfig, RenderConfig, init_field_params,
-forward_*, sdf_and_gradient, up_sample, cat_z_vals, render_rays, sdf_tetra,
-the analytic normals, field_sdf_grad, FieldFns, network_field_fns, FastRenderConfig,
-_probe_occupied, count_fast_samples, render_rays_fast with its ``field``,
-``near_far`` and ``warp_fn``).
+models/instant_nsr.py (FieldConfig, RenderConfig, init_field_params and
+the encoder dispatch for the hash grid and the pyramid, forward_*, density,
+sdf_and_gradient, up_sample, cat_z_vals, render_rays, render_rays_chunked,
+sdf_tetra, the analytic normals, field_sdf_grad, FieldFns,
+network_field_fns, FastRenderConfig, _probe_occupied, count_fast_samples,
+render_rays_fast with its ``field``, ``near_far`` and ``warp_fn``,
+extract_sdf_grid, extract_geometry).
 
 Both renders differentiate under PyTorch autograd; the JAX package's
 ``stop_gradient``s become evaluations under ``torch.no_grad()`` or
 ``.detach()`` at the same places. The render stages run as plain PyTorch on
 every device for now; they are the plain versions of the port's future
 kernels K1 (probe + select), K2 (compaction), K3 (pyramid encoder), K4
-(fused fd4 field) and K5 (NeuS compositing), ROADMAP queue 2.
+(fused fd4 field), K5 (NeuS compositing) and K8 (hash encoder), ROADMAP
+queue 2.
 
 Weight norm (w = g * v / ||v||_row) matches torch.nn.utils.weight_norm, so
 reference checkpoints load unchanged (reference:
@@ -34,6 +37,12 @@ from avatarcraft_tpu_torch.ops.grid_encoder import (
     materialize_packed,
     pyramid_encode,
 )
+from avatarcraft_tpu_torch.ops.hash_encoder import (
+    HashGridSpec,
+    hash_encode,
+    init_hash_table,
+    pack_dense_cells,
+)
 from avatarcraft_tpu_torch.ops.occupancy import (
     compact_indices,
     occupancy_lookup_bits,
@@ -50,37 +59,6 @@ from avatarcraft_tpu_torch.ops.sampling import (
 )
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
-
-
-@dataclasses.dataclass(frozen=True)
-class HashGridSpec:
-    """Configuration of the instant-NGP hash grid, kept so that checkpoint
-    sidecars naming it parse. The hash encoder itself is ported with the
-    parity pipeline (ROADMAP item 19, kernel K8)."""
-
-    input_dim: int = 3
-    num_levels: int = 16
-    level_dim: int = 2
-    base_resolution: int = 16
-    log2_hashmap_size: int = 19
-    desired_resolution: int | None = 2048
-    per_level_scale: float = 2.0
-
-    def __post_init__(self):
-        if self.desired_resolution is not None:
-            # desired_resolution overrides per_level_scale
-            # (reference: encoder/hashencoder/hashgrid.py:84-85)
-            scale = float(
-                np.exp2(
-                    np.log2(self.desired_resolution / self.base_resolution)
-                    / (self.num_levels - 1)
-                )
-            )
-            object.__setattr__(self, "per_level_scale", scale)
-
-    @property
-    def output_dim(self) -> int:
-        return self.num_levels * self.level_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,12 +122,9 @@ class RenderConfig:
         return self.num_steps + self.upsample_steps
 
 
-def _require_pyramid(cfg: FieldConfig) -> None:
-    if cfg.encoder != "tpu_pyramid":
-        raise NotImplementedError(
-            f"encoder {cfg.encoder!r} is not ported yet: the hash encoder comes "
-            "with the parity pipeline (ROADMAP item 19, kernel K8)"
-        )
+def _require_ported(cfg: FieldConfig) -> None:
+    if cfg.encoder not in ("hashgrid", "tpu_pyramid"):
+        raise ValueError(f"unknown encoder: {cfg.encoder!r}")
     if cfg.use_viewdirs:
         raise NotImplementedError(
             "use_viewdirs needs the SH encoder, ported with the legacy models "
@@ -171,9 +146,11 @@ def init_field_params(generator: torch.Generator, cfg: FieldConfig) -> dict:
     SDF MLP: hidden layers N(0, 2/out) (the input block of the first layer
     zero but its xyz columns), the last layer sqrt(pi)/sqrt(in) + 1e-4
     N(0, 1); g = max(||v||_row, 1e-8), b = 0. Color MLP: U(-1/sqrt(in),
-    1/sqrt(in)), g = ||v||_row. Tables U(-1e-4, 1e-4). The tree, shapes and
-    dtypes are the JAX package's; the random values are torch's."""
-    _require_pyramid(cfg)
+    1/sqrt(in)), g = ||v||_row. Tables U(-1e-4, 1e-4): the hash table
+    ("table") or the pyramid's grids and planes, after ``cfg.encoder``. The
+    tree, shapes and dtypes are the JAX package's; the random values are
+    torch's."""
+    _require_ported(cfg)
     dev = generator.device
 
     def normal(shape):
@@ -202,12 +179,16 @@ def init_field_params(generator: torch.Generator, cfg: FieldConfig) -> dict:
         v = torch.rand((out_dim, in_dim), generator=generator, device=dev) * (2 * bound) - bound
         color_layers.append({"v": v, "g": torch.linalg.norm(v, dim=1)})
 
-    return {
+    params = {
         "sdf": sdf_layers,
         "color": color_layers,
         "variance": torch.tensor(cfg.variance_init, dtype=torch.float32, device=dev),
-        **init_pyramid_params(generator, cfg.pyramid),
     }
+    if cfg.encoder == "hashgrid":
+        params["table"] = init_hash_table(generator, cfg.grid)
+    else:
+        params.update(init_pyramid_params(generator, cfg.pyramid))
+    return params
 
 
 def _softplus100(x: torch.Tensor) -> torch.Tensor:
@@ -220,13 +201,24 @@ def _safe_norm(x: torch.Tensor, dim=-1, keepdim=True) -> torch.Tensor:
 
 
 def materialize_field_tables(params: dict, cfg: FieldConfig) -> dict:
-    """The cell-packed pyramid tables in ``cfg.packed_dtype`` (bf16 for the
-    artifact). Build once per frame and pass to every render call."""
-    _require_pyramid(cfg)
+    """The lookup tables of one frame or train step, built once and passed
+    to every render call: the cell-packed pyramid tables in
+    ``cfg.packed_dtype`` (bf16 for the artifact), or for the hash grid the
+    cell-packed tables of its dense levels (``{"dense_cells": ...}``, in
+    the table's f32; ``packed_dtype`` does not apply)."""
+    _require_ported(cfg)
+    if cfg.encoder == "hashgrid":
+        return {"dense_cells": pack_dense_cells(params["table"], cfg.grid)}
     return materialize_packed(params, cfg.pyramid, _DTYPES[cfg.packed_dtype])
 
 
 def encode_position(params: dict, x: torch.Tensor, cfg: FieldConfig, bound: float, packed: dict | None = None) -> torch.Tensor:
+    """The spatial encoding of ``x`` through ``cfg.encoder``. The hash grid
+    reads its dense levels from ``packed`` where given, else from the
+    table (the same numbers)."""
+    if cfg.encoder == "hashgrid":
+        cells = packed.get("dense_cells") if packed is not None else None
+        return hash_encode(params["table"], x, cfg.grid, size=bound, packed_cells=cells)
     if packed is None:
         packed = materialize_field_tables(params, cfg)
     return pyramid_encode(packed, x, cfg.pyramid, size=bound)
@@ -249,7 +241,7 @@ def forward_sdf(params: dict, x: torch.Tensor, cfg: FieldConfig, bound: float, p
 def forward_color(params: dict, x, d, normal, geo_feat, cfg: FieldConfig) -> torch.Tensor:
     """[x, n, geo_feat] -> rgb in [0,1], bias-free relu MLP
     (reference: models/instant_nsr.py:644-663)."""
-    _require_pyramid(cfg)
+    _require_ported(cfg)
     h = torch.cat([x, normal, geo_feat], dim=-1)
     n = len(params["color"])
     mdt = _DTYPES[cfg.mlp_dtype]
@@ -265,6 +257,11 @@ def forward_color(params: dict, x, d, normal, geo_feat, cfg: FieldConfig) -> tor
 def forward_variance(params: dict) -> torch.Tensor:
     """inv_s = exp(10 * v), clipped (reference: models/instant_nsr.py:665-667)."""
     return torch.clamp(torch.exp(params["variance"] * 10.0), 1e-6, 1e6)
+
+
+def density(params: dict, x: torch.Tensor, cfg: FieldConfig, bound: float) -> torch.Tensor:
+    """The SDF value only, [N] (reference: models/instant_nsr.py:669-681)."""
+    return forward_sdf(params, x, cfg, bound)[..., 0]
 
 
 _TETRA_DIRS = np.array([[1, 1, 1], [1, -1, -1], [-1, 1, -1], [-1, -1, 1]], dtype=np.float32)
@@ -534,6 +531,41 @@ def render_rays(
     }
 
 
+def render_rays_chunked(
+    params: dict,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    fcfg: FieldConfig,
+    rcfg: RenderConfig,
+    bg_color=1.0,
+    chunk: int = 4096,
+    generator: torch.Generator | None = None,
+) -> dict:
+    """``render_rays`` over any number of rays in chunks of ``chunk``
+    (reference: utils/render_utils.py:514-600). As in the JAX package, the
+    rays are padded to a multiple of ``chunk`` (origin (1,1,1), direction
+    +z; a [N,3] background pads with ones) and ``gradient_error`` is the
+    mean over the chunks, padding included. Returns rgb [N,3], depth [N],
+    weight_sum [N,1], normal [N,3] and gradient_error."""
+    n = rays_o.shape[0]
+    n_pad = (-n) % chunk
+    ro = torch.cat([rays_o, rays_o.new_ones((n_pad, 3))])
+    rd = torch.cat([rays_d, rays_d.new_tensor([0.0, 0.0, 1.0]).expand(n_pad, 3)])
+    bg_is_array = isinstance(bg_color, torch.Tensor) and bg_color.ndim == 2
+    if bg_is_array:
+        bg_color = torch.cat([bg_color, bg_color.new_ones((n_pad, 3))])
+    keys = ("rgb", "depth", "weight_sum", "normal")
+    outs = {k: [] for k in keys + ("gradient_error",)}
+    for i in range(0, n + n_pad, chunk):
+        bg = bg_color[i : i + chunk] if bg_is_array else bg_color
+        out = render_rays(params, ro[i : i + chunk], rd[i : i + chunk], fcfg, rcfg, bg, generator)
+        for k in outs:
+            outs[k].append(out[k])
+    result = {k: torch.cat(outs[k])[:n] for k in keys}
+    result["gradient_error"] = torch.stack(outs["gradient_error"]).mean()
+    return result
+
+
 @dataclasses.dataclass(frozen=True)
 class FastRenderConfig:
     """Occupancy-guided render: M uniform probes -> K field samples."""
@@ -711,3 +743,53 @@ def render_rays_fast(
             "normal": normal_map,
             "gradient_error": gradient_error,
         }
+
+
+# -- geometry extraction (reference: models/instant_nsr.py:706-764) ----------
+
+
+_SDF_CHUNK = 1 << 21  # points per SDF evaluation of a mesh export (a 512^2 x 128 slab is 33.5 M)
+
+
+@torch.no_grad()
+def extract_sdf_grid(
+    params: dict,
+    fcfg: FieldConfig,
+    bound: float,
+    resolution: int,
+    block: int = 128,
+) -> np.ndarray:
+    """The SDF on the [resolution]^3 lattice of linspace(-bound, bound),
+    indexed [x, y, z], as a host f32 array: x-slabs of ``block`` (the JAX
+    package's blocks), each evaluated on the parameters' device in point
+    chunks of at most _SDF_CHUNK (each point's value is its own, so the
+    chunking changes no number)."""
+    chunk = _SDF_CHUNK
+    device = params["variance"].device
+    xs = np.linspace(-bound, bound, resolution, dtype=np.float32)
+    out = np.empty((resolution,) * 3, dtype=np.float32)
+    for i0 in range(0, resolution, block):
+        xi = xs[i0 : i0 + block]
+        gx, gy, gz = np.meshgrid(xi, xs, xs, indexing="ij")
+        pts = torch.as_tensor(np.stack([gx, gy, gz], axis=-1).reshape(-1, 3), device=device)
+        vals = torch.cat([density(params, pts[j : j + chunk], fcfg, bound) for j in range(0, len(pts), chunk)])
+        out[i0 : i0 + block] = vals.cpu().numpy().reshape(len(xi), resolution, resolution)
+    return out
+
+
+def extract_geometry(
+    params: dict,
+    fcfg: FieldConfig,
+    bound: float,
+    resolution: int,
+    threshold: float = 0.0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """(vertices [V,3] f32 in [-bound, bound], triangles [F,3] int32):
+    marching cubes over -SDF on the host, as the reference's mesh export
+    (the port's numpy copy of the JAX package's marching_cubes)."""
+    from avatarcraft_tpu_torch.utils.marching_cubes import marching_cubes
+
+    u = -extract_sdf_grid(params, fcfg, bound, resolution)
+    verts, tris = marching_cubes(u, threshold)
+    verts = verts / (resolution - 1.0) * (2 * bound) - bound
+    return verts.astype(np.float32), tris

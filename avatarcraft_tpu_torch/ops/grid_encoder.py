@@ -1,7 +1,8 @@
 """Multiscale spatial encoder: dense grid pyramid + triplanes. Port of the
 JAX package's ops/grid_encoder.py:39-192. Autograd runs through it: the
-backward of a row lookup is PyTorch's index_add into the packed table, and
-the packing's backward adds each corner's gradient back into the tables.
+backward of a row lookup (``lookup_rows``) is a deterministic scatter-add
+into the packed table, and the packing's backward adds each corner's
+gradient back into the tables.
 
 Each (point, level) reads one cell-packed row holding the features of the
 cell's corners (8 for a grid cell, 4 for a plane cell) and interpolates.
@@ -109,6 +110,66 @@ def materialize_packed(params: dict, spec: PyramidSpec, dtype=None) -> dict:
     }
 
 
+def scatter_rows(idx: torch.Tensor, grad: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """The transpose of ``table.index_select(0, idx)``: [n_rows, D] f32,
+    row r the sum of the rows of ``grad`` ([M, D]) whose ``idx`` is r.
+
+    Deterministic on every device, and the same on the card and the CPU:
+    the sums are exact integer sums, which no order of the adds changes.
+    Each cotangent is rounded to a multiple of 2^-k, k the largest that
+    keeps M x max|grad| x 2^k within 2^62 (an error of at most M x
+    max|grad| x 2^-63 per cotangent: 1e-12 x max|grad| at M = 2^23); the
+    integers are added into int64 rows (``index_add_``, atomics on the
+    card), and each row's exact sum is rounded once to f32 (then scaled by
+    2^-k, exactly). Non-finite cotangents make the whole result
+    non-finite. The JAX package's scatter-add is deterministic too
+    (ops/hash_encoder.py:11-14); PyTorch's float index_add on a CUDA
+    tensor adds with atomics, in another order every run."""
+    out_shape = (n_rows,) + tuple(grad.shape[1:])
+    if grad.shape[0] == 0:
+        return torch.zeros(out_shape, dtype=torch.float32, device=grad.device)
+    g = grad.double()
+    top = g.abs().amax().clamp_min(1e-300) * grad.shape[0]
+    k = 62.0 - torch.ceil(torch.log2(top))  # a device scalar: no read of the device
+    q = torch.round(torch.ldexp(g, k)).to(torch.int64)
+    acc = torch.zeros(out_shape, dtype=torch.int64, device=grad.device).index_add_(0, idx, q)
+    return acc.to(torch.float32).mul_(torch.exp2(-k).to(torch.float32))
+
+
+class _RowLookup(torch.autograd.Function):
+    """``table.index_select(0, idx)`` whose backward is ``scatter_rows``,
+    rounded once to the table's dtype. Forward-mode AD and vmap (the
+    analytic normals) see a linear gather of the table's tangent."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(table, idx):
+        return table.index_select(0, idx)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        table, idx = inputs
+        ctx.save_for_backward(idx)
+        ctx.idx, ctx.n_rows, ctx.dtype = idx, table.shape[0], table.dtype
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        return scatter_rows(idx, grad, ctx.n_rows).to(ctx.dtype), None
+
+    @staticmethod
+    def jvp(ctx, table_t, idx_t):
+        return table_t.index_select(0, ctx.idx)
+
+
+def lookup_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` ([M] int64) of ``table`` ([n_rows, D]), with the
+    deterministic backward of ``_RowLookup``. The plain version of the
+    port's future kernel K3's backward (ROADMAP queue 2)."""
+    return _RowLookup.apply(table, idx)
+
+
 def _interp(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """sum_c rows[:, c] * w[:, c] with the JAX package's bf16 rounding:
     weights cast to the table dtype, exact products, f32 sum, one rounding."""
@@ -123,7 +184,7 @@ def _grid_lookup(packed: torch.Tensor, x01: torch.Tensor, R: int, C: int) -> tor
     frac = pos - base
     b = base.to(torch.int64)
     idx = (b[:, 0] * (R - 1) + b[:, 1]) * (R - 1) + b[:, 2]
-    rows = packed.index_select(0, idx).reshape(-1, 8, C)
+    rows = lookup_rows(packed, idx).reshape(-1, 8, C)
     fx, fy, fz = frac[:, 0:1], frac[:, 1:2], frac[:, 2:3]
     wx = torch.cat([1 - fx, fx], dim=1)
     wy = torch.cat([1 - fy, fy], dim=1)
@@ -139,7 +200,7 @@ def _plane_lookup(packed3: torch.Tensor, uv: torch.Tensor, R: int, C: int, plane
     frac = pos - base
     b = base.to(torch.int64)
     idx = b[:, 0] * (R - 1) + b[:, 1]
-    rows = packed3[plane].index_select(0, idx).reshape(-1, 4, C)
+    rows = lookup_rows(packed3[plane], idx).reshape(-1, 4, C)
     fu, fv = frac[:, 0:1], frac[:, 1:2]
     wu = torch.cat([1 - fu, fu], dim=1)
     wv = torch.cat([1 - fv, fv], dim=1)

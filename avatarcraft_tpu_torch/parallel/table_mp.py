@@ -23,22 +23,27 @@ from avatarcraft_tpu_torch.utils.checkpoint import leaves, map_leaves
 
 def shard_grid_rows(params: dict, n: int = 1, leaf: int = -1):
     """Split ``params["grids"][leaf]`` ([R,R,R,C]) into ``n`` equal row
-    shards of its [R^3, C] table, on the grid's device. The default is one
-    shard per card in use: the port drives one card, and a larger ``n``
-    splits the table on that card (the on-card checks compare the two).
+    shards of its [R^3, C] table, on the grid's device; a hash-grid tree
+    (no "grids") splits its table ``params["table"]`` instead. The default
+    is one shard per card in use: the port drives one card, and a larger
+    ``n`` splits the table on that card (the on-card checks compare the
+    two).
 
     Returns (params_rest, shards, splice): ``params_rest`` is a shallow
     copy of ``params`` with None in place of the leaf, ``shards`` is the
-    list of n [R^3/n, C] tensors (views of the leaf when it is contiguous,
+    list of n [rows/n, C] tensors (views of the leaf when it is contiguous,
     so the table is not held twice), and ``splice(params_rest, table)``
-    rebuilds the full tree from a gathered [R^3, C] table.
+    rebuilds the full tree from a gathered [rows, C] table.
     """
-    grid = params["grids"][leaf]
-    shape = tuple(grid.shape)
-    table = grid.reshape(-1, shape[-1])
+    hashed = "grids" not in params
+    leaf_tensor = params["table"] if hashed else params["grids"][leaf]
+    shape = tuple(leaf_tensor.shape)
+    table = leaf_tensor.reshape(-1, shape[-1])
     if n < 1 or table.shape[0] % n:
         raise ValueError(f"table rows {table.shape[0]} not divisible into {n} shards")
     shards = list(table.chunk(n, dim=0))
+    if hashed:
+        return {**params, "table": None}, shards, lambda rest, full: {**rest, "table": full.reshape(shape)}
     li = leaf % len(params["grids"])
 
     def splice(params_rest: dict, full_table: torch.Tensor) -> dict:

@@ -1,8 +1,17 @@
 """Where a reconstruction train step's or an SDS step's time goes, on one
 card.
 
-    python -m avatarcraft_tpu_torch.profile_train                 # reconstruct
+    python -m avatarcraft_tpu_torch.profile_train                 # reconstruct (fast)
+    python -m avatarcraft_tpu_torch.profile_train --path parity   # reconstruct (64+64, hash grid)
     python -m avatarcraft_tpu_torch.profile_train --path stylize [--guidance sd]
+
+parity: the 64+64 trainer's step (``workloads.reconstruct.setup``) at the
+reconstruct CLI's defaults: the hash grid (16 levels x 2, 2^19 rows,
+finest 2048), MLPs 64 wide, 64+64 samples with fd7 normals and perturbed
+depths, batch 1600, Adam 5e-4 on the cosine, on the same image set; ms per
+step, rays/s, device ms per ``train.forward`` / ``.backward`` /
+``.optimizer``, peak memory and the top kernels. It launches no table
+kernel.
 
 stylize: the stylize CLI's trainer at its defaults (``stylize_cli.setup``:
 the committed artifact, lava, 256x256, 4096-ray patches, the derived
@@ -55,7 +64,7 @@ from avatarcraft_tpu_torch import bench
 from avatarcraft_tpu_torch.cli import stylize_cli
 from avatarcraft_tpu_torch.constants import CANONICAL_ZOOM_FACTOR
 from avatarcraft_tpu_torch.models.diffusion import SDSGuidance
-from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig, init_field_params
+from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig, FieldConfig, RenderConfig, init_field_params
 from avatarcraft_tpu_torch.models.sd import random_stable_diffusion_modules
 from avatarcraft_tpu_torch.parallel.table_mp import trainable_shards
 from avatarcraft_tpu_torch.utils.checkpoint import leaves
@@ -69,6 +78,7 @@ from avatarcraft_tpu_torch.workloads.reconstruct import (
     make_optimizer,
     make_train_step_fast,
     pixel_batches,
+    setup,
 )
 
 N_VIEWS, RES = 8, 128
@@ -143,7 +153,7 @@ def _phase_device_ms(prof, prefix: str = "train", phases=PHASES, backward: str =
                           if r.time_range.start <= start <= r.time_range.end), backward)
             ms[phase] += device_us_without(e, KERNEL_EVENTS) / 1e3
     for name, phase in zip(KERNEL_EVENTS, ("gather", backward)):
-        ms[phase] += kernel_device_us(events, name) / 1e3
+        ms[phase] = ms.get(phase, 0.0) + kernel_device_us(events, name) / 1e3
     return ms
 
 
@@ -233,6 +243,66 @@ def main() -> dict:
         "top_kernels": _top_kernels(prof, PROFILED),
     }
     print(json.dumps(result))
+    return result
+
+
+# -- the 64+64 (parity) path -------------------------------------------------
+
+PARITY_PHASES = ("forward", "backward", "optimizer")
+
+
+def parity_main(warmup: int = WARMUP, timed: int = 10, profiled: int = 3, print_json: bool = True) -> dict:
+    """The 64+64 hash-grid step at the reconstruct CLI's parity defaults:
+    ms per step on the host clock after ``warmup`` steps, then ``profiled``
+    steps under torch.profiler (device ms per ``train.*`` range, busy, idle
+    share, top kernels); peak memory over the timed and profiled steps."""
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train measures a CUDA card; none is available")
+    device = "cuda"
+    ds, _, _ = artifact_image_set(device)
+    fcfg = FieldConfig(encoder="hashgrid")
+    rcfg = RenderConfig(num_steps=64, upsample_steps=64, bound=1.6, perturb=True, normal_mode="fd7")
+    cfg = ReconstructConfig()
+    state, step, poses, _ = setup(ds, fcfg, rcfg, cfg, device)
+    gen = torch.Generator(device).manual_seed(cfg.seed)
+    batches = _batches(ds, cfg, device)
+    for _ in range(warmup):
+        step(state.params, poses, *next(batches), gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        step(state.params, poses, *next(batches), gen)
+    torch.cuda.synchronize()
+    ms_per_step = (time.perf_counter() - t0) * 1e3 / timed
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(profiled):
+            step(state.params, poses, *next(batches), gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    device_events = _device_events(prof)
+    busy = busy_us(device_events)
+    phases = _phase_device_ms(prof, "train", PARITY_PHASES)
+    result = {
+        "device": torch.cuda.get_device_name(0),
+        "card": card_line(),
+        "encoder": fcfg.encoder,
+        "batch": cfg.batch_size,
+        "samples": rcfg.total_steps,
+        "normal_mode": rcfg.normal_mode,
+        "ms_per_step": ms_per_step,
+        "steps_per_sec": 1e3 / ms_per_step,
+        "rays_per_sec": cfg.batch_size / ms_per_step * 1e3,
+        "profiled_wall_ms_per_step": wall * 1e3 / profiled,
+        "device_busy_ms_per_step": busy / 1e3 / profiled,
+        "device_idle_share": 1.0 - busy / 1e6 / wall,
+        "phase_device_ms_per_step": {k: v / profiled for k, v in phases.items()},
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "top_kernels": _top_kernels(prof, profiled, 10),
+    }
+    if print_json:
+        print(json.dumps(result))
     return result
 
 
@@ -366,11 +436,13 @@ def stylize_main(guidance: str = "toy") -> dict:
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description="where a train step's or an SDS step's time goes on the card")
-    ap.add_argument("--path", default="reconstruct", choices=["reconstruct", "stylize"])
+    ap.add_argument("--path", default="reconstruct", choices=["reconstruct", "parity", "stylize"])
     ap.add_argument("--guidance", default="toy", choices=["toy", "sd"],
                     help="stylize: the toy guidance, or SD 1.5 at full width from random weights")
     args = ap.parse_args()
     if args.path == "stylize":
         stylize_main(args.guidance)
+    elif args.path == "parity":
+        parity_main()
     else:
         main()

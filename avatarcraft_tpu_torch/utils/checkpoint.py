@@ -1,6 +1,7 @@
 """Save and load ``.pth.tar`` checkpoints and their ``.fieldcfg.json``
-sidecars; port of the ``.pth.tar`` side of the JAX package's
-utils/checkpoint.py. Orbax directories are not read (ROADMAP item 24).
+sidecars (port of the ``.pth.tar`` side of the JAX package's
+utils/checkpoint.py), and the trainers' train state. Orbax directories are
+not read (ROADMAP item 24).
 
 The parameter tree has the JAX package's layout, with float32 tensors for
 leaves:
@@ -152,16 +153,62 @@ def adam_state_from_optax(optimizer: torch.optim.Optimizer, params, mu, nu, coun
     tensors, mus, nus = leaves(params), leaves(mu), leaves(nu)
     if not len(tensors) == len(mus) == len(nus):
         raise ValueError(f"trees differ: {len(tensors)} tensors, {len(mus)} mu, {len(nus)} nu leaves")
+
+    def moment(a, p):
+        if isinstance(a, torch.Tensor):
+            return a.detach().to(device=p.device, dtype=torch.float32).clone().reshape(p.shape)
+        return torch.as_tensor(np.array(a, np.float32), device=p.device).reshape(p.shape)
+
     for p, m, v in zip(tensors, mus, nus):
-        optimizer.state[p] = {
-            "step": torch.tensor(float(count)),
-            "exp_avg": torch.as_tensor(np.array(m, np.float32), device=p.device).reshape(p.shape),
-            "exp_avg_sq": torch.as_tensor(np.array(v, np.float32), device=p.device).reshape(p.shape),
-        }
+        optimizer.state[p] = {"step": torch.tensor(float(count)), "exp_avg": moment(m, p), "exp_avg_sq": moment(v, p)}
     if scheduler is not None:
         scheduler.last_epoch = count
         for group, base, fn in zip(optimizer.param_groups, scheduler.base_lrs, scheduler.lr_lambdas):
             group["lr"] = base * fn(count)
+
+
+def _refuse_orbax(path: str) -> None:
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path} is a directory (an orbax checkpoint of the JAX package); reading orbax checkpoints is "
+            "not ported yet (ROADMAP item 24)"
+        )
+
+
+def save_train_state(path: str, params: dict, mu, nu, count: int, step: int, grid=None) -> None:
+    """A trainer's resumable state as one ``torch.save`` file: the parameter
+    tree, Adam's first and second moments (``mu``, ``nu``: trees of the
+    parameters' layout) and step count, the step, and the density grid of
+    the fast trainer (None for the 64+64 one). The reference saves the
+    parameters only (SURVEY.md section 5)."""
+    cpu = lambda t: t.detach().to("cpu", torch.float32).clone()  # noqa: E731
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save({
+        "params": map_leaves(params, cpu), "mu": map_leaves(mu, cpu), "nu": map_leaves(nu, cpu),
+        "count": int(count), "step": int(step), "grid": None if grid is None else cpu(grid),
+    }, path)
+
+
+def load_train_state(path: str, device="cuda") -> dict:
+    """A ``save_train_state`` file, its tensors on ``device``. A directory
+    is the JAX package's orbax train state, which the port does not read."""
+    _refuse_orbax(path)
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    to = lambda t: t.to(device)  # noqa: E731
+    return {**state, "params": map_leaves(state["params"], to), "mu": map_leaves(state["mu"], to),
+            "nu": map_leaves(state["nu"], to), "grid": None if state["grid"] is None else to(state["grid"])}
+
+
+def train_state_from_optax(path: str, params, mu, nu, count: int, step: int, grid=None) -> None:
+    """Write the JAX package's train state as a port train-state file:
+    ``params``, ``mu`` and ``nu`` are its parameter tree and optax Adam
+    moments as trees of numpy arrays (``jax.tree_util.tree_map(np.asarray,
+    ...)``), ``count`` optax's step count, ``step`` the trainer's step and
+    ``grid`` its density grid. The loaded file restores through
+    ``adam_state_from_optax``, so both packages can start from one state."""
+    as_t = lambda a: torch.from_numpy(np.array(a, np.float32))  # noqa: E731
+    save_train_state(path, map_leaves(params, as_t), map_leaves(mu, as_t), map_leaves(nu, as_t), count, step,
+                     None if grid is None else as_t(grid))
 
 
 def load_torch_checkpoint(path: str, device="cuda") -> dict:
@@ -214,11 +261,7 @@ def safe_load_params(path: str, device="cuda") -> dict:
     """The parameter tree of a ``.pth.tar`` file (reference:
     utils/utils.py:284-315 safe_load_weights). A directory is an orbax
     checkpoint of the JAX package, which the port does not read yet."""
-    if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a directory (an orbax checkpoint); reading orbax checkpoints is not "
-            "ported yet (ROADMAP item 24): save the parameters as .pth.tar"
-        )
+    _refuse_orbax(path)
     return load_torch_checkpoint(path, device)
 
 

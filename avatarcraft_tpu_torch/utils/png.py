@@ -114,8 +114,3 @@ def read_png(path: str) -> np.ndarray:
     if raw.size != h * (1 + w * bpp):
         raise ValueError(f"{path}: {raw.size} bytes of image data for a {w}x{h} {_COLOR_TYPES[color]} PNG")
     return _unfilter(raw.reshape(h, 1 + w * bpp), bpp).reshape(h, w, bpp)
-
-
-def integerify_img(img: np.ndarray) -> np.ndarray:
-    """float [0,1] -> uint8 (reference: utils/utils.py:428-436)."""
-    return (np.clip(np.asarray(img), 0.0, 1.0) * 255.0).astype(np.uint8)

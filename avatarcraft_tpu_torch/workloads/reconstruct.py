@@ -1,8 +1,11 @@
-"""Canonical NeuS reconstruction from multiview images: the fast
-(occupancy-guided) trainer and its parts. Port of the JAX package's
-workloads/reconstruct.py (ReconstructConfig, make_batch_ray_fn, smooth_l1,
-make_optimizer, make_train_step, make_train_step_fast, make_grid_update_fn,
-pixel_batches, train_fast; reference: reconstruct.py:29-165).
+"""Canonical NeuS reconstruction from multiview images: the 64+64
+importance-sampled trainer (``setup``, ``train``), the fast
+(occupancy-guided) trainer (``train_fast``) and their parts. Port of the
+JAX package's workloads/reconstruct.py (ReconstructConfig,
+make_batch_ray_fn(_ss), smooth_l1, make_optimizer, make_train_step(_fast),
+make_grid_update_fn, pixel_batches, ReconstructState, setup, train,
+train_fast, save_train_state, load_train_state; reference:
+reconstruct.py:29-165).
 
 Loss and optimizer follow the reference: smooth-L1 photometric + 0.1 x
 eikonal, Adam(5e-4, betas (0.9, 0.99), eps 1e-15) on a cosine decay to 0
@@ -14,9 +17,17 @@ kernel, whose backward is the reduce-scatter kernel (``parallel.ring``),
 as the table-parallel step does. A trainer across cards then shards the
 table and its Adam state instead of holding a copy on every card.
 
-The trainer takes an in-memory image set (``ImageSet``); the dataset
-loader, lax.scan-style multi-step calls and train-state save and resume are
-not ported yet (ROADMAP item 12).
+The 64+64 trainer replicates nothing and gathers nothing: as in the JAX
+package, its step runs no table kernel.
+
+Both trainers take a dataset (``data.SMPLMultiviewDataset`` or an
+in-memory ``ImageSet``). Their train state (parameters, Adam's moments and
+step count, the fast trainer's grid, the step) is one ``torch.save`` file
+(``utils.checkpoint.save_train_state``). A resume follows the JAX package:
+it restores that state and restarts the epoch loop and the numpy pixel
+order from the seed (reconstruct.py:423-443, 540-543), so a resumed run
+is not the uninterrupted run. Multi-step calls (the JAX package's
+``scan_steps``) are not ported (ROADMAP item 12).
 """
 
 from __future__ import annotations
@@ -43,8 +54,15 @@ from avatarcraft_tpu_torch.models.instant_nsr import (
 from avatarcraft_tpu_torch.ops.occupancy import update_density_grid
 from avatarcraft_tpu_torch.ops.sampling import recip
 from avatarcraft_tpu_torch.parallel.ring import all_gather_table
-from avatarcraft_tpu_torch.parallel.table_mp import gathered_params, trainable_shards
-from avatarcraft_tpu_torch.utils.checkpoint import leaves
+from avatarcraft_tpu_torch.parallel.table_mp import gathered_params, shard_grid_rows, trainable_shards
+from avatarcraft_tpu_torch.utils.checkpoint import (
+    adam_state_from_optax,
+    leaves,
+    load_train_state,
+    map_leaves,
+    save_train_state,
+    sorted_leaves,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +130,32 @@ def make_batch_ray_fn(K: np.ndarray, H: int, W: int):
     return ray_fn
 
 
+def make_batch_ray_fn_ss(K: np.ndarray, H: int, W: int, ss: int):
+    """The supersampled ray function: ss^2 sub-rays per pixel on a regular
+    box pattern over its footprint, [B*ss^2, 3], sub-ray-major per pixel,
+    so that ``rgb.reshape(B, ss*ss, 3).mean(1)`` is the pixel's box-filtered
+    coverage (the JAX package's make_batch_ray_fn_ss)."""
+    fx, fy, cx, cy = float(K[0, 0]), float(K[1, 1]), float(K[0, 2]), float(K[1, 2])
+    off = (np.arange(ss) + 0.5) / ss - 0.5
+    ox, oy = np.meshgrid(off, off, indexing="xy")
+    ox = ox.reshape(-1).astype(np.float32)
+    oy = oy.reshape(-1).astype(np.float32)
+
+    def ray_fn(poses, view_idx, pix_idx):
+        pose = poses[view_idx]
+        dx = torch.as_tensor(ox, device=poses.device)
+        dy = torch.as_tensor(oy, device=poses.device)
+        y = torch.div(pix_idx, W, rounding_mode="floor").float()[:, None] + dy[None]
+        x = (pix_idx % W).float()[:, None] + dx[None]
+        p = torch.stack([(x - cx) * recip(fx), -((y - cy) * recip(fy)), -torch.ones_like(x)], dim=-1)
+        v = p / torch.linalg.norm(p, dim=-1, keepdim=True)
+        rays_d = torch.einsum("bij,bsj->bsi", pose[:, :3, :3], v)
+        rays_o = pose[:, None, :3, 3].expand(rays_d.shape)
+        return rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+
+    return ray_fn
+
+
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """torch's F.smooth_l1_loss with beta 1, mean reduction, written out as
     the JAX package writes it."""
@@ -156,11 +200,13 @@ def make_train_step(fcfg: FieldConfig, rcfg: RenderConfig, optimizer, ray_fn, ei
 
     def train_step(params, poses, view_idx, pix_idx, gt_rgb, generator=None):
         optimizer.zero_grad(set_to_none=True)
-        rays_o, rays_d = ray_fn(poses, view_idx, pix_idx)
-        out = render_rays(params, rays_o, rays_d, fcfg, rcfg, bg_value, generator)
-        photo = smooth_l1(out["rgb"], gt_rgb)
-        loss = photo + eikonal_weight * out["gradient_error"]
-        loss.backward()
+        with record_function("train.forward"):
+            rays_o, rays_d = ray_fn(poses, view_idx, pix_idx)
+            out = render_rays(params, rays_o, rays_d, fcfg, rcfg, bg_value, generator)
+            photo = smooth_l1(out["rgb"], gt_rgb)
+            loss = photo + eikonal_weight * out["gradient_error"]
+        with record_function("train.backward"):
+            loss.backward()
         _update(optimizer, scheduler)
         return loss.detach(), (photo.detach(), out["gradient_error"].detach())
 
@@ -224,15 +270,127 @@ def make_grid_update_fn(fcfg: FieldConfig, bound: float):
     return refresh
 
 
-def pixel_batches(n_views: int, n_pixels: int, batch: int,
-                  rng: np.random.Generator) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+def pixel_batches(n_views: int, n_pixels: int, batch: int, rng: np.random.Generator,
+                  view_ids: np.ndarray | None = None) -> Iterator[tuple[np.ndarray, np.ndarray]]:
     """One epoch of (view_idx, pix_idx) batches over a shuffled permutation
     of every (view, pixel), the reference's per-epoch ray permutation
-    (reconstruct.py:80-83); the last partial batch is dropped."""
-    perm = rng.permutation(n_views * n_pixels).astype(np.int64)
-    for i in range(0, n_views * n_pixels - batch + 1, batch):
+    (reconstruct.py:80-83); the last partial batch is dropped.
+    ``view_ids``: the views to draw from (the others are held out)."""
+    if view_ids is None:
+        view_ids = np.arange(n_views, dtype=np.int32)
+    view_ids = np.asarray(view_ids, np.int32)
+    total = len(view_ids) * n_pixels
+    perm = rng.permutation(total).astype(np.int64)
+    for i in range(0, total - batch + 1, batch):
         sel = perm[i : i + batch]
-        yield (sel // n_pixels).astype(np.int32), (sel % n_pixels).astype(np.int32)
+        yield view_ids[sel // n_pixels], (sel % n_pixels).astype(np.int32)
+
+
+@dataclasses.dataclass
+class ReconstructState:
+    """The 64+64 trainer's live state: the parameter tree (the leaves the
+    optimizer owns), Adam with its cosine schedule, and the step."""
+
+    params: dict
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LambdaLR
+    step: int = 0
+
+
+def _steps_per_epoch(dataset, cfg: ReconstructConfig) -> int:
+    return dataset.n_images * dataset.H * dataset.W // cfg.batch_size
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _batch_to(device, view_idx, pix_idx, gt):
+    return (torch.as_tensor(view_idx, dtype=torch.int64, device=device),
+            torch.as_tensor(pix_idx, dtype=torch.int64, device=device),
+            torch.as_tensor(np.asarray(gt, np.float32), device=device))
+
+
+def setup(dataset, fcfg: FieldConfig, rcfg: RenderConfig, cfg: ReconstructConfig, device="cuda"):
+    """What the 64+64 loop needs, on ``device``: (state, step_fn, poses,
+    steps_per_epoch). The field starts from ``init_field_params`` seeded
+    ``cfg.seed``; Adam on the cosine over the epochs; the step renders on a
+    white (``cfg.white_bkg``) or black background against the raw images,
+    as the JAX package's step does."""
+    params = map_leaves(init_field_params(torch.Generator(device).manual_seed(cfg.seed), fcfg),
+                        lambda t: t.requires_grad_())
+    steps_per_epoch = _steps_per_epoch(dataset, cfg)
+    opt, sched = make_optimizer(cfg, steps_per_epoch, leaves(params))
+    ray_fn = make_batch_ray_fn(dataset.K, dataset.H, dataset.W)
+    step_fn = make_train_step(fcfg, rcfg, opt, ray_fn, cfg.eikonal_weight, 1.0 if cfg.white_bkg else 0.0, sched)
+    poses = torch.as_tensor(np.asarray(dataset.poses, np.float32), device=device)
+    return ReconstructState(params, opt, sched), step_fn, poses, steps_per_epoch
+
+
+def train(
+    dataset,
+    fcfg: FieldConfig,
+    rcfg: RenderConfig,
+    cfg: ReconstructConfig,
+    *,
+    max_steps: int | None = None,
+    log_every: int = 20,
+    callbacks: dict | None = None,
+    resume_from: str | None = None,
+    device="cuda",
+) -> tuple[dict, dict]:
+    """The 64+64 reconstruction loop on ``device``. Returns (params, stats):
+    the logged (step, loss) pairs, rays/s and steps/s (timed from the end
+    of step 0) and the step count.
+
+    ``callbacks``: {"on_step": fn(step, params, loss)}, called after every
+    step; ``params`` is a function returning the live parameter tree.
+    ``resume_from``: a train-state file whose parameters and Adam state
+    (moments and count, so the learning rate resumes on its cosine) replace
+    the initial ones; the step count and the pixel order start again from
+    0, as in the JAX package. The perturbed depths come from a
+    ``torch.Generator`` seeded ``cfg.seed``, where the JAX package splits
+    keys."""
+    state, step_fn, poses, _ = setup(dataset, fcfg, rcfg, cfg, device)
+    params = state.params
+    if resume_from is not None:
+        saved = load_train_state(resume_from, device)
+        # leaves paired in sorted-key order: a state carried from the JAX
+        # package has its dicts' keys sorted
+        with torch.no_grad():
+            for p, v in zip(sorted_leaves(params), sorted_leaves(saved["params"])):
+                p.copy_(v)
+        adam_state_from_optax(state.optimizer, sorted_leaves(params), sorted_leaves(saved["mu"]),
+                              sorted_leaves(saved["nu"]), saved["count"], state.scheduler)
+    generator = torch.Generator(device).manual_seed(cfg.seed)
+    rng = np.random.default_rng(cfg.seed)
+    n_pix = dataset.H * dataset.W
+    logged, step, t_start, done = [], 0, None, False
+    for _ in range(cfg.epochs):
+        if done:
+            break
+        for view_idx, pix_idx in pixel_batches(dataset.n_images, n_pix, cfg.batch_size, rng):
+            gt = dataset.gather_rgb(view_idx, pix_idx)
+            loss, _ = step_fn(params, poses, *_batch_to(device, view_idx, pix_idx, gt), generator)
+            if step == 0:  # time from the end of the first step
+                _sync(device)
+                t_start = time.perf_counter()
+            if log_every and step % log_every == 0:
+                logged.append((step, loss))  # read once, after the loop
+            if callbacks and "on_step" in callbacks:
+                callbacks["on_step"](step, lambda: params, loss)
+            step += 1
+            if max_steps is not None and step >= max_steps:
+                done = True
+                break
+    _sync(device)
+    stats = {"losses": [(s, float(l)) for s, l in logged], "rays_per_sec": 0.0, "steps": step}
+    if t_start is not None and step > 1:
+        dt = time.perf_counter() - t_start
+        stats["rays_per_sec"] = (step - 1) * cfg.batch_size / dt
+        stats["steps_per_sec"] = (step - 1) / dt
+    return map_leaves(params, torch.Tensor.detach), stats
 
 
 def train_fast(
@@ -246,28 +404,71 @@ def train_fast(
     grid_warmup_steps: int = 2000,
     grid_resolution: int = 129,
     log_every: int = 50,
+    callbacks: dict | None = None,
+    view_ids: np.ndarray | None = None,
+    state_dir: str | None = None,
+    save_state_every: int = 0,
+    resume_from: str | None = None,
+    scan_steps: int = 0,
     device="cuda",
 ) -> tuple[dict, torch.Tensor, dict]:
     """Occupancy-guided reconstruction on ``device``: the density grid
     starts fully occupied (uniform sampling) and sparsifies through periodic
-    refreshes as the field converges. ``dataset``: an ``ImageSet`` or any
-    object with its attributes. Returns (params, density grid, stats); stats
-    holds the logged (step, loss) pairs, rays/s and steps/s (timed from the
-    end of the first step) and the step count."""
-    params = init_field_params(torch.Generator(device).manual_seed(cfg.seed), fcfg)
+    refreshes as the field converges. ``dataset``: an ``SMPLMultiviewDataset``,
+    an ``ImageSet`` or any object with their attributes. Returns (params,
+    density grid, stats); stats holds the logged (step, loss) pairs, rays/s
+    and steps/s (timed from the end of the first step) and the step count.
+
+    ``callbacks``: {"on_step": fn(step, params, loss, grid)} after every
+    step and its refresh, with the live grid; ``params`` is a function that
+    gathers the live parameter tree when called (one gather launch).
+    ``view_ids``: the views to train on. ``state_dir``: where the train
+    state goes, as ``state_latest.pt`` every ``save_state_every`` steps and
+    ``state_final.pt`` at the end. ``resume_from``: a train-state file to
+    continue from (parameters, Adam's moments and count, grid, step); the
+    epoch loop and the pixel order restart from the seed, as in the JAX
+    package. ``scan_steps`` > 0 (several steps per call) is refused."""
+    if scan_steps > 0:
+        raise NotImplementedError(
+            "scan_steps > 0 (several optimizer steps per call) is not ported yet: a CUDA graph of the step "
+            "(ROADMAP item 12)"
+        )
+    saved = load_train_state(resume_from, device) if resume_from is not None else None
+    if saved is not None:
+        params = saved["params"]
+    else:
+        params = init_field_params(torch.Generator(device).manual_seed(cfg.seed), fcfg)
     rest, shards, splice = trainable_shards(params)
     del params
-    steps_per_epoch = dataset.n_images * dataset.H * dataset.W // cfg.batch_size
-    opt, sched = make_optimizer(cfg, steps_per_epoch, leaves(rest) + shards)
+    opt, sched = make_optimizer(cfg, _steps_per_epoch(dataset, cfg), leaves(rest) + shards)
     ray_fn = make_batch_ray_fn(dataset.K, dataset.H, dataset.W)
     step_fn = make_train_step_fast(fcfg, fast_cfg, opt, ray_fn, cfg.eikonal_weight, splice, sched)
     refresh = make_grid_update_fn(fcfg, fast_cfg.bound)
     grid = torch.full((grid_resolution,) * 3, 100.0, device=device)  # fully occupied at start
     poses = torch.as_tensor(np.asarray(dataset.poses, np.float32), device=device)
+    step = 0
+    if saved is not None:
+        moments = {}
+        for key in ("mu", "nu"):
+            m_rest, m_shards, _ = shard_grid_rows(saved[key], len(shards))
+            moments[key] = sorted_leaves(m_rest) + m_shards
+        adam_state_from_optax(opt, sorted_leaves(rest) + shards, moments["mu"], moments["nu"], saved["count"], sched)
+        grid, step = saved["grid"], int(saved["step"])
 
-    def maybe_refresh(prev_step: int, step: int) -> None:
+    def save_state(name: str, params: dict | None = None) -> None:
+        def moments(key):  # Adam's moments in the parameters' layout (zeros before a step)
+            m = lambda p: opt.state[p][key] if p in opt.state else torch.zeros_like(p)  # noqa: E731
+            return splice(map_leaves(rest, m), torch.cat([m(s) for s in shards]))
+
+        count = int(opt.state[shards[0]]["step"]) if shards[0] in opt.state else 0
+        if params is None:
+            params = gathered_params(rest, shards, splice)
+        save_train_state(f"{state_dir}/{name}.pt", params, moments("exp_avg"), moments("exp_avg_sq"), count, step,
+                         grid)
+
+    def maybe_refresh(prev_step: int) -> None:
         nonlocal grid
-        if not grid_update_every or step // grid_update_every <= prev_step // grid_update_every:
+        if not grid_update_every or step // grid_update_every <= prev_step // grid_update_every or step <= 0:
             return
         if step < grid_warmup_steps:
             return  # warmup: keep the saturated grid (uniform sampling)
@@ -280,11 +481,11 @@ def train_fast(
 
     rng = np.random.default_rng(cfg.seed)
     n_pix = dataset.H * dataset.W
-    logged, step, t_start, timed_from, done = [], 0, None, 0, False
+    logged, t_start, timed_from, done = [], None, 0, False
     for _ in range(cfg.epochs):
         if done:
             break
-        for view_idx, pix_idx in pixel_batches(dataset.n_images, n_pix, cfg.batch_size, rng):
+        for view_idx, pix_idx in pixel_batches(dataset.n_images, n_pix, cfg.batch_size, rng, view_ids):
             gt = dataset.gather_rgb(view_idx, pix_idx)
             bg = 1.0 if cfg.white_bkg else 0.0
             if cfg.bkg_mode.startswith("composite"):
@@ -292,25 +493,26 @@ def train_fast(
                     bg = float(rng.uniform())
                 m = dataset.gather_mask(view_idx, pix_idx)[:, None]
                 gt = gt * m + (1.0 - m) * bg
-            vi = torch.as_tensor(view_idx, dtype=torch.int64, device=device)
-            pi = torch.as_tensor(pix_idx, dtype=torch.int64, device=device)
-            gt_d = torch.as_tensor(np.asarray(gt, np.float32), device=device)
-            loss, _ = step_fn(rest, shards, poses, vi, pi, gt_d, grid, bg)
+            loss, _ = step_fn(rest, shards, poses, *_batch_to(device, view_idx, pix_idx, gt), grid, bg)
             if t_start is None:  # time from the end of the first step
-                if torch.device(device).type == "cuda":
-                    torch.cuda.synchronize(device)
+                _sync(device)
                 t_start, timed_from = time.perf_counter(), step + 1
             if log_every and step % log_every == 0:
                 logged.append((step, loss))  # read once, after the loop
             step += 1
-            maybe_refresh(step - 1, step)
+            maybe_refresh(step - 1)
+            if callbacks and "on_step" in callbacks:
+                callbacks["on_step"](step - 1, lambda: gathered_params(rest, shards, splice), loss, grid)
+            if state_dir and save_state_every and step % save_state_every == 0:
+                save_state("state_latest")
             if max_steps is not None and step >= max_steps:
                 done = True
                 break
 
     params = gathered_params(rest, shards, splice)
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+    if state_dir:
+        save_state("state_final", params)
+    _sync(device)
     stats = {"losses": [(s, float(l)) for s, l in logged], "rays_per_sec": 0.0, "steps": step}
     if t_start is not None and step > timed_from:
         dt = time.perf_counter() - t_start

@@ -38,13 +38,13 @@ Phases, each printed with its start, end and wall seconds:
               every loss finite, the loss of steps 15-19 below that of steps
               0-4 (the warmup), the refreshed 129^3 grid finite and below
               the saturated 100; both table kernels launched;
-6. tablemp -- the table-parallel step (parallel.table_mp) from the
-              artifact's parameters, 64+64 samples with fd7 normals, 1024 rays
-              of bench camera 0 against the fast renderer's frame, SGD: 1
-              shard three times and 4 shards once; the 1- and 4-shard losses
-              bitwise equal, the 4-shard table gradient within twice the
-              largest difference between two 1-shard runs (the encoder's
-              backward adds with atomics); both table kernels launched;
+6. tablemp -- the encoder's deterministic scatter-add (scatter_rows) on
+              the card against the CPU and against itself, bitwise; the
+              table-parallel step (parallel.table_mp) from the artifact's
+              parameters, 64+64 samples with fd7 normals, 1024 rays of bench
+              camera 0 against the fast renderer's frame, SGD: 1 shard three
+              times and 4 shards once; the losses and the table gradients
+              bitwise equal; both table kernels launched;
 7. warp    -- the port's warp bench (avatarcraft_tpu_torch.bench.run_warp):
               the artifact animated on the demo body by 4 demo poses at
               256x256, 8192-ray chunks, 128 probes, K = 32, the derived
@@ -124,6 +124,25 @@ Phases, each printed with its start, end and wall seconds:
               relative, its gradients within 1e-3 x each leaf's max|g| plus
               1e-5 x the largest. Every error is printed before any is
               held.
+17. reconstruct -- a dataset in smpl_da_512's layout written to a temporary
+              directory: 100 views at 512x512 at the training distance,
+              rendered from the artifact on a black background; the
+              reconstruct CLI (cli.reconstruct_cli.main) at its defaults with
+              --white_bkg false (the set's black background): --sampler parity
+              (the hash grid, 64+64, fd7, batch 1600) for 40 steps, the
+              validation PNG, checkpoint and 128^3 mesh at step 40, no table
+              kernel launched, the loss falling, the checkpoint loading back
+              equal; --sampler fast (the pyramid, fd4, 128 probes) for 40 steps
+              with the grid warmup, refreshes and state saves every 20: one
+              gather and one reduce-scatter per step, plus a gather per
+              refresh, state save, parameter read of the CLI and the final
+              tree, counted exactly; a resume from its state for 4 more
+              steps; a hash-grid 64+64 step card against CPU on 32x32 rays
+              (the loss 1e-4 relative, every gradient leaf, the table's
+              included, 1e-2 x its max|g|); the parity step's device ms per
+              train.* range (profile_train.parity_main); steps/s, rays/s and
+              peak memory; the mesh export at the CLI's default 512^3 timed
+              once on the artifact's field (SDF lattice, marching cubes).
 
 Before the last line it prints one JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -132,6 +151,7 @@ card's name and power limit; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -146,13 +166,22 @@ import torch
 
 import avatarcraft_tpu_torch
 from avatarcraft_tpu_torch import bench, profile_train
-from avatarcraft_tpu_torch.cameras import pose2rays
-from avatarcraft_tpu_torch.cli import stylize_cli
+from avatarcraft_tpu_torch.cameras import dataset_rays, pose2rays, pose_spherical
+from avatarcraft_tpu_torch.cli import reconstruct_cli, stylize_cli
+from avatarcraft_tpu_torch.constants import CANONICAL_CAMERA_DIST_TRAIN, CANONICAL_ZOOM_FACTOR, NSR_BOUND
+from avatarcraft_tpu_torch.data import SMPLMultiviewDataset
 from avatarcraft_tpu_torch.models import sd
 from avatarcraft_tpu_torch.models.clip_tokenizer import make_toy_tokenizer
 from avatarcraft_tpu_torch.models.diffusion import SDSGuidance
-from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig, RenderConfig, count_fast_samples
+from avatarcraft_tpu_torch.models.instant_nsr import (
+    FastRenderConfig,
+    RenderConfig,
+    count_fast_samples,
+    extract_sdf_grid,
+    render_rays,
+)
 from avatarcraft_tpu_torch.models.sd import unet_apply
+from avatarcraft_tpu_torch.ops.grid_encoder import scatter_rows
 from avatarcraft_tpu_torch.models.toy_guidance import (
     load_toy_guidance,
     make_ddpm_loss,
@@ -164,6 +193,9 @@ from avatarcraft_tpu_torch.parallel import ring
 from avatarcraft_tpu_torch.parallel.table_mp import TableMPTrainStep, trainable_shards
 from avatarcraft_tpu_torch.utils.checkpoint import leaves, load_params_with_config, map_leaves
 from avatarcraft_tpu_torch.utils import cuda_build, style_delta
+from avatarcraft_tpu_torch.utils.marching_cubes import marching_cubes
+from avatarcraft_tpu_torch.utils.metrics import integerify_img
+from avatarcraft_tpu_torch.utils.png import write_png
 from avatarcraft_tpu_torch.utils.device import card_line
 from avatarcraft_tpu_torch.utils.timing import cold_device_ms, cuda_ms, cuda_ms_cold, device_names
 from avatarcraft_tpu_torch.warp import WarpData
@@ -235,6 +267,22 @@ SD_PNDM_REL = (2 * 7.5 + 1) * SD_EPS_REL
 # against its own max|g| plus a floor for leaves whose gradient is zero but
 # for rounding (the CPU tests hold the port to JAX at 1e-4 and 1e-6)
 DDPM_LOSS_RTOL, DDPM_GRAD_REL, DDPM_GRAD_FLOOR = 1e-5, 1e-3, 1e-5
+# reconstruct: a dataset in smpl_da_512's layout written from the artifact
+# (100 views at 512x512 on a black background, the training distance), the
+# CLI's steps for each sampler and for the resume, the mesh resolution
+RECON_VIEWS, RECON_RES, RECON_RENDER_CHUNK = 100, 512, 65536
+RECON_STEPS, RECON_RESUME_STEPS, RECON_MESH_RES = 40, 4, 128
+RECON_MESH_EXPORT_RES = 512  # the CLI's default --mesh_resolution, timed once
+RECON_FAST_REFRESH = 20  # the fast run's grid warmup, refresh period and state period
+# one parity step of the hash grid, card against CPU, on a 32x32 block of
+# view 0: the loss as the fast step's (TRAIN_LOSS_RTOL); every gradient
+# leaf, the hash table's included, within 1e-2 x its max|g|. Both devices
+# add the table's cotangents row by row in one order (a stable sort, an f32
+# segment sum), so what differs is the cotangents themselves: f32 MLP sums
+# in other orders, and the up-sampled depths those move (the CDF inversion
+# divides an SDF difference by a bin's CDF step), which move a sample's
+# trilinear weights by up to 640 x its shift on the finest level
+HASH_GRAD_REL = 1e-2
 KERNELS = {
     ring.KERNEL: {
         "route": "cuda",
@@ -509,10 +557,20 @@ def _table_grad(step) -> torch.Tensor:
 
 
 def check_table_mp() -> dict:
-    """1 shard three times, 4 shards once: the losses bitwise equal; the
-    4-shard table gradient within twice the largest difference between two
-    of the 1-shard runs (the encoder's backward adds with atomics, so no
-    two runs add in one order)."""
+    """1 shard three times, 4 shards once: the losses and the table
+    gradients all bitwise equal. The encoder's backward adds each row's
+    cotangents in one order (ops/grid_encoder.py::scatter_rows), and at m =
+    1 the reduce-scatter only splits; both table kernels are bitwise equal
+    to their plain versions. Also scatter_rows itself on the card against
+    the CPU on heavily repeated rows: bitwise equal."""
+    gen = torch.Generator().manual_seed(3)
+    idx = torch.randint(0, 1000, (200_000,), generator=gen)
+    grad = torch.randn(200_000, 16, generator=gen).to(torch.bfloat16)
+    card = scatter_rows(idx.cuda(), grad.cuda(), 1000).cpu()
+    if not (_same_bits(card, scatter_rows(idx, grad, 1000)) and _same_bits(card, scatter_rows(idx.cuda(), grad.cuda(), 1000).cpu())):
+        raise AssertionError("scatter_rows: the card's sums differ from run to run or from the CPU's")
+    print("scatter_rows: 200,000 bf16 rows into 1,000, card bitwise equal to the CPU and to itself", flush=True)
+
     params, fcfg, grid, fast_cfg = bench.load_artifact("cuda")
     ro, rd = pose2rays(32, 32, bench.bench_poses()[0], device="cuda")
     render = make_fast_frame_renderer(params, fcfg, fast_cfg, grid, chunk=32 * 32)
@@ -538,8 +596,9 @@ def check_table_mp() -> dict:
           f"4-shard vs 1-shard {diff:.4g}", flush=True)
     if not (torch.isfinite(loss4) and all(_same_bits(l, loss4) for l, _ in ones)):
         raise AssertionError(f"table_mp: 1-shard losses {[float(l) for l, _ in ones]} != 4-shard loss {float(loss4)}")
-    if diff > 2 * spread:
-        raise AssertionError(f"table_mp: 4-shard table gradient off by {diff} > 2 x spread {spread}")
+    if not all(_same_bits(g, g1) for g in gs[1:] + [g4]):
+        raise AssertionError(f"table_mp: table gradients not bitwise equal: spread of the 1-shard runs {spread}, "
+                             f"4-shard vs 1-shard {diff}")
     return launches
 
 
@@ -1127,6 +1186,257 @@ def check_sd_card_vs_cpu() -> None:
         raise AssertionError(f"sd card vs CPU: outside tolerance: {bad}")
 
 
+# -- reconstruct ---------------------------------------------------------------
+
+_CAPTURE_TO_GL = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+
+
+def write_recon_dataset(root: str) -> None:
+    """transforms_train.json and train/r_{i}.png in smpl_da_512's layout:
+    RECON_VIEWS views at RECON_RES^2 around the body at the canonical
+    training distance (an orbit, elevations between -20 and 35 degrees),
+    rendered from the committed artifact by the port's fast renderer on a
+    black background (so the loader's mask, any channel != 0, is the
+    body), at a zero-clip budget. Stored flipped left to right: the loader
+    flips every image back (the reference's flip)."""
+    params, fcfg, grid, cfg = bench.load_artifact("cuda")
+    f = CANONICAL_ZOOM_FACTOR * RECON_RES
+    K = np.array([[f, 0, RECON_RES / 2], [0, f, RECON_RES / 2], [0, 0, 1]], np.float32)
+    poses = [
+        (pose_spherical(360.0 * i / RECON_VIEWS, 27.5 * np.sin(0.7 * i) + 7.5, CANONICAL_CAMERA_DIST_TRAIN)
+         @ _CAPTURE_TO_GL).astype(np.float32)
+        for i in range(RECON_VIEWS)
+    ]
+    rays = [dataset_rays(p, K, RECON_RES, RECON_RES, device="cuda") for p in poses]
+    chunks = [(ro[i : i + RECON_RENDER_CHUNK], rd[i : i + RECON_RENDER_CHUNK])
+              for ro, rd in rays for i in range(0, len(ro), RECON_RENDER_CHUNK)]
+    worst, budget = bench.derive_budget(chunks, cfg, grid)
+    render = make_fast_frame_renderer(params, fcfg, dataclasses.replace(cfg, sample_budget=budget), grid,
+                                      chunk=RECON_RENDER_CHUNK, bg_color=0.0)
+    os.makedirs(os.path.join(root, "train"), exist_ok=True)
+    frames, covered = [], []
+    for i, (ro, rd) in enumerate(rays):
+        img = integerify_img(render(ro, rd)["rgb"].reshape(RECON_RES, RECON_RES, 3).cpu().numpy())
+        covered.append(float((img != 0).any(-1).mean()))
+        write_png(os.path.join(root, "train", f"r_{i}.png"), img[:, ::-1])
+        frames.append({"file_path": f"./train/r_{i}", "transform_matrix": poses[i].tolist()})
+    with open(os.path.join(root, "transforms_train.json"), "w") as fp:
+        json.dump({"camera_angle_x": float(2 * np.arctan(0.5 * RECON_RES / f)), "frames": frames}, fp)
+    print(f"reconstruct dataset: {RECON_VIEWS} views at {RECON_RES}x{RECON_RES} in {root}, budget {budget} "
+          f"(worst {worst}); body covers {min(covered):.3f} to {max(covered):.3f} of a view", flush=True)
+    if min(covered) < 0.01:
+        raise AssertionError("reconstruct dataset: a view shows no body")
+
+
+@contextlib.contextmanager
+def _recorded_trainers(fast_kw: dict):
+    """The CLI's trainers, wrapped: every loss logged, ``fast_kw`` passed to
+    train_fast, and after each step's callback a synchronize and a record
+    of (step, host time, the grid's max and finiteness)."""
+    record = []
+    real = {"train": reconstruct.train, "train_fast": reconstruct.train_fast}
+
+    def wrap(fn, extra):
+        def wrapped(*args, callbacks=None, **kw):
+            inner = callbacks["on_step"]
+
+            def on_step(step, params, loss, *grid):
+                inner(step, params, loss, *grid)
+                torch.cuda.synchronize()
+                g = grid[0] if grid else None
+                record.append((step, time.perf_counter(), None if g is None else
+                               (float(g.max()), bool(torch.isfinite(g).all()))))
+
+            return fn(*args, callbacks={"on_step": on_step}, **{**kw, "log_every": 1, **extra})
+
+        return wrapped
+
+    reconstruct.train = wrap(real["train"], {})
+    reconstruct.train_fast = wrap(real["train_fast"], fast_kw)
+    try:
+        yield record
+    finally:
+        reconstruct.train, reconstruct.train_fast = real["train"], real["train_fast"]
+
+
+def _rate(record, batch: int) -> dict:
+    """Steps/s and rays/s from the median host time between two steps'
+    callbacks (the steps that save, render or refresh are the slow tail)."""
+    dts = np.diff([t for _, t, _ in record])
+    ms = float(np.median(dts)) * 1e3
+    return {"ms_per_step_median": ms, "steps_per_sec": 1e3 / ms, "rays_per_sec": batch * 1e3 / ms,
+            "ms_per_step_max": float(dts.max()) * 1e3}
+
+
+def _run_recon_cli(argv: list, fast_kw: dict, name: str):
+    with _recorded_trainers(fast_kw) as record:
+        _reset_launches()
+        params, stats = reconstruct_cli.main(argv)
+        torch.cuda.synchronize()
+    launches = dict(ring.launches)
+    losses = [l for _, l in stats["losses"]]
+    rate = _rate(record, int(argv[argv.index("--batch_size") + 1]))
+    print(f"reconstruct {name}: " + json.dumps({**{k: v for k, v in stats.items() if k != "losses"}, **rate,
+                                                "launches": launches}), flush=True)
+    print(f"reconstruct {name} losses: " + json.dumps([round(l, 6) for l in losses]), flush=True)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"reconstruct {name}: a loss is not finite")
+    return params, stats, record, launches, losses
+
+
+def _expect_files(exp_dir: str, names) -> None:
+    missing = [n for n in names if not os.path.isfile(os.path.join(exp_dir, n))]
+    if missing:
+        raise AssertionError(f"reconstruct: not written: {missing} (in {sorted(os.listdir(exp_dir))})")
+
+
+def _expect_checkpoint(path: str, params: dict) -> None:
+    loaded, _ = load_params_with_config(path, "cuda")
+    if not all(torch.equal(a, b) for a, b in zip(leaves(loaded), leaves(params))):
+        raise AssertionError(f"reconstruct: {path} does not load back equal to the trainer's parameters")
+
+
+def _parity_step_grads(device: str, ckpt: str, ds, pix: np.ndarray):
+    """One 64+64 step of the checkpoint's hash-grid field (no perturbation)
+    on the rays of ``pix`` in view 0: (loss, {leaf: gradient})."""
+    params, fcfg = load_params_with_config(ckpt, device)
+    params = map_leaves(params, lambda t: t.requires_grad_())
+    ray_fn = reconstruct.make_batch_ray_fn(ds.K, ds.H, ds.W)
+    pi = torch.as_tensor(pix, device=device)
+    ro, rd = ray_fn(torch.as_tensor(ds.poses, device=device), torch.zeros_like(pi), pi)
+    gt = torch.as_tensor(ds.gather_rgb(np.zeros_like(pix), pix), device=device)
+    rcfg = RenderConfig(num_steps=64, upsample_steps=64, bound=NSR_BOUND, perturb=False)
+    out = render_rays(params, ro, rd, fcfg, rcfg, 1.0)
+    loss = reconstruct.smooth_l1(out["rgb"], gt) + 0.1 * out["gradient_error"]
+    loss.backward()
+    loss = loss.detach()
+    grads = {"table": params["table"].grad.cpu(), "variance": params["variance"].grad.cpu()}
+    grads.update({f"{name}.{i}.{k}": t.grad.cpu() for name in ("sdf", "color")
+                  for i, layer in enumerate(params[name]) for k, t in layer.items()})
+    return float(loss), grads
+
+
+def check_hash_card_vs_cpu(ckpt: str, ds) -> None:
+    y, x = np.mgrid[240:272, 240:272]
+    pix = (y * ds.W + x).reshape(-1).astype(np.int64)
+    loss_cpu, g_cpu = _parity_step_grads("cpu", ckpt, ds, pix)
+    loss_card, g_card = _parity_step_grads("cuda", ckpt, ds, pix)
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    errs = {k: float((g_card[k] - g_cpu[k]).abs().max() / g_cpu[k].abs().max()) for k in g_cpu
+            if float(g_cpu[k].abs().max()) > 0}
+    print(f"hash-grid parity step, card vs CPU (32x32 rays): loss {loss_card:.9g} / {loss_cpu:.9g} (rel {rel:.3g}, "
+          f"rtol {TRAIN_LOSS_RTOL}); table gradient diff {errs['table']:.3g} x max|g| "
+          f"{float(g_cpu['table'].abs().max()):.4g}, worst MLP/variance {max(v for k, v in errs.items() if k != 'table'):.3g} "
+          f"x max|g| (tolerance {HASH_GRAD_REL})", flush=True)
+    if not (np.isfinite(loss_card) and rel <= TRAIN_LOSS_RTOL):
+        raise AssertionError(f"hash-grid parity step: losses differ, card {loss_card}, cpu {loss_cpu}")
+    if "table" not in errs or not max(errs.values()) <= HASH_GRAD_REL:
+        raise AssertionError(f"hash-grid parity step: gradients differ: {errs}")
+
+
+def time_mesh_export() -> None:
+    """The CLI's mesh export at its default 512^3 (``extract_geometry``),
+    timed once on the artifact's field, which has a surface: the SDF
+    lattice on the card, then the numpy marching cubes on the host."""
+    params, fcfg, _, _ = bench.load_artifact("cuda")
+    t0 = time.perf_counter()
+    sdf = extract_sdf_grid(params, fcfg, NSR_BOUND, RECON_MESH_EXPORT_RES)
+    t1 = time.perf_counter()
+    verts, faces = marching_cubes(-sdf, 0.0)
+    t2 = time.perf_counter()
+    print(f"mesh export at {RECON_MESH_EXPORT_RES}^3 of the artifact's field: SDF lattice {t1 - t0:.2f} s, "
+          f"marching cubes {t2 - t1:.2f} s, {len(verts)} vertices, {len(faces)} faces", flush=True)
+    if not len(faces):
+        raise AssertionError("mesh export: no surface in the artifact's field")
+
+
+def check_reconstruct() -> dict:
+    """reconstruct_cli at its defaults on a dataset written from the
+    artifact: the parity sampler (the hash grid, 64+64, fd7, batch 1600)
+    and the fast sampler (the pyramid, fd4, 128 probes) for RECON_STEPS
+    steps each, the fast one resumed from its state; the hash-grid step
+    card against CPU; the parity step's device ms per train.* range."""
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    root = tempfile.mkdtemp(prefix="recon_")
+    try:
+        write_recon_dataset(root)
+        out = os.path.join(root, "out")
+        # --white_bkg false: the set is black-backed, as smpl_da_512 is, and the
+        # raw images against renders on white are the inconsistent supervision
+        # the JAX package's ReconstructConfig names
+        base = ["--data_path", root, "--out_dir", out, "--batch_size", "1600", "--mesh_resolution", str(RECON_MESH_RES),
+                "--white_bkg", "false"]
+        each = str(RECON_STEPS)
+
+        # the parity sampler: no table kernel
+        params, stats, _, launches, losses = _run_recon_cli(
+            base + ["--exp_name", "parity", "--max_steps", each, "--i_val", each, "--i_save", each, "--i_mesh", each],
+            {}, "parity")
+        if any(launches.values()):
+            raise AssertionError(f"reconstruct parity: table kernels launched: {launches}")
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        if len(losses) != RECON_STEPS or not last < first:
+            raise AssertionError(f"reconstruct parity: {len(losses)} losses, mean of the first 5 {first}, last 5 {last}")
+        exp = os.path.join(out, "parity")
+        _expect_files(exp, [f"parity_{RECON_STEPS:04d}.png", f"parity_{RECON_STEPS:04d}.pth.tar",
+                            f"parity_{RECON_STEPS:04d}.ply", "parity_final.pth.tar"])
+        for name in (f"parity_{RECON_STEPS:04d}.pth.tar", "parity_final.pth.tar"):
+            _expect_checkpoint(os.path.join(exp, name), params)
+        print(f"reconstruct parity: mean loss of the first 5 steps {first:.6f}, last 5 {last:.6f}", flush=True)
+
+        # the fast sampler: one gather and one reduce-scatter per step, and a
+        # gather for each refresh, state save, read of the parameters by the
+        # CLI's callbacks (validation render, save, mesh) and the final tree
+        fast_argv = base + ["--sampler", "fast", "--grid_warmup_steps", str(RECON_FAST_REFRESH),
+                            "--save_state_every", str(RECON_FAST_REFRESH)]
+        params, stats, record, launches, losses = _run_recon_cli(
+            fast_argv + ["--exp_name", "fast", "--max_steps", each, "--i_val", each, "--i_save", each, "--i_mesh", each],
+            {"grid_update_every": RECON_FAST_REFRESH}, "fast")
+        refreshes = saves = RECON_STEPS // RECON_FAST_REFRESH
+        _expect_launches("reconstruct fast", launches, {ring.KERNEL: RECON_STEPS + refreshes + saves + 3 + 1,
+                                                        ring.RS_KERNEL: RECON_STEPS})
+        grid_max, grid_finite = record[RECON_FAST_REFRESH - 1][2]
+        if not (grid_finite and grid_max < 100.0):
+            raise AssertionError(f"reconstruct fast: the grid after the refresh at step {RECON_FAST_REFRESH}: "
+                                 f"max {grid_max}, finite {grid_finite}")
+        exp = os.path.join(out, "fast")
+        _expect_files(exp, [f"fast_{RECON_STEPS:04d}.png", f"fast_{RECON_STEPS:04d}.pth.tar", f"fast_{RECON_STEPS:04d}.ply",
+                            "fast_final.pth.tar", "fast_grid.npy", "state_latest.pt", "state_final.pt"])
+        _expect_checkpoint(os.path.join(exp, "fast_final.pth.tar"), params)
+        print(f"reconstruct fast: grid after the refresh at step {RECON_FAST_REFRESH}: max {grid_max:.4g}; "
+              f"mean loss of the first 5 steps {np.mean(losses[:5]):.6f}, steps 15-19 {np.mean(losses[15:20]):.6f}",
+              flush=True)
+        counts = dict(launches)
+
+        # a resume from the fast run's state at step RECON_STEPS
+        end = str(RECON_STEPS + RECON_RESUME_STEPS)
+        params, stats, _, launches, losses = _run_recon_cli(
+            fast_argv + ["--exp_name", "fast_resume", "--max_steps", end, "--i_val", "100000", "--i_save", "100000",
+                         "--i_mesh", "100000", "--resume_from", os.path.join(exp, "state_latest.pt")],
+            {"grid_update_every": RECON_FAST_REFRESH}, "fast resumed")
+        _expect_launches("reconstruct fast resumed", launches, {ring.KERNEL: RECON_RESUME_STEPS + 1,
+                                                                ring.RS_KERNEL: RECON_RESUME_STEPS})
+        if stats["steps"] != RECON_STEPS + RECON_RESUME_STEPS or len(losses) != RECON_RESUME_STEPS:
+            raise AssertionError(f"reconstruct fast resumed: {stats['steps']} steps, {len(losses)} losses")
+        for k in counts:
+            counts[k] += launches[k]
+
+        ds = SMPLMultiviewDataset(root)
+        check_hash_card_vs_cpu(os.path.join(out, "parity", "parity_final.pth.tar"), ds)
+        prof = profile_train.parity_main(warmup=2, timed=6, profiled=2, print_json=False)
+        print("reconstruct parity step (profile_train --path parity): " + json.dumps(
+            {k: v for k, v in prof.items() if k != "top_kernels"}), flush=True)
+        print("reconstruct parity step top kernels: " + json.dumps(prof["top_kernels"]), flush=True)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"reconstruct: peak memory {peak / 2**30:.2f} GiB, {(peak - held) / 2**30:.2f} GiB above the "
+              f"{held / 2**30:.2f} GiB held when the phase began", flush=True)
+        time_mesh_export()
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1170,6 +1480,8 @@ def main() -> int:
             check_toy_ddpm()
         with Phase("sd_card_vs_cpu"):
             check_sd_card_vs_cpu()
+        with Phase("reconstruct"):
+            paths["reconstruct_fast"] = check_reconstruct()
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         print("chip_smoke: FAILED", flush=True)

@@ -20,7 +20,8 @@ import avatarcraft_tpu_torch
 from avatarcraft_tpu_torch import bench
 from avatarcraft_tpu_torch.parallel import ring
 from avatarcraft_tpu_torch.utils import cuda_build
-from avatarcraft_tpu_torch.utils.png import integerify_img, write_png
+from avatarcraft_tpu_torch.utils.metrics import integerify_img
+from avatarcraft_tpu_torch.utils.png import write_png
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(avatarcraft_tpu_torch.__file__))
@@ -58,6 +59,14 @@ STYLIZE_MODULES = (
 SD_MODULES = (
     "avatarcraft_tpu_torch.models.clip_tokenizer",
 )
+# modules of the reconstruction slice
+RECON_MODULES = (
+    "avatarcraft_tpu_torch.ops.hash_encoder",
+    "avatarcraft_tpu_torch.cli.reconstruct_cli",
+    "avatarcraft_tpu_torch.utils.marching_cubes",
+    "avatarcraft_tpu_torch.utils.mesh_export",
+    "avatarcraft_tpu_torch.utils.metrics",
+)
 
 
 def _env_without_repo():
@@ -76,7 +85,7 @@ import avatarcraft_tpu_torch
 for m in pkgutil.walk_packages(avatarcraft_tpu_torch.__path__, "avatarcraft_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-missing = [m for m in {TRAIN_MODULES + WARP_MODULES + STYLIZE_MODULES + SD_MODULES!r} if m not in sys.modules]
+missing = [m for m in {TRAIN_MODULES + WARP_MODULES + STYLIZE_MODULES + SD_MODULES + RECON_MODULES!r} if m not in sys.modules]
 print("imports ok" if not missing else f"not imported: {{missing}}")
 """
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
@@ -236,6 +245,25 @@ def test_stylize_entry_points_default_to_cuda():
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
     opt = stylize_cli.build_parser().parse_args([])
     assert opt.use_cuda is True and opt.sampler == "fast"
+
+
+def test_reconstruct_entry_points_default_to_cuda():
+    """The reconstruction slice's entry points take their device explicitly
+    and default to ``cuda``; the CLI runs on the card unless --use_cuda
+    false, at the JAX CLI's default sampler."""
+    import inspect
+
+    from avatarcraft_tpu_torch.cli import reconstruct_cli
+    from avatarcraft_tpu_torch.data import SMPLMultiviewDataset
+    from avatarcraft_tpu_torch.utils import checkpoint
+    from avatarcraft_tpu_torch.workloads import reconstruct
+
+    for fn in (reconstruct.setup, reconstruct.train, reconstruct.train_fast, checkpoint.load_train_state,
+               SMPLMultiviewDataset.gen_rays_at, SMPLMultiviewDataset.gen_random_rays_at,
+               SMPLMultiviewDataset.gen_rays_silhouettes):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    opt = reconstruct_cli.build_parser().parse_args([])
+    assert opt.use_cuda is True and opt.sampler == "parity" and opt.batch_size == 1600
 
 
 def test_bench_refuses_cpu():

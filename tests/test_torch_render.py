@@ -26,6 +26,7 @@ import torch
 from avatarcraft_tpu.cameras import pose2rays as jax_pose2rays
 from avatarcraft_tpu.models import instant_nsr as jnsr
 from avatarcraft_tpu.ops.grid_encoder import PyramidSpec as JaxPyramidSpec
+from avatarcraft_tpu.ops.hash_encoder import HashGridSpec as JaxHashGridSpec
 from avatarcraft_tpu.utils.checkpoint import load_params_with_config as jax_load_params_with_config
 from avatarcraft_tpu_torch import bench
 from avatarcraft_tpu_torch.cameras import pose2rays
@@ -102,17 +103,31 @@ def test_field_outputs_match(rng):
 
 
 def test_unported_modes_raise():
-    """The hash encoder is still to port; the analytic normal mode, ported
-    since (tests/test_torch_stylize.py holds it against JAX), no longer
-    raises."""
+    """The view-direction SH encoder is still to port (it raises and names
+    its item) and an unknown encoder raises; the analytic normal mode
+    (tests/test_torch_stylize.py holds it against JAX) and the hash grid,
+    ported since, no longer raise: the hash grid's tables are the JAX
+    package's cell-packed dense levels, bit for bit."""
     _, params, fcfg = _small_field()
     x = torch.zeros(4, 3)
     sdf, feat, grad = nsr.field_sdf_grad(params, x, fcfg, 1.6, 0.005, "analytic")
     assert sdf.shape == (4, 1) and grad.shape == (4, 3) and torch.isfinite(grad).all()
     with pytest.raises(ValueError, match="unknown normal_mode"):
         nsr.field_sdf_grad(params, x, fcfg, 1.6, 0.005, "fd5")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        nsr.materialize_field_tables(params, dataclasses.replace(fcfg, encoder="hashgrid"))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
+        nsr.materialize_field_tables(params, dataclasses.replace(fcfg, use_viewdirs=True))
+    with pytest.raises(ValueError, match="unknown encoder"):
+        nsr.materialize_field_tables(params, dataclasses.replace(fcfg, encoder="freq"))
+
+    hash_kw = dict(num_levels=3, log2_hashmap_size=10, base_resolution=4, desired_resolution=16)
+    jcfg = jnsr.FieldConfig(encoder="hashgrid", grid=JaxHashGridSpec(**hash_kw))
+    jparams = jax.tree_util.tree_map(np.asarray, jnsr.init_field_params(jax.random.PRNGKey(0), jcfg))
+    want = jnsr.materialize_field_tables(jparams, jcfg)["dense_cells"]
+    hcfg = nsr.FieldConfig(encoder="hashgrid", grid=nsr.HashGridSpec(**hash_kw))
+    got = nsr.materialize_field_tables(params_from_jax(jparams, device="cpu"), hcfg)["dense_cells"]
+    assert sorted(got) == sorted(want) and len(got) >= 2
+    for lvl in want:
+        np.testing.assert_array_equal(got[lvl].numpy(), np.asarray(want[lvl]))
 
 
 def _small_scene(rng, n_rays):

@@ -15,6 +15,13 @@ Tolerances:
 * render_rays rgb and depth: 1e-5 absolute; weights: 5e-5 absolute, since
   a weight moves with its up-sampled sample (above); gradient_error: 1e-4
   relative.
+* the hash grid (render_rays and render_rays_chunked): rgb, depth,
+  weight_sum and normal 3e-5 absolute, weights and z values 5e-5. Where
+  the pyramid's features equal JAX's bit for bit, the hash grid's differ
+  in their last bits (its 8 corner products summed in another order; the
+  JAX package's own two layouts differ by 6.6e-6 on a N(0, 1) table,
+  tests/test_torch_hash_encoder.py), and the MLP and fd7's 1/(2 eps)
+  carry that (measured 1.1e-5 on rgb).
 """
 
 import jax
@@ -23,12 +30,17 @@ import pytest
 import torch
 
 from avatarcraft_tpu.models import instant_nsr as jnsr
+from avatarcraft_tpu.ops.hash_encoder import HashGridSpec as JaxHashGridSpec
 from avatarcraft_tpu_torch.models import instant_nsr as nsr
 from avatarcraft_tpu_torch.utils.checkpoint import params_from_jax
 from test_torch_render import SMALL_JAX_FCFG, _small_field
 
 FIELD_ATOL = 1e-5
 BOUND = 1.6
+HASH_KW = dict(num_levels=4, log2_hashmap_size=8, base_resolution=4, desired_resolution=32)
+HASH_JAX_FCFG = jnsr.FieldConfig(encoder="hashgrid", grid=JaxHashGridSpec(**HASH_KW))
+HASH_FCFG = nsr.FieldConfig(encoder="hashgrid", grid=nsr.HashGridSpec(**HASH_KW))
+HASH_ATOL = 3e-5
 
 
 def _t(a):
@@ -123,3 +135,50 @@ def test_render_rays_perturb_and_unported_options():
         nsr.render_rays(params, _t(ro), _t(rd), fcfg, nsr.RenderConfig(curvature_loss=True))
     with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
         nsr.render_rays(params, _t(ro), _t(rd), fcfg, rcfg, warp_fn=lambda pts: (pts, None, None))
+
+
+def hash_field(seed=0):
+    """A small hash-grid field with a surface: the JAX init of
+    HASH_JAX_FCFG, a N(0, 0.03) table, random first-layer weights over the
+    encoding and the SDF shifted by -1."""
+    jparams = jnsr.init_field_params(jax.random.PRNGKey(seed), HASH_JAX_FCFG)
+    rng = np.random.default_rng(seed)
+    jparams["table"] = rng.normal(size=jparams["table"].shape).astype(np.float32) * 0.03
+    v = rng.normal(size=jparams["sdf"][0]["v"].shape).astype(np.float32) * 0.3
+    jparams["sdf"][0] = {**jparams["sdf"][0], "v": v, "g": np.linalg.norm(v, axis=1)}
+    jparams["sdf"][-1]["b"] = np.asarray(jparams["sdf"][-1]["b"]).copy()
+    jparams["sdf"][-1]["b"][0] -= 1.0
+    jparams = jax.tree_util.tree_map(np.asarray, jparams)
+    return jparams, params_from_jax(jparams, device="cpu")
+
+
+@pytest.mark.parametrize("normal_mode", ["fd7", "fd4"])
+def test_render_rays_hashgrid_matches_jax(normal_mode):
+    jparams, params = hash_field()
+    jrcfg = jnsr.RenderConfig(num_steps=6, upsample_steps=6, upsample_round=3, perturb=False, normal_mode=normal_mode)
+    rcfg = nsr.RenderConfig(num_steps=6, upsample_steps=6, upsample_round=3, perturb=False, normal_mode=normal_mode)
+    ro, rd = _rays(32)
+    want = jax.jit(lambda a, b: jnsr.render_rays(jparams, a, b, jax.random.PRNGKey(7), HASH_JAX_FCFG, jrcfg, 1.0))(ro, rd)
+    got = nsr.render_rays(params, _t(ro), _t(rd), HASH_FCFG, rcfg, 1.0)
+    for k, atol in (("rgb", HASH_ATOL), ("depth", HASH_ATOL), ("weights", 5e-5), ("z_vals", 5e-5)):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=atol, rtol=0, err_msg=k)
+    np.testing.assert_allclose(float(got["gradient_error"]), float(want["gradient_error"]), rtol=1e-4)
+    assert float(got["weight_sum"].mean()) > 0.2  # a share of the rays cross the surface
+
+
+@pytest.mark.parametrize("bg", ["scalar", "array"])
+def test_render_rays_chunked_matches_jax(bg):
+    """20 rays in chunks of 8: the last chunk padded, gradient_error the
+    mean over the chunks, padding included, as in the JAX package."""
+    jparams, params = hash_field()
+    jrcfg = jnsr.RenderConfig(num_steps=6, upsample_steps=6, upsample_round=3, perturb=False)
+    rcfg = nsr.RenderConfig(num_steps=6, upsample_steps=6, upsample_round=3, perturb=False)
+    ro, rd = _rays(20)
+    bg_np = np.random.default_rng(3).random((20, 3)).astype(np.float32) if bg == "array" else 0.0
+    want = jax.jit(lambda a, b: jnsr.render_rays_chunked(
+        jparams, a, b, jax.random.PRNGKey(7), HASH_JAX_FCFG, jrcfg, bg_np, chunk=8))(ro, rd)
+    got = nsr.render_rays_chunked(params, _t(ro), _t(rd), HASH_FCFG, rcfg, _t(bg_np) if bg == "array" else 0.0, chunk=8)
+    for k in ("rgb", "depth", "weight_sum", "normal"):
+        assert got[k].shape == np.asarray(want[k]).shape, k
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=HASH_ATOL, rtol=0, err_msg=k)
+    np.testing.assert_allclose(float(got["gradient_error"]), float(want["gradient_error"]), rtol=1e-4)

@@ -115,12 +115,24 @@ def test_all_gather_table_grad_matches_dense(n):
     assert all(s.grad.shape == (T // n, F) for s in shards)
 
 
-def test_all_gather_table_under_no_grad_is_the_gather(rng):
+@pytest.mark.parametrize("encoder", ["tpu_pyramid", "hashgrid"])
+def test_all_gather_table_under_no_grad_is_the_gather(rng, encoder):
+    """The finest grid, or a hash-grid tree's table ([rows, C]), split into
+    4 shards, gathered and spliced back into the same tree."""
     table = torch.from_numpy(rng.normal(size=(16, 4)).astype(np.float32))
-    rest, shards, splice = shard_grid_rows({"grids": [table.reshape(2, 2, 4, 4)]}, 4)
+    if encoder == "hashgrid":
+        tree = {"table": table, "variance": table[0, 0]}
+    else:
+        tree = {"grids": [table.reshape(2, 2, 4, 4)]}
+    rest, shards, splice = shard_grid_rows(tree, 4)
     with torch.no_grad():
         full = ring.all_gather_table(shards)
     assert not full.requires_grad and torch.equal(full, table)
+    back = splice(rest, full)
+    if encoder == "hashgrid":
+        assert torch.equal(back["table"], table) and back["variance"] is tree["variance"]
+    else:
+        assert torch.equal(back["grids"][0], tree["grids"][0])
 
 
 @pytest.mark.parametrize("m", [2, 4, 8])
