@@ -4,7 +4,7 @@ JAX package's.
 
     python -m avatarcraft_tpu_torch.cli.stylize_cli \\
         --weights_path artifacts/canonical/bare_smpl_tpu.pth.tar \\
-        --guidance_type toy --tgt_text lava --i_mesh 100000 --max_steps 200
+        --guidance_type toy --tgt_text lava --max_steps 200
 
 ``--guidance_type toy`` reads the trained toy denoiser from ``--toy_weights``
 (config.json + params_torch.npz); ``diffusion`` with ``--sd_weights DIR``
@@ -14,13 +14,15 @@ text_encoder.pt and tokenizer/merges.txt (``models/sd.py::
 load_stable_diffusion_modules``); ``diffusion`` without ``--sd_weights``
 runs the deterministic stand-in guidance (a pipeline smoke run, no
 meaningful styles). Validation renders are PNGs, checkpoints ``.pth.tar``
-with their field-config sidecar. ``--use_cuda false`` runs on the CPU.
+with their field-config sidecar, and every ``--i_mesh`` steps a mesh
+``.ply`` of the style field at MESH_RESOLUTION^3 (the SDF lattice on the
+device, the native extractor on the host). ``--use_cuda false`` runs on
+the CPU.
 
 Refused before anything is written, each naming its ROADMAP item:
 ``--sampler parity`` (19), ``--implicit_model neus`` (20), a checkpoint
-whose encoder is not the pyramid (19), an ``--i_mesh`` the run would reach
-(mesh extraction, 21); ``--guidance_type clip`` is refused as the JAX
-package refuses it.
+whose encoder is not the pyramid (19); ``--guidance_type clip`` is refused
+as the JAX package refuses it.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from avatarcraft_tpu_torch.constants import (
     NSR_BOUND,
 )
 from avatarcraft_tpu_torch.models.diffusion import SDSGuidance, make_dummy_modules
-from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig, count_fast_samples
+from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig, count_fast_samples, extract_geometry
 from avatarcraft_tpu_torch.models.sd import load_stable_diffusion_modules
 from avatarcraft_tpu_torch.models.toy_guidance import STYLES, load_toy_guidance, make_toy_modules, style_index
 from avatarcraft_tpu_torch.ops.occupancy import init_density_grid
@@ -53,6 +55,7 @@ from avatarcraft_tpu_torch.utils.checkpoint import (
     map_leaves,
     save_params_with_config,
 )
+from avatarcraft_tpu_torch.utils.mesh_export import save_ply
 from avatarcraft_tpu_torch.utils.metrics import integerify_img
 from avatarcraft_tpu_torch.utils.png import write_png
 from avatarcraft_tpu_torch.workloads.reconstruct import make_grid_update_fn
@@ -62,6 +65,8 @@ from avatarcraft_tpu_torch.workloads.stylize import (
     StylizeTrainer,
     make_phaseA_render_fast,
 )
+
+MESH_RESOLUTION = 512  # the lattice of every --i_mesh export (the JAX CLI's constant)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -96,8 +101,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--lr", default=5e-3, type=float)
     parser.add_argument("--i_val", default=100, type=int)
     parser.add_argument("--i_save", default=1000, type=int)
-    parser.add_argument("--i_mesh", default=1000, type=int,
-                        help="mesh export period (the stylize CLI does not export meshes yet, ROADMAP item 21: a run must not reach it)")
+    parser.add_argument("--i_mesh", default=1000, type=int)
     parser.add_argument("--augment_bkg", default=True, type=options.str2bool)
     parser.add_argument("--augment_cam", default=True, type=options.str2bool)
     parser.add_argument("--augment_text", default=True, type=options.str2bool)
@@ -130,13 +134,7 @@ def views_per_epoch(cfg: StylizeConfig, epoch: int) -> int:
     return n_body + n_head
 
 
-def planned_steps(cfg: StylizeConfig, max_steps: int | None) -> int:
-    """The SDS steps a run takes: the schedule's views, cut at max_steps."""
-    total = sum(views_per_epoch(cfg, e) for e in range(cfg.coarse_epochs + cfg.fine_epochs))
-    return total if max_steps is None else min(total, max_steps)
-
-
-def refusal(opt, cfg: StylizeConfig) -> str | None:
+def refusal(opt) -> str | None:
     """Why this command line cannot run in the port yet (None if it can)."""
     if opt.sampler != "fast":
         return "--sampler parity: " + PARITY_REFUSAL
@@ -147,10 +145,6 @@ def refusal(opt, cfg: StylizeConfig) -> str | None:
     if opt.encoder == "hashgrid":
         return ("--encoder hashgrid: stylization with the hash grid is not held against the JAX package yet "
                 "(ROADMAP item 19); the port stylizes the pyramid encoder")
-    steps = planned_steps(cfg, opt.max_steps)
-    if opt.i_mesh > 0 and opt.i_mesh <= steps:
-        return (f"--i_mesh {opt.i_mesh}: this run of {steps} steps would export a mesh, which the port's stylize "
-                "CLI does not do yet (ROADMAP item 21); pass an --i_mesh above the step count")
     if opt.guidance_type == "toy" and style_index(opt.tgt_text) < 0:
         return f"--tgt_text must name a trained toy style ({', '.join(STYLES)})"
     if not opt.weights_path:
@@ -278,7 +272,7 @@ def setup(opt, grid_update_every: int | None = None):
 def main(argv=None) -> StylizeTrainer:
     """Run the CLI; returns the trainer after its last step."""
     opt = build_parser().parse_args(argv)
-    why = refusal(opt, stylize_config(opt))
+    why = refusal(opt)
     if why:
         raise SystemExit(why)
     trainer, fcfg = setup(opt)
@@ -329,6 +323,11 @@ def main(argv=None) -> StylizeTrainer:
             path = os.path.join(exp_dir, f"{opt.exp_name}_{step + 1:04d}.pth.tar")
             save_params_with_config(trainer.params(), path, fcfg)
             print(f"weights saved: {path}")
+        if (step + 1) % opt.i_mesh == 0:
+            verts, faces = extract_geometry(trainer.params(), fcfg, NSR_BOUND, MESH_RESOLUTION)
+            path = os.path.join(exp_dir, f"{opt.exp_name}_{step + 1:04d}.ply")
+            save_ply(verts, faces, path)
+            print(f"mesh saved: {path} ({len(verts)} vertices, {len(faces)} faces)")
 
     steps = trainer.train(max_steps=opt.max_steps, on_step=on_step)
     final = os.path.join(exp_dir, f"{opt.exp_name}_final.pth.tar")

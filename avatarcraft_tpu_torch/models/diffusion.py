@@ -187,6 +187,76 @@ class SDSGuidance:
             (grad_img,) = torch.autograd.grad(latents, img, grad_lat.to(latents.dtype))
         return grad_img
 
+    def sds_image_grad_batch(
+        self,
+        text_embeddings: torch.Tensor,
+        pred_rgb: torch.Tensor,
+        guidance_scale: float = 100.0,
+        pred_depth: torch.Tensor | None = None,
+        *,
+        generator: torch.Generator | None = None,
+        t_override=None,
+        noise_override=None,
+        scope: Callable[[str], contextlib.AbstractContextManager] | None = None,
+    ) -> torch.Tensor:
+        """``sds_image_grad`` of P images at once: d(SDS_p)/d(pred_rgb[p])
+        [P, 3, H, W] for pred_rgb [P, 3, H, W] and the P prompts' CFG pairs
+        ``text_embeddings`` [P, 2, L, D] (the JAX package's ``jax.vmap`` of
+        sds_image_grad over the prompts, workloads/multi_stylize.py:243-246).
+
+        One encode of the P resized images, one UNet call on 2P latents
+        ordered [uncond_1..uncond_P, cond_1..cond_P] with the timesteps
+        [t_1..t_P, t_1..t_P], one pullback. Each prompt has its own t and
+        noise: drawn from ``generator`` prompt by prompt, t_p then noise_p,
+        as P calls of sds_image_grad draw them in turn; ``t_override``
+        (P ints) and ``noise_override`` (P latent-shaped [1, C, h, w] or one
+        [P, C, h, w]) inject them. ``pred_depth`` [P, 1, H, W] conditions a
+        depth-conditioned UNet, each prompt's depth min-max normalised on
+        its own. ``scope`` as in sds_image_grad."""
+        scope = scope or (lambda part: contextlib.nullcontext())
+        dev = pred_rgb.device
+        P = pred_rgb.shape[0]
+        if text_embeddings.shape[:2] != (P, 2):
+            raise ValueError(f"{P} images need [P, 2, L, D] embeddings, got {tuple(text_embeddings.shape)}")
+        S = self.m.image_size
+        img = pred_rgb.detach().requires_grad_()
+        with scope("vae"), torch.enable_grad():
+            latents = self.m.vae_encode(resize_bilinear(img, S))
+
+        with scope("sds"), torch.no_grad():
+            ts, noises = [], []
+            for p in range(P):
+                if t_override is not None:
+                    ts.append(int(t_override[p]))
+                else:
+                    ts.append(int(torch.randint(self.schedule.min_step, self.schedule.max_step + 1, (1,),
+                                                generator=generator, device=dev)))
+                if noise_override is not None:
+                    noises.append(torch.as_tensor(noise_override[p], dtype=latents.dtype, device=dev)
+                                  .reshape(latents.shape[1:]))
+                else:
+                    noises.append(torch.randn(latents.shape[1:], generator=generator, dtype=latents.dtype,
+                                              device=dev))
+            noise = torch.stack(noises)
+            t = torch.tensor(ts, dtype=torch.long, device=dev)
+            a_t = self.alphas(dev)[t].reshape(P, 1, 1, 1)
+            latents_noisy = torch.sqrt(a_t) * latents.detach() + torch.sqrt(1.0 - a_t) * noise
+            lat2 = torch.cat([latents_noisy] * 2, dim=0)
+            if self.m.use_depth and pred_depth is not None:
+                d = resize_cubic(pred_depth.detach(), latents.shape[-2:])
+                lo = d.amin(dim=(1, 2, 3), keepdim=True)
+                hi = d.amax(dim=(1, 2, 3), keepdim=True)
+                d = 2.0 * (d - lo) / (hi - lo + 1e-12) - 1.0
+                lat2 = torch.cat([lat2, torch.cat([d] * 2, dim=0)], dim=1)
+            t2 = torch.cat([t, t]).to(torch.int32)
+            emb2 = torch.cat([text_embeddings[:, 0], text_embeddings[:, 1]], dim=0)
+            eps_uncond, eps_text = self.m.unet(lat2, t2, emb2).chunk(2, dim=0)
+            eps_hat = eps_uncond + guidance_scale * (eps_text - eps_uncond)
+            grad_lat = torch.clamp((1.0 - a_t) * (eps_hat - noise), -1.0, 1.0)
+        with scope("vae"), full_f32(dev):
+            (grad_img,) = torch.autograd.grad(latents, img, grad_lat.to(latents.dtype))
+        return grad_img
+
     # -- txt2img sampling ---------------------------------------------------
     def _cfg_eps(self, latents, t: int, text_embeddings, guidance_scale: float) -> torch.Tensor:
         """eps_uncond + scale (eps_text - eps_uncond) of one UNet call on

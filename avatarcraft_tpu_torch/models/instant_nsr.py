@@ -785,8 +785,8 @@ def extract_geometry(
     threshold: float = 0.0,
 ) -> tuple[np.ndarray, np.ndarray]:
     """(vertices [V,3] f32 in [-bound, bound], triangles [F,3] int32):
-    marching cubes over -SDF on the host, as the reference's mesh export
-    (the port's numpy copy of the JAX package's marching_cubes)."""
+    marching cubes over -SDF on the host (the native extractor), as the
+    reference's mesh export."""
     from avatarcraft_tpu_torch.utils.marching_cubes import marching_cubes
 
     u = -extract_sdf_grid(params, fcfg, bound, resolution)

@@ -359,11 +359,12 @@ def time_stylize_steps(trainer, epoch: int, n: int) -> list[float]:
     return out
 
 
-def profile_stylize_steps(trainer, epoch: int, n: int) -> dict:
+def profile_stylize_steps(trainer, epoch: int, n: int, prefix: str = "stylize") -> dict:
     """torch.profiler over n SDS steps: device ms per step of each
-    ``stylize.*`` range (the autograd engine's kernels go to the range open
+    ``<prefix>.*`` range (the autograd engine's kernels go to the range open
     when their op began, the reduce-scatter to phaseB, the all-gather to
-    gather), device busy, idle share, top kernels."""
+    gather), device busy, idle share, top kernels. ``prefix``: 'stylize'
+    for the single-prompt trainer, 'multi' for the multi-prompt one."""
     views = stylize_views(trainer, epoch, n)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -374,7 +375,7 @@ def profile_stylize_steps(trainer, epoch: int, n: int) -> dict:
         wall = time.perf_counter() - t1
     device_events = _device_events(prof)
     busy = busy_us(device_events)
-    phases = _phase_device_ms(prof, "stylize", STYLIZE_PHASES, "phaseB")
+    phases = _phase_device_ms(prof, prefix, STYLIZE_PHASES, "phaseB")
     # inside the ranges: the render stages' forward and Adam's step
     inner = {
         e.key: e.device_time_total / 1e3 / n

@@ -1,6 +1,7 @@
-"""Build the hand-written CUDA kernels of ``csrc/`` with nvcc and load them
-with ctypes (a plain C interface: no PyTorch headers, so a build takes
-seconds).
+"""Build the hand-written sources of ``csrc/`` and load them with ctypes (a
+plain C interface: no PyTorch headers, so a build takes seconds): each
+``.cu`` kernel with nvcc for sm_90a, each ``.cpp`` host library (the mesh
+extractor) with g++ as the JAX package's utils/native.py builds its copy.
 
 Libraries go to ``avatarcraft_tpu_torch/_build/`` (listed in .gitignore),
 named by a hash of their source, so an edited source is rebuilt and two
@@ -25,14 +26,21 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 NVCC_TIMEOUT_S = 300
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 
 def nvcc_path() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
+def gxx_path() -> str:
+    return shutil.which("g++") or "/usr/bin/g++"
+
+
 def source_path(name: str) -> str:
-    return os.path.join(CSRC_DIR, f"{name}.cu")
+    """csrc/<name>.cu, else the host source csrc/<name>.cpp."""
+    cu = os.path.join(CSRC_DIR, f"{name}.cu")
+    return cu if os.path.isfile(cu) else os.path.join(CSRC_DIR, f"{name}.cpp")
 
 
 def library_path(name: str) -> str:
@@ -45,10 +53,21 @@ def nvcc_command(name: str, out: str) -> list[str]:
     return [nvcc_path(), *NVCC_FLAGS, "-o", out, source_path(name)]
 
 
+def gxx_command(name: str, out: str) -> list[str]:
+    return [gxx_path(), *GXX_FLAGS, source_path(name), "-o", out]
+
+
+def build_command(name: str, out: str) -> list[str]:
+    """g++ for a .cpp source, nvcc for a .cu kernel."""
+    return gxx_command(name, out) if source_path(name).endswith(".cpp") else nvcc_command(name, out)
+
+
 def build(names) -> dict:
-    """Compile every named kernel that is not built yet, all nvcc processes
-    started together. Returns {name: seconds spent building (0.0 if it was
-    built already)}; raises with nvcc's output if a build fails."""
+    """Compile every named source that is not built yet, all compiler
+    processes started together, each into a temporary file renamed into
+    place (processes that build at once each rename a whole library).
+    Returns {name: seconds spent building (0.0 if it was built already)};
+    raises with the compiler's output if a build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     for name in names:
@@ -56,9 +75,10 @@ def build(names) -> dict:
         if os.path.isfile(lib):
             continue
         tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = nvcc_command(name, tmp)
+        cmd = build_command(name, tmp)
         if not os.path.isfile(cmd[0]):
-            raise RuntimeError(f"cannot build {name}: nvcc not found on PATH or at {cmd[0]}")
+            tool = os.path.basename(cmd[0])
+            raise RuntimeError(f"cannot build {name}: {tool} not found on PATH or at {cmd[0]}")
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT),
             tmp,
@@ -68,26 +88,28 @@ def build(names) -> dict:
     seconds = {name: 0.0 for name in names}
     failures = []
     for name, (proc, tmp, lib, t0) in procs.items():
+        tool = os.path.basename(proc.args[0])
         try:
             log, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
         except subprocess.TimeoutExpired:
             proc.kill()
-            log, _ = proc.communicate()
-            failures.append(f"{name}: nvcc timed out after {NVCC_TIMEOUT_S} s")
-            continue
-        seconds[name] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failures.append(f"{name}: nvcc exit {proc.returncode}\n{log.decode(errors='replace')}")
-            continue
-        os.replace(tmp, lib)
+            proc.communicate()
+            failures.append(f"{name}: {tool} timed out after {NVCC_TIMEOUT_S} s")
+        else:
+            seconds[name] = time.perf_counter() - t0
+            if proc.returncode == 0:
+                os.replace(tmp, lib)
+                continue
+            failures.append(f"{name}: {tool} exit {proc.returncode}\n{log.decode(errors='replace')}")
+        if os.path.exists(tmp):
+            os.remove(tmp)
     if failures:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+        raise RuntimeError("build failed:\n" + "\n".join(failures))
     return seconds
 
 
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
-    """The built kernel library (built first if needed), loaded once per
-    process."""
+    """The built library (built first if needed), loaded once per process."""
     build([name])
     return ctypes.CDLL(library_path(name))

@@ -1,6 +1,7 @@
-"""Iso-surface extraction from a dense scalar field (host-side, numpy): a
-copy of the JAX package's utils/marching_cubes.py without its route to the
-native extractor (utils/native.py, ROADMAP item 21).
+"""Iso-surface extraction from a dense scalar field on the host: a copy of
+the JAX package's utils/marching_cubes.py. ``marching_cubes`` takes the
+native extractor (utils/native.py, csrc/mesh_extract.cpp) by default; its
+numpy body is the plain version (``prefer_native=False``).
 
 The reference uses the external ``mcubes`` C extension
 (reference: models/instant_nsr.py:758). Here we provide a self-contained,
@@ -72,13 +73,22 @@ _TET_TRI_TABLE = {
 }
 
 
-def marching_cubes(field: np.ndarray, iso: float = 0.0) -> tuple[np.ndarray, np.ndarray]:
+def marching_cubes(field: np.ndarray, iso: float = 0.0, prefer_native: bool = True) -> tuple[np.ndarray, np.ndarray]:
     """Extract the iso-surface of ``field`` (shape [X, Y, Z]).
 
     Returns (vertices [V,3] in index coordinates, triangles [F,3] int32).
     Surface normals point toward the region where field > iso (matching
     ``mcubes.marching_cubes(-sdf, 0)`` conventions used by the reference).
+
+    ``prefer_native``: the multithreaded native extractor, which raises if
+    it does not build or load (no fallback); else this numpy body, the
+    semantic reference of both (the same geometry, vertices in another
+    order).
     """
+    if prefer_native:
+        from avatarcraft_tpu_torch.utils.native import native_marching_cubes
+
+        return native_marching_cubes(field, iso)
     f = np.asarray(field, np.float64)
     X, Y, Z = f.shape
     if min(X, Y, Z) < 2:

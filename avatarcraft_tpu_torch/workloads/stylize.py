@@ -186,6 +186,70 @@ def make_optimizer(lr: float, params) -> torch.optim.Adam:
     return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
+def epoch_poses(cfg: StylizeConfig, rng: np.random.Generator, epoch: int):
+    """(poses, descs) of an epoch of the coarse-to-fine schedule, drawn from
+    ``rng``."""
+    head_rate = cfg.coarse_head if epoch < cfg.coarse_epochs else cfg.fine_head
+    center, up = np.zeros(3), np.array([0.0, 1.0, 0.0])
+    return style_360_path(
+        center, up, CANONICAL_CAMERA_DIST_TRAIN, cfg.n_cap,
+        add_noise=cfg.augment_cam, noise_scale=2.0 if cfg.augment_cam else 1.0,
+        style_head=cfg.stylize_head, head_offset=CAN_HEAD_OFFSET,
+        head_rate=head_rate if cfg.stylize_head else 0.0,
+        head_dist=CAN_HEAD_CAMERA_DIST, rng=rng,
+    )
+
+
+def view_rays(cfg: StylizeConfig, rng: np.random.Generator, pose: np.ndarray, epoch: int, device):
+    """(rays_o [n,3], rays_d [n,3], th, tw): the view's rays at the stage's
+    stride from a random offset drawn from ``rng`` (coarse:
+    subsample_scale; fine: min(1, subsample_scale // 2), the JAX package's
+    expression, which is 1 for every subsample_scale >= 2)."""
+    stride = cfg.subsample_scale if epoch < cfg.coarse_epochs else min(1, cfg.subsample_scale // 2)
+    rays_o, rays_d = pose2rays(cfg.H, cfg.W, pose, device=device)
+    rays_o, rays_d = sparse_ray_sampling(rays_o.reshape(cfg.H, cfg.W, 3), rays_d.reshape(cfg.H, cfg.W, 3), stride,
+                                         rng)
+    th, tw = rays_o.shape[:2]
+    return rays_o.reshape(-1, 3), rays_d.reshape(-1, 3), th, tw
+
+
+def frozen_ground_truth(params_gt: dict, fcfg: FieldConfig, bound: float):
+    """(params, FieldFns) of the frozen ground-truth field, its table
+    gathered and its lookup tables packed once."""
+    with torch.no_grad():
+        rest, shards, splice = shard_grid_rows(params_gt)
+        params = splice(rest, all_gather_table(shards))
+        return params, network_field_fns(params, fcfg, bound, materialize_field_tables(params, fcfg))
+
+
+def gather_packed(rest: dict, shards, splice, fcfg: FieldConfig):
+    """(params, packed32, tables): a step's parameter tree with the table
+    gathered (through autograd), its lookup tables packed in f32 (through
+    autograd), and detached f32 copies of those tables that require grad,
+    for the patches to backpropagate into."""
+    params = splice(rest, all_gather_table(shards))
+    packed32 = materialize_field_tables(params, dataclasses.replace(fcfg, packed_dtype="float32"))
+    tables = map_leaves(packed32, lambda t: t.detach().requires_grad_())
+    return params, packed32, tables
+
+
+def backward_through_packing(packed32: dict, tables: dict) -> None:
+    """The tables' summed patch gradients through the packing's backward,
+    then all_gather_rows' (reduce_scatter_rows), into the leaves."""
+    grads = [t.grad if t.grad is not None else torch.zeros_like(t) for t in leaves(tables)]
+    torch.autograd.backward(leaves(packed32), grads)
+
+
+def worst_chunk_count(rays_o, rays_d, chunk: int, fast_cfg: FastRenderConfig, grids) -> int:
+    """The most probe-selected samples of any ``chunk``-ray slice of the
+    rays against any of ``grids`` (one read of the device)."""
+    n = rays_o.shape[0]
+    chunk = min(chunk, n)
+    counts = [count_fast_samples(rays_o[i : i + chunk], rays_d[i : i + chunk], fast_cfg, grid)
+              for grid in grids for i in range(0, n - chunk + 1, chunk)]
+    return int(torch.stack(counts).max())
+
+
 @dataclasses.dataclass
 class StylizeTrainer:
     """Orchestrates the per-view SDS update on the device of
@@ -222,13 +286,9 @@ class StylizeTrainer:
         self._phaseA = {}
         self._phaseB = self._make_phaseB()
         self._refresh_grid = make_grid_update_fn(self.fcfg, NSR_BOUND)
-        with torch.no_grad(), record_function("stylize.gather"):
-            # the frozen ground truth: gathered and packed once
-            rest_gt, shards_gt, splice_gt = shard_grid_rows(self.params_gt)
-            self.params_gt = splice_gt(rest_gt, all_gather_table(shards_gt))
-            field_gt = network_field_fns(self.params_gt, self.fcfg, self.fast_cfg.bound,
-                                         materialize_field_tables(self.params_gt, self.fcfg))
-        self.gt = (self.params_gt, field_gt)
+        with record_function("stylize.gather"):
+            self.gt = frozen_ground_truth(self.params_gt, self.fcfg, self.fast_cfg.bound)
+        self.params_gt = self.gt[0]
         if self.grid is None:
             self.grid = self._refresh_grid(self.params(), torch.zeros((129,) * 3, device=self.device))
         self._step_count = 0
@@ -246,16 +306,7 @@ class StylizeTrainer:
 
     # -- schedule -----------------------------------------------------------
     def epoch_poses(self, epoch: int):
-        c = self.cfg
-        head_rate = c.coarse_head if epoch < c.coarse_epochs else c.fine_head
-        center, up = np.zeros(3), np.array([0.0, 1.0, 0.0])
-        return style_360_path(
-            center, up, CANONICAL_CAMERA_DIST_TRAIN, c.n_cap,
-            add_noise=c.augment_cam, noise_scale=2.0 if c.augment_cam else 1.0,
-            style_head=c.stylize_head, head_offset=CAN_HEAD_OFFSET,
-            head_rate=head_rate if c.stylize_head else 0.0,
-            head_dist=CAN_HEAD_CAMERA_DIST, rng=self.rng,
-        )
+        return epoch_poses(self.cfg, self.rng, epoch)
 
     def text_embedding(self, prompt: str) -> torch.Tensor:
         if prompt not in self._text_cache:
@@ -263,29 +314,9 @@ class StylizeTrainer:
         return self._text_cache[prompt]
 
     def view_rays(self, pose: np.ndarray, epoch: int):
-        """(rays_o [n,3], rays_d [n,3], th, tw): the view's rays at the
-        stage's stride from a random offset (coarse: subsample_scale; fine:
-        min(1, subsample_scale // 2), the JAX package's expression, which is
-        1 for every subsample_scale >= 2)."""
-        c = self.cfg
-        stride = c.subsample_scale if epoch < c.coarse_epochs else min(1, c.subsample_scale // 2)
-        rays_o, rays_d = pose2rays(c.H, c.W, pose, device=self.device)
-        rays_o, rays_d = sparse_ray_sampling(rays_o.reshape(c.H, c.W, 3), rays_d.reshape(c.H, c.W, 3), stride,
-                                             self.rng)
-        th, tw = rays_o.shape[:2]
-        return rays_o.reshape(-1, 3), rays_d.reshape(-1, 3), th, tw
+        return view_rays(self.cfg, self.rng, pose, epoch, self.device)
 
     # -- one view = one optimizer step ---------------------------------------
-    def _gather_tables(self):
-        """(params, packed32, tables): the step's parameter tree with the
-        table gathered (through autograd), its lookup tables packed in f32
-        (through autograd), and detached f32 copies of those tables that
-        require grad, for the patches to backpropagate into."""
-        with record_function("stylize.gather"):  # all_gather_rows
-            params = self.splice(self.rest, all_gather_table(self.shards))
-            packed32 = materialize_field_tables(params, dataclasses.replace(self.fcfg, packed_dtype="float32"))
-            tables = map_leaves(packed32, lambda t: t.detach().requires_grad_())
-        return params, packed32, tables
 
     def train_view(self, pose: np.ndarray, desc: str, epoch: int) -> torch.Tensor:
         """One SDS step on one view; returns the summed phase-B loss
@@ -304,7 +335,8 @@ class StylizeTrainer:
         chunk = min(c.batch_size, n_rays)
 
         self.opt.zero_grad(set_to_none=True)
-        params, packed32, tables = self._gather_tables()
+        with record_function("stylize.gather"):  # all_gather_rows
+            params, packed32, tables = gather_packed(self.rest, self.shards, self.splice, self.fcfg)
         table_dtype = _DTYPES[self.fcfg.packed_dtype]
         with record_function("stylize.phaseA"):
             if chunk not in self._phaseA:
@@ -323,9 +355,7 @@ class StylizeTrainer:
             if chunk != c.batch_size:
                 raise ValueError(f"a {th}x{tw} frame is smaller than one {c.batch_size}-ray patch")
             loss = self._phaseB(params, tables, self.gt, rays_o, rays_d, g_rgb, bg, self.grid)
-            # the packing's backward, then all_gather_rows' (reduce_scatter_rows)
-            grads = [t.grad if t.grad is not None else torch.zeros_like(t) for t in leaves(tables)]
-            torch.autograd.backward(leaves(packed32), grads)
+            backward_through_packing(packed32, tables)
             self.opt.step()
         self._step_count += 1
         if c.grid_update_every and self._step_count % c.grid_update_every == 0:
@@ -347,15 +377,9 @@ class StylizeTrainer:
         samples (SDS inflates occupancy over training), turn compaction off
         rather than silently zero trailing rays (compaction drops in flat
         order)."""
-        c = self.cfg
         if not self.fast_cfg.sample_budget:
             return
-        n = rays_o.shape[0]
-        chunk = min(c.batch_size, n)
-        worst = max(
-            int(count_fast_samples(rays_o[i : i + chunk], rays_d[i : i + chunk], self.fast_cfg, self.grid))
-            for i in range(0, n - chunk + 1, chunk)
-        )
+        worst = worst_chunk_count(rays_o, rays_d, self.cfg.batch_size, self.fast_cfg, [self.grid])
         if worst > self.fast_cfg.sample_budget:
             print(
                 f"[stylize] CLIP GUARD: grid refresh at step {self._step_count} "

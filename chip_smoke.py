@@ -7,7 +7,9 @@ Phases, each printed with its start, end and wall seconds:
 
 1. device  -- fails unless torch sees a CUDA card; prints its name, the
               card count and nvidia-smi's name and power limit;
-2. build   -- nvcc builds every kernel of csrc/ into avatarcraft_tpu_torch/_build;
+2. build   -- nvcc builds every kernel of csrc/ and g++ the native mesh
+              extractor (csrc/mesh_extract.cpp), all started together,
+              into avatarcraft_tpu_torch/_build;
 3. kernel  -- all_gather_rows against its plain version (torch.cat) for
               1/2/4/8 shards of the 128^3 x 4 grid table in f32 and fp16,
               the 128-shard cap, 5 shards (spans across shard boundaries)
@@ -66,7 +68,10 @@ Phases, each printed with its start, end and wall seconds:
               artifact with the toy guidance, --sampler fast --guidance_type
               toy --tgt_text lava at its defaults (256x256, 4096-ray
               patches, the derived budget) for 6 coarse SDS steps, the last
-              with a validation render; the final checkpoint written, loaded
+              with a validation render and a 512^3 mesh export (--i_mesh 6:
+              the SDF lattice on the card, the native extractor on the
+              host, both timed; the .ply's counts checked against its
+              size); the final checkpoint written, loaded
               through load_params_with_config equal to the trainer's
               parameters and rendered through the canonical fast renderer;
               the style moved, everything finite; then a trainer with no
@@ -74,9 +79,9 @@ Phases, each printed with its start, end and wall seconds:
               antialiased 256 -> 64 resize), the grid refreshed, pruned and
               clip-guarded once at step 4. The table kernels: one gather and
               one reduce-scatter per SDS step, plus one gather each for the
-              ground truth at setup, the validation render, the final save
-              and the refresh. Prints SDS steps/s at coarse and fine, device
-              ms per stylize.* range and peak memory;
+              ground truth at setup, the validation render, the mesh
+              export, the final save and the refresh. Prints SDS steps/s at
+              coarse and fine, device ms per stylize.* range and peak memory;
 10. stylize_card_vs_cpu -- the toy UNet's eps on one input, card against
               CPU, within 1e-5; one SDS step of the artifact's coarse frame
               (64x64, one patch) with f32 tables from the same state on
@@ -89,7 +94,24 @@ Phases, each printed with its start, end and wall seconds:
               with the artifact's bf16 tables is printed, not held;
 11. analytic_card_vs_cpu -- a 32x32 frame with analytic normals, card
               against CPU, within 2e-3;
-12. sd_stylize -- Stable Diffusion 1.5 at its full width (UNet 320/640/
+12. multi_stylize -- the multi-prompt tool (tools.run_multi_stylize) at its
+              defaults on the committed artifact with the toy guidance:
+              lava, emerald and porcelain, 256x256, 4096-ray patches, 192
+              probes, K = 32, fd4, the derived budget, cut to --n_cap 4
+              --steps 4 --fine_steps 2 (4 coarse and 2 fine SDS steps);
+              every loss finite, the three fields pairwise different, each
+              final checkpoint loading as its field; the table kernels: P
+              gathers and P reduce-scatters per step, plus one gather for
+              the ground truth, P for the setup's grid refreshes and P for
+              the final save, counted exactly. Then 4 coarse and 2 fine
+              steps timed and one of each profiled on the tool's trainer:
+              SDS steps/s (x P prompts), device ms per multi.* range, idle
+              share, peak memory;
+13. multi_card_vs_cpu -- one multi-prompt step at P = 2 (the artifact's
+              coarse 64x64 frame, one patch, f32 tables), t and the noise
+              injected, stage by stage on the card and the CPU at
+              stylize_card_vs_cpu's bounds;
+14. sd_stylize -- Stable Diffusion 1.5 at its full width (UNet 320/640/
               1280/1280, 8 heads, context 768; VAE 128/256/512/512; CLIP-L
               49,408 x 768, 12 layers) from seeded random weights on the
               card behind the toy tokenizer, 512x512 into the VAE, driving
@@ -102,19 +124,22 @@ Phases, each printed with its start, end and wall seconds:
               gather and one reduce-scatter per step, counted exactly.
               Prints SDS steps/s, device ms per stylize.* range (gather,
               phaseA, vae, sds, phaseB), the idle share and peak memory
-              per stage;
-13. txt2img -- prompt_to_img at 512x512 with those SD 1.5 modules, 4 PNDM
+              per stage; then the guidance batched over P = 2 images
+              (sds_image_grad_batch: one UNet call of 4 latents) against
+              two single calls with the same t and noise, within 201 x
+              1e-5 x max|g|, both timed;
+15. txt2img -- prompt_to_img at 512x512 with those SD 1.5 modules, 4 PNDM
               steps and 4 DDIM steps: uint8 [1, 512, 512, 3]; prints ms
               per UNet call and per decode;
-14. sd_depth -- one coarse SDS step with SD 2.0-depth at its full width
+16. sd_depth -- one coarse SDS step with SD 2.0-depth at its full width
               (in_channels 5, context 1024, heads 5/10/20/20, CLIP 1024
               wide, 23 layers) and the frame's depth: the depth reaches the
               guidance, the gradient is finite and nonzero; one gather and
               one reduce-scatter;
-15. toy_ddpm -- 20 Adam steps of the toy guidance's DDPM trainer at the
+17. toy_ddpm -- 20 Adam steps of the toy guidance's DDPM trainer at the
               committed width, batch 32 of 64x64 palette targets: every
               loss finite; prints steps/s;
-16. sd_card_vs_cpu -- Stable Diffusion at a reduced width (UNet 64/128/
+18. sd_card_vs_cpu -- Stable Diffusion at a reduced width (UNet 64/128/
               256/256, VAE 32/64/128/128, CLIP 2 layers; 256x256 into the
               VAE), one set of random weights on the card and the CPU, t,
               the noise and the latents injected: CLIP's embeddings and the
@@ -124,7 +149,7 @@ Phases, each printed with its start, end and wall seconds:
               relative, its gradients within 1e-3 x each leaf's max|g| plus
               1e-5 x the largest. Every error is printed before any is
               held.
-17. reconstruct -- a dataset in smpl_da_512's layout written to a temporary
+19. reconstruct -- a dataset in smpl_da_512's layout written to a temporary
               directory: 100 views at 512x512 at the training distance,
               rendered from the artifact on a black background; the
               reconstruct CLI (cli.reconstruct_cli.main) at its defaults with
@@ -142,7 +167,10 @@ Phases, each printed with its start, end and wall seconds:
               included, 1e-2 x its max|g|); the parity step's device ms per
               train.* range (profile_train.parity_main); steps/s, rays/s and
               peak memory; the mesh export at the CLI's default 512^3 timed
-              once on the artifact's field (SDF lattice, marching cubes).
+              once on the artifact's field (SDF lattice, native marching
+              cubes), and at 128^3 the native extractor held against the
+              numpy plain version (the same triangle count, the sorted
+              vertices within 1e-4), both timed.
 
 Before the last line it prints one JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -173,6 +201,7 @@ from avatarcraft_tpu_torch.data import SMPLMultiviewDataset
 from avatarcraft_tpu_torch.models import sd
 from avatarcraft_tpu_torch.models.clip_tokenizer import make_toy_tokenizer
 from avatarcraft_tpu_torch.models.diffusion import SDSGuidance
+from avatarcraft_tpu_torch.models import instant_nsr
 from avatarcraft_tpu_torch.models.instant_nsr import (
     FastRenderConfig,
     RenderConfig,
@@ -192,8 +221,8 @@ from avatarcraft_tpu_torch.models.toy_guidance import (
 from avatarcraft_tpu_torch.parallel import ring
 from avatarcraft_tpu_torch.parallel.table_mp import TableMPTrainStep, trainable_shards
 from avatarcraft_tpu_torch.utils.checkpoint import leaves, load_params_with_config, map_leaves
-from avatarcraft_tpu_torch.utils import cuda_build, style_delta
-from avatarcraft_tpu_torch.utils.marching_cubes import marching_cubes
+from avatarcraft_tpu_torch.tools import run_multi_stylize
+from avatarcraft_tpu_torch.utils import cuda_build, marching_cubes as mc, native, style_delta
 from avatarcraft_tpu_torch.utils.metrics import integerify_img
 from avatarcraft_tpu_torch.utils.png import write_png
 from avatarcraft_tpu_torch.utils.device import card_line
@@ -201,6 +230,7 @@ from avatarcraft_tpu_torch.utils.timing import cold_device_ms, cuda_ms, cuda_ms_
 from avatarcraft_tpu_torch.warp import WarpData
 from avatarcraft_tpu_torch.workloads import reconstruct
 from avatarcraft_tpu_torch.workloads.canonical_render import make_fast_frame_renderer
+from avatarcraft_tpu_torch.workloads.multi_stylize import MultiPromptTrainer, stack_params
 from avatarcraft_tpu_torch.workloads.stylize import StylizeConfig, StylizeTrainer
 from avatarcraft_tpu_torch.workloads.warp_render import (
     WarpRenderSettings,
@@ -240,6 +270,13 @@ STYLIZE_TIMED = 8  # further coarse steps timed on the CLI's trainer
 EPS_ATOL = 1e-5
 SDS_ATOL = 2 * 201 * EPS_ATOL
 SDS_T = 500  # the injected timestep of the card-vs-CPU SDS step
+# multi_stylize: run_multi_stylize at its defaults cut to 4 coarse and 2 fine
+# SDS steps (n_cap 4: 4 body views an epoch, coarse_epochs = 1, the fine
+# epoch cut at 2), then steps timed on its trainer (coarse, fine)
+MULTI_COARSE_STEPS, MULTI_FINE_STEPS = 4, 2
+MULTI_ARGV = ["--n_cap", "4", "--steps", str(MULTI_COARSE_STEPS), "--fine_steps", str(MULTI_FINE_STEPS)]
+MULTI_TIMED = (4, 2)
+MULTI_T = [SDS_T, 233]  # the injected timesteps of the card-vs-CPU multi step
 # Stable Diffusion at full width: the trainer's coarse and fine steps, in
 # each stage a warm-up, timed ones and a profiled one
 SD_COARSE_STEPS, SD_FINE_STEPS = 4, 3
@@ -262,6 +299,10 @@ SD_EPS_REL = 1e-5
 # before the clamp; at 7.5 into up to 16 e, which PNDM's coefficients (at
 # most about 1 here) carry into the latents
 SD_SDS_REL = 201 * SD_EPS_REL
+# the guidance batched over 2 prompts against 2 single calls, relative to
+# max|g|: the UNet's and the VAE's f32 sums in other orders where cuDNN picks
+# other algorithms for the larger batch, the same 201 x eps bound
+SD_BATCH_REL = SD_SDS_REL
 SD_PNDM_REL = (2 * 7.5 + 1) * SD_EPS_REL
 # a toy DDPM step, card against CPU: the loss, and each gradient leaf
 # against its own max|g| plus a floor for leaves whose gradient is zero but
@@ -324,7 +365,9 @@ def check_device() -> dict:
 
 
 def build_kernels() -> None:
-    seconds = cuda_build.build(list(KERNELS))
+    """nvcc builds the kernels and g++ the native mesh extractor, all
+    started together."""
+    seconds = cuda_build.build(list(KERNELS) + [native.LIB])
     for name, s in seconds.items():
         print(f"built {name} in {s:.2f} s -> {cuda_build.library_path(name)}", flush=True)
 
@@ -761,29 +804,74 @@ def _mlp_leaves(tree) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _timed_export(record: dict):
+    """Adds to ``record`` the host seconds of each SDF lattice (on the card,
+    ending in its copy to the host) and each marching-cubes call that
+    ``extract_geometry`` makes while the context is open."""
+    lattice, extract = instant_nsr.extract_sdf_grid, mc.marching_cubes
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            record.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+        return call
+
+    instant_nsr.extract_sdf_grid, mc.marching_cubes = timed("lattice_s", lattice), timed("extractor_s", extract)
+    try:
+        yield record
+    finally:
+        instant_nsr.extract_sdf_grid, mc.marching_cubes = lattice, extract
+
+
+def _ply_counts(path: str) -> tuple[int, int]:
+    """(vertices, faces) of a binary PLY written by save_ply, its size
+    checked against them."""
+    with open(path, "rb") as fp:
+        data = fp.read()
+    head = data[: data.index(b"end_header\n") + len(b"end_header\n")]
+    text = head.decode("ascii")
+    nv = int(text.split("element vertex ")[1].split()[0])
+    nf = int(text.split("element face ")[1].split()[0])
+    if len(data) != len(head) + 12 * nv + 13 * nf:
+        raise AssertionError(f"{path}: {len(data)} bytes for {nv} vertices and {nf} faces")
+    return nv, nf
+
+
 def check_stylize() -> dict:
-    """The stylize CLI for STYLIZE_COARSE_STEPS coarse steps, then a fine
-    trainer for STYLIZE_FINE_STEPS steps; returns the table kernels'
-    launches of the two runs (each counted from zero)."""
+    """The stylize CLI for STYLIZE_COARSE_STEPS coarse steps (the last
+    exports a MESH_RESOLUTION^3 mesh), then a fine trainer for
+    STYLIZE_FINE_STEPS steps; returns the table kernels' launches of the
+    two runs (each counted from zero)."""
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_stylize_")
     try:
         n = STYLIZE_COARSE_STEPS
         _reset_launches()
-        trainer = stylize_cli.main(profile_train.STYLIZE_ARGV + [
-            "--max_steps", str(n), "--i_val", str(n), "--i_save", "1000000", "--out_dir", out_dir,
-            "--exp_name", "lava",
-        ])
+        with _timed_export({}) as export:
+            trainer = stylize_cli.main(profile_train.STYLIZE_ARGV + [
+                "--max_steps", str(n), "--i_val", str(n), "--i_save", "1000000", "--i_mesh", str(n),
+                "--out_dir", out_dir, "--exp_name", "lava",
+            ])
         torch.cuda.synchronize()
         cli = _read_launches("stylize (CLI)", [ring.KERNEL, ring.RS_KERNEL])
         # a gather and a reduce-scatter per step; a gather each for the
-        # ground truth, the validation render and the final save
-        _expect_launches("stylize (CLI)", cli, {ring.KERNEL: n + 3, ring.RS_KERNEL: n})
+        # ground truth, the validation render, the mesh export and the final save
+        _expect_launches("stylize (CLI)", cli, {ring.KERNEL: n + 4, ring.RS_KERNEL: n})
         exp_dir = os.path.join(out_dir, "lava")
         files = sorted(os.listdir(exp_dir))
         print(f"stylize CLI wrote {files}; budget {trainer.fast_cfg.sample_budget}, normal mode "
               f"{trainer.fast_cfg.normal_mode}", flush=True)
-        if f"lava_{n:04d}_body.png" not in files or "lava_final.pth.tar" not in files:
+        if (f"lava_{n:04d}_body.png" not in files or "lava_final.pth.tar" not in files
+                or f"lava_{n:04d}.ply" not in files):
             raise AssertionError(f"stylize CLI outputs: {files}")
+        nv, nf = _ply_counts(os.path.join(exp_dir, f"lava_{n:04d}.ply"))
+        if not (len(export.get("lattice_s", [])) == len(export.get("extractor_s", [])) == 1 and nf > 0):
+            raise AssertionError(f"stylize mesh export: {export}, {nv} vertices, {nf} faces")
+        print(f"stylize mesh export at {stylize_cli.MESH_RESOLUTION}^3 (step {n}): SDF lattice "
+              f"{export['lattice_s'][0]:.3f} s, native extractor {export['extractor_s'][0]:.3f} s, {nv} vertices, "
+              f"{nf} faces ({card_line()})", flush=True)
 
         base, fcfg, _, fast = bench.load_artifact("cuda")
         params = trainer.params()
@@ -955,6 +1043,208 @@ def check_analytic_card_vs_cpu() -> None:
     print(f"32x32 analytic frame, card vs CPU: max abs diff {err:.3g} (atol {CARD_VS_CPU_ATOL})", flush=True)
     if not (torch.isfinite(frames["cuda"]).all() and err <= CARD_VS_CPU_ATOL and (frames["cuda"] < 0.99).any()):
         raise AssertionError(f"analytic frames: card and CPU differ by {err}, or the frame is empty")
+
+
+def _record_steps(record: list):
+    """Wrap MultiPromptTrainer.train_view to append, for each step, its
+    epoch, host seconds (ending in a synchronize) and the P losses; returns
+    the original to restore."""
+    real = MultiPromptTrainer.train_view
+
+    def recorded(self, pose, desc, epoch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = real(self, pose, desc, epoch)
+        torch.cuda.synchronize()
+        record.append((epoch, time.perf_counter() - t0, losses.cpu()))
+        return losses
+
+    MultiPromptTrainer.train_view = recorded
+    return real
+
+
+def check_multi_stylize() -> dict:
+    """The port's run_multi_stylize at its defaults (lava, emerald,
+    porcelain; 256x256, 4096-ray patches, 192 probes, K = 32, fd4, the
+    derived budget) with the toy guidance on the committed artifact, cut to
+    MULTI_ARGV: 4 coarse and 2 fine SDS steps. Every loss finite, the three
+    fields pairwise different, each final checkpoint loading as the
+    trainer's field; the table kernels: P gathers and P reduce-scatters per
+    step, plus the ground truth's gather, P for the setup's grid refreshes
+    and P for the final save. Then steps timed and one coarse and one fine
+    step profiled on the same trainer. Returns the launches of the tool's
+    run."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_multi_")
+    record = []
+    real = _record_steps(record)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        trainer = run_multi_stylize.main(["--weights_path", bench.ARTIFACT_CKPT, "--toy_weights", TOY_DIR,
+                                          "--out", out_dir] + MULTI_ARGV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tool = list(record)
+        launches = _read_launches("multi_stylize", [ring.KERNEL, ring.RS_KERNEL])
+        P, steps = trainer.P, MULTI_COARSE_STEPS + MULTI_FINE_STEPS
+        _expect_launches("multi_stylize", launches, {ring.KERNEL: P * steps + 1 + 2 * P, ring.RS_KERNEL: P * steps})
+        epochs = [e for e, _, _ in tool]
+        if epochs != [0] * MULTI_COARSE_STEPS + [1] * MULTI_FINE_STEPS:
+            raise AssertionError(f"multi_stylize: the steps ran in epochs {epochs}")
+        losses = torch.stack([l for _, _, l in tool])
+        if losses.shape != (steps, P) or not torch.isfinite(losses).all():
+            raise AssertionError(f"multi_stylize: losses {losses}")
+        fields = trainer.params_list()
+        for i in range(P):
+            loaded, _ = load_params_with_config(os.path.join(out_dir, f"multi_{trainer.prompts[i]}_final.pth.tar"),
+                                                "cuda")
+            if not all(torch.equal(a, b) for a, b in zip(leaves(loaded), leaves(fields[i]))):
+                raise AssertionError(f"multi_stylize: the {trainer.prompts[i]} checkpoint does not load as its field")
+            if not all(torch.isfinite(t).all() for t in leaves(fields[i])):
+                raise AssertionError(f"multi_stylize: non-finite {trainer.prompts[i]} field")
+            for j in range(i):
+                d = max(float((a - b).abs().max()) for a, b in zip(leaves(_mlp_leaves(fields[i])),
+                                                                     leaves(_mlp_leaves(fields[j]))))
+                if not d > 0:
+                    raise AssertionError(f"multi_stylize: {trainer.prompts[i]} and {trainer.prompts[j]} did not diverge")
+        del fields, loaded
+        run_peak = torch.cuda.max_memory_allocated() / 2**30
+        coarse_s = profile_train.time_stylize_steps(trainer, 0, MULTI_TIMED[0])
+        fine_s = profile_train.time_stylize_steps(trainer, trainer.cfg.coarse_epochs, MULTI_TIMED[1])
+        coarse_prof = profile_train.profile_stylize_steps(trainer, 0, 1, prefix="multi")
+        fine_prof = profile_train.profile_stylize_steps(trainer, trainer.cfg.coarse_epochs, 1, prefix="multi")
+        # the tool's own steps after each stage's first (a warm-up) and the timed ones
+        coarse = [t for _, t, _ in tool[1:MULTI_COARSE_STEPS]] + coarse_s
+        fine = [t for _, t, _ in tool[MULTI_COARSE_STEPS + 1:]] + fine_s
+        summary = {
+            "card": card_line(),
+            "prompts": trainer.prompts,
+            "sample_budget": trainer.fast_cfg.sample_budget,
+            "tool_wall_s": wall,
+            "tool_step_ms": [1e3 * t for _, t, _ in tool],
+            "coarse_steps_per_sec": len(coarse) / sum(coarse),
+            "coarse_step_ms": [1e3 * t for t in coarse],
+            "fine_steps_per_sec": len(fine) / sum(fine),
+            "fine_step_ms": [1e3 * t for t in fine],
+            "tool_peak_mem_gib": run_peak,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "coarse_profile": coarse_prof,
+            "fine_profile": fine_prof,
+        }
+        print("multi_stylize: " + json.dumps(summary), flush=True)
+        for stage, prof in (("coarse", coarse_prof), ("fine", fine_prof)):
+            ranges = ", ".join(f"{k} {v:.2f}" for k, v in prof["range_device_ms_per_step"].items())
+            print(f"multi_stylize {stage}: {summary[stage + '_steps_per_sec']:.3f} SDS steps/s x {P} prompts; "
+                  f"device ms per step: {ranges}; idle share {prof['device_idle_share']:.3f}", flush=True)
+        print(f"multi_stylize: peak {summary['peak_mem_gib']:.2f} GiB ({card_line()})", flush=True)
+        return launches
+    finally:
+        MultiPromptTrainer.train_view = real
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _multi_step_record(device: str, noise: torch.Tensor, cpu: dict | None = None) -> dict:
+    """One coarse multi-prompt step of the artifact at P = 2 (64x64 frame,
+    one patch, white background, f32 tables) on ``device``, t = MULTI_T and
+    ``noise`` injected; with ``cpu`` (the CPU's record) the card's SDS
+    gradients are also computed on the CPU's images, and phase B runs on
+    the CPU's gradients."""
+    params, fcfg, grid, fast = bench.load_artifact(device)
+    fcfg = dataclasses.replace(fcfg, packed_dtype="float32")
+    toy, tcfg, embs = load_toy_guidance(TOY_DIR, device)
+    guide = SDSGuidance(make_toy_modules(toy, tcfg, embs))
+    cfg = StylizeConfig(augment_bkg=False, coarse_epochs=1, fine_epochs=0, grid_update_every=0)
+    trainer = MultiPromptTrainer(cfg, fcfg, guide, ["lava", "emerald"], stack_params([params, params]), params,
+                                 grids=torch.stack([grid, grid]), fast_cfg=fast)
+    rec = {}
+    sds = guide.sds_image_grad_batch
+
+    def injected(embs, imgs, gs, pred_depth=None, **kw):
+        rec["img"] = imgs.cpu()
+        g = sds(embs, imgs, gs, t_override=MULTI_T, noise_override=noise.to(device))
+        rec["g"] = g.cpu()
+        if cpu is None:
+            return g
+        rec["g_same_img"] = sds(embs, cpu["img"].to(device), gs, t_override=MULTI_T,
+                                noise_override=noise.to(device)).cpu()
+        return cpu["g"].to(device)
+
+    guide.sds_image_grad_batch = injected
+    poses, descs = trainer.epoch_poses(0)
+    i = int(trainer.rng.permutation(len(poses))[0])
+    rec["loss"] = trainer.train_view(poses[i], descs[i], 0).cpu()
+    rec["grad"], rec["params"] = {}, {}
+    for p, (rest, _, _) in enumerate(trainer.fields):
+        for k, t in _mlp_leaves(rest).items():
+            rec["grad"][(p, k)] = trainer.opt.state[t]["exp_avg"].cpu() / 0.1
+            rec["params"][(p, k)] = t.detach().cpu()
+    return rec
+
+
+def check_multi_card_vs_cpu() -> None:
+    """One multi-prompt step at P = 2 stage by stage, each stage from the
+    same inputs on the card and the CPU, at stylize_card_vs_cpu's bounds:
+    phase A within 2e-3, the SDS gradients of one set of images within
+    4.02e-3, the losses within 1e-4 relative, the MLP and variance
+    gradients within 1e-2 x max|g|, the updated MLP parameters within 1e-6
+    where |g| > 1e-2 max|g| and 2 lr elsewhere."""
+    noise = torch.randn((2, 3, 64, 64), generator=torch.Generator().manual_seed(1))
+    cpu = _multi_step_record("cpu", noise)
+    card = _multi_step_record("cuda", noise, cpu)
+    img_err = float((card["img"] - cpu["img"]).abs().max())
+    sds_err = float((card["g_same_img"] - cpu["g"]).abs().max())
+    loss_rel = float(((card["loss"] - cpu["loss"]).abs() / cpu["loss"].abs()).max())
+    grad_rel = max(float((card["grad"][k] - g).abs().max() / g.abs().max()) for k, g in cpu["grad"].items())
+    lr = StylizeConfig().lr
+    big_err, any_err = 0.0, 0.0
+    for k, g in cpu["grad"].items():
+        d = (card["params"][k] - cpu["params"][k]).abs()
+        big = g.abs() > 1e-2 * g.abs().max()
+        big_err = max(big_err, float(d[big].max()) if big.any() else 0.0)
+        any_err = max(any_err, float(d.max()))
+    print(f"multi card vs CPU, P = 2, f32 tables: phase A 64x64 {img_err:.3g} (atol {CARD_VS_CPU_ATOL}); SDS "
+          f"gradients of one set of images {sds_err:.3g} (atol {SDS_ATOL:.3g}), max |g| "
+          f"{float(cpu['g'].abs().max()):.3g}; losses {card['loss'].tolist()} / {cpu['loss'].tolist()} (rel "
+          f"{loss_rel:.3g}, rtol {TRAIN_LOSS_RTOL}); MLP gradients {grad_rel:.3g} x max|g| (tolerance "
+          f"{TRAIN_GRAD_REL}); updated MLP parameters {big_err:.3g} where |g| > 1e-2 max|g| (atol 1e-6), "
+          f"{any_err:.3g} elsewhere (atol {2 * lr})", flush=True)
+    if not (img_err <= CARD_VS_CPU_ATOL and sds_err <= SDS_ATOL):
+        raise AssertionError("multi card vs CPU: the guidance or phase A differ")
+    if not (torch.isfinite(card["loss"]).all() and loss_rel <= TRAIN_LOSS_RTOL and grad_rel <= TRAIN_GRAD_REL):
+        raise AssertionError("multi card vs CPU: phase B differs")
+    if not (big_err <= 1e-6 and any_err <= 2 * lr):
+        raise AssertionError("multi card vs CPU: the Adam step differs")
+
+
+def check_sd_batched_guidance(guidance: SDSGuidance) -> None:
+    """SD 1.5's SDS gradients of P = 2 images (the coarse 64x64 frame's
+    size, resized to 512) in one batched call against two single calls,
+    the same t and noise injected: within SD_BATCH_REL x max|g| (TF32 off;
+    cuDNN may pick other algorithms for a batch of 4 than for 2); the
+    batched call's ms beside the two single calls' (CUDA events)."""
+    gen = torch.Generator("cuda").manual_seed(2)
+    imgs = torch.rand((2, 3, 64, 64), generator=gen, device="cuda")
+    S = guidance.m.image_size // guidance.m.latent_scale
+    noise = torch.randn((2, guidance.m.latent_channels, S, S), generator=gen, device="cuda")
+    embs = torch.stack([guidance.get_text_embeds([p]) for p in ("lava", "emerald")])
+    t = [SDS_T, 37]
+
+    def batched():
+        return guidance.sds_image_grad_batch(embs, imgs, 100.0, t_override=t, noise_override=noise)
+
+    def singles():
+        return torch.cat([guidance.sds_image_grad(embs[p], imgs[p : p + 1], 100.0, t_override=t[p],
+                                                  noise_override=noise[p : p + 1]) for p in range(2)])
+
+    got, want = batched(), singles()
+    rel = float((got - want).abs().max() / want.abs().max())
+    batched_ms, singles_ms = cuda_ms(batched, iters=3, warmup=1), cuda_ms(singles, iters=3, warmup=1)
+    print(f"sd batched guidance, P = 2: {rel:.3g} x max|g| from two single calls (bound {SD_BATCH_REL:.3g}); "
+          f"max |g| {float(want.abs().max()):.3g}; batched call {batched_ms:.2f} ms, two single calls "
+          f"{singles_ms:.2f} ms ({card_line()})", flush=True)
+    if not (torch.isfinite(got).all() and rel <= SD_BATCH_REL):
+        raise AssertionError(f"sd batched guidance differs from single calls by {rel} x max|g|")
 
 
 def _record_sds(guidance: SDSGuidance, seen: list) -> None:
@@ -1334,20 +1624,42 @@ def check_hash_card_vs_cpu(ckpt: str, ds) -> None:
         raise AssertionError(f"hash-grid parity step: gradients differ: {errs}")
 
 
+def _sorted_vertices(v: np.ndarray) -> np.ndarray:
+    v = np.asarray(v, np.float64)
+    return v[np.lexsort(v.T[::-1])]
+
+
 def time_mesh_export() -> None:
     """The CLI's mesh export at its default 512^3 (``extract_geometry``),
     timed once on the artifact's field, which has a surface: the SDF
-    lattice on the card, then the numpy marching cubes on the host."""
+    lattice on the card, then the native extractor on the host. At 128^3
+    the native extractor is held against the numpy plain version on the
+    artifact's lattice: the same triangle count, the same vertices after
+    sorting within 1e-4 (the two emit them in other orders); both timed."""
     params, fcfg, _, _ = bench.load_artifact("cuda")
     t0 = time.perf_counter()
     sdf = extract_sdf_grid(params, fcfg, NSR_BOUND, RECON_MESH_EXPORT_RES)
     t1 = time.perf_counter()
-    verts, faces = marching_cubes(-sdf, 0.0)
+    verts, faces = mc.marching_cubes(-sdf, 0.0)
     t2 = time.perf_counter()
     print(f"mesh export at {RECON_MESH_EXPORT_RES}^3 of the artifact's field: SDF lattice {t1 - t0:.2f} s, "
-          f"marching cubes {t2 - t1:.2f} s, {len(verts)} vertices, {len(faces)} faces", flush=True)
+          f"native marching cubes {t2 - t1:.3f} s ({os.cpu_count()} host cores), {len(verts)} vertices, "
+          f"{len(faces)} faces ({card_line()})", flush=True)
     if not len(faces):
         raise AssertionError("mesh export: no surface in the artifact's field")
+    u = -extract_sdf_grid(params, fcfg, NSR_BOUND, RECON_MESH_RES)
+    t0 = time.perf_counter()
+    nv, nt = mc.marching_cubes(u, 0.0)
+    t1 = time.perf_counter()
+    pv, pt = mc.marching_cubes(u, 0.0, prefer_native=False)
+    t2 = time.perf_counter()
+    err = (float(np.abs(_sorted_vertices(nv) - _sorted_vertices(pv)).max())
+           if len(nv) == len(pv) and len(nv) else float("inf"))
+    print(f"marching cubes at {RECON_MESH_RES}^3, native against numpy: {len(nt)} / {len(pt)} triangles, "
+          f"{len(nv)} / {len(pv)} vertices, sorted vertices within {err:.3g} (atol 1e-4); native "
+          f"{t1 - t0:.4f} s, numpy {t2 - t1:.3f} s", flush=True)
+    if not (len(nt) == len(pt) > 0 and err <= 1e-4):
+        raise AssertionError("marching cubes: the native extractor and the numpy version differ")
 
 
 def check_reconstruct() -> dict:
@@ -1469,8 +1781,13 @@ def main() -> int:
             check_stylize_card_vs_cpu()
         with Phase("analytic_card_vs_cpu"):
             check_analytic_card_vs_cpu()
+        with Phase("multi_stylize"):
+            paths["multi_stylize"] = check_multi_stylize()
+        with Phase("multi_card_vs_cpu"):
+            check_multi_card_vs_cpu()
         with Phase("sd_stylize"):
             paths["sd_stylize"], sd15 = check_sd_stylize()
+            check_sd_batched_guidance(sd15)
         with Phase("txt2img"):
             check_txt2img(sd15)
         del sd15

@@ -67,6 +67,12 @@ RECON_MODULES = (
     "avatarcraft_tpu_torch.utils.mesh_export",
     "avatarcraft_tpu_torch.utils.metrics",
 )
+# modules of the multi-prompt slice and the native mesh extractor
+MULTI_MODULES = (
+    "avatarcraft_tpu_torch.workloads.multi_stylize",
+    "avatarcraft_tpu_torch.tools.run_multi_stylize",
+    "avatarcraft_tpu_torch.utils.native",
+)
 
 
 def _env_without_repo():
@@ -85,7 +91,8 @@ import avatarcraft_tpu_torch
 for m in pkgutil.walk_packages(avatarcraft_tpu_torch.__path__, "avatarcraft_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-missing = [m for m in {TRAIN_MODULES + WARP_MODULES + STYLIZE_MODULES + SD_MODULES + RECON_MODULES!r} if m not in sys.modules]
+missing = [m for m in {TRAIN_MODULES + WARP_MODULES + STYLIZE_MODULES + SD_MODULES + RECON_MODULES + MULTI_MODULES!r}
+           if m not in sys.modules]
 print("imports ok" if not missing else f"not imported: {{missing}}")
 """
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
@@ -264,6 +271,17 @@ def test_reconstruct_entry_points_default_to_cuda():
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
     opt = reconstruct_cli.build_parser().parse_args([])
     assert opt.use_cuda is True and opt.sampler == "parity" and opt.batch_size == 1600
+
+
+def test_multi_stylize_defaults_to_cuda():
+    """The multi-prompt tool runs on the card unless --use_cuda false, and
+    refuses to start without one."""
+    from avatarcraft_tpu_torch.tools import run_multi_stylize
+
+    assert run_multi_stylize.build_parser().parse_args([]).use_cuda is True
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA card"):
+            run_multi_stylize.main([])
 
 
 def test_bench_refuses_cpu():

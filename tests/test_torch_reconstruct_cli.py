@@ -21,7 +21,9 @@ Tolerances:
   relative (tests/test_torch_train.py's 40-step bound), grids within the
   refresh bound 512^2/4 x 1e-6 of tests/test_torch_train.py;
 * the SDF lattice of extract_geometry: 1e-5 absolute (f32 MLP sums in
-  another order); the mesh, from one lattice, exactly; the PLY bytes
+  another order); the mesh, from one lattice, exactly as the JAX package's
+  native extractor gives it (both take the native route), and the same
+  triangle count and vertex set as the numpy plain version; the PLY bytes
   exactly.
 """
 
@@ -38,6 +40,7 @@ from avatarcraft_tpu.models import instant_nsr as jnsr
 from avatarcraft_tpu.ops.grid_encoder import PyramidSpec as JaxPyramidSpec
 from avatarcraft_tpu.ops.hash_encoder import HashGridSpec as JaxHashGridSpec
 from avatarcraft_tpu.utils import marching_cubes as jmc
+from avatarcraft_tpu.utils import native as jnative
 from avatarcraft_tpu.utils import mesh_export as jmesh
 from avatarcraft_tpu.utils.checkpoint import load_checkpoint as jax_load_checkpoint
 from avatarcraft_tpu.workloads import reconstruct as jrecon
@@ -303,9 +306,12 @@ def test_extract_geometry_and_save_ply_match_jax(tmp_path):
     np.testing.assert_allclose(got_grid, want_grid, atol=1e-5, rtol=0)
     assert got_grid.min() < 0 < got_grid.max()  # a surface crosses the lattice
     verts, tris = nsr.extract_geometry(params, HASH_FCFG, 1.6, 20)
-    v_ref, t_ref = jmc.marching_cubes(-got_grid, 0.0, prefer_native=False)
+    v_ref, t_ref = jnative.native_marching_cubes(-got_grid, 0.0)
     np.testing.assert_array_equal(verts, (v_ref / 19.0 * 3.2 - 1.6).astype(np.float32))
     np.testing.assert_array_equal(tris, t_ref)
+    v_np, t_np = jmc.marching_cubes(-got_grid, 0.0, prefer_native=False)
+    assert len(t_np) == len(tris)
+    np.testing.assert_allclose(np.unique(np.round(v_np, 4), axis=0), np.unique(np.round(v_ref, 4), axis=0), atol=1e-4)
     assert len(tris) > 100 and np.abs(verts).max() <= 1.6
     wv, wt = jnsr.extract_geometry(jparams, HASH_JAX_FCFG, 1.6, 20)
     assert abs(len(wt) - len(tris)) <= 0.02 * len(tris)  # JAX's own (native) extractor, its lattice

@@ -3,8 +3,12 @@ derived sample budget on the committed artifact (exact, at 128x128 and
 64x64), the refusals of
 what is not ported yet (each names its ROADMAP item and writes nothing),
 and two-step CPU runs whose final checkpoints load: with the stand-in
-guidance, and with Stable Diffusion loaded by --sd_weights from tiny
-state-dict files."""
+guidance, with Stable Diffusion loaded by --sd_weights from tiny
+state-dict files, and with --i_mesh exports (the lattice patched from
+512^3 to 16^3) whose .ply bytes equal the JAX package's save_ply of the
+same mesh, which is the JAX package's native extraction of its own
+lattice (the lattice within 1e-5 absolute, the triangles exactly, the
+vertices within 1e-4)."""
 
 import dataclasses
 import os
@@ -23,7 +27,7 @@ from avatarcraft_tpu_torch import bench
 from avatarcraft_tpu_torch.cli import stylize_cli
 from avatarcraft_tpu_torch.models import instant_nsr as nsr
 from avatarcraft_tpu_torch.ops import occupancy as occ
-from avatarcraft_tpu_torch.utils.checkpoint import leaves, load_params_with_config, params_from_jax
+from avatarcraft_tpu_torch.utils.checkpoint import leaves, load_params_with_config, map_leaves, params_from_jax
 from avatarcraft_tpu_torch.workloads import stylize
 from avatarcraft_tpu_torch.workloads.reconstruct import make_grid_update_fn
 
@@ -103,8 +107,6 @@ REFUSALS = [
     (["--implicit_model", "neus"], "ROADMAP item 20"),
     (["--guidance_type", "clip"], "JAX package refuses"),
     (["--encoder", "hashgrid"], "ROADMAP item 19"),
-    (["--i_mesh", "1000"], "ROADMAP item 21"),  # the default schedule reaches step 1000
-    (["--i_mesh", "5", "--max_steps", "5"], "ROADMAP item 21"),
     (["--guidance_type", "toy", "--tgt_text", "zombie", "--i_mesh", "100000"], "trained toy style"),
 ]
 
@@ -174,6 +176,41 @@ def test_cli_runs_with_sd_weights_on_cpu(tmp_path, monkeypatch):
     m = trainer.guidance.m
     assert m.image_size == 32 and m.latent_scale == 2 and m.tokenizer is not None and not m.use_depth
     _assert_final_checkpoint(tmp_path / "out", trainer, params, fcfg)
+
+
+@pytest.mark.parametrize("i_mesh,steps", [("1", (1, 2)), ("2", (2,))])
+def test_cli_exports_meshes(tmp_path, monkeypatch, i_mesh, steps):
+    """The CLI refuses no --i_mesh (its default command line, 6,000 steps
+    with --i_mesh 1000, passes) and exports a mesh on every i_mesh-th step:
+    extract_geometry at MESH_RESOLUTION^3 (patched to 16^3 here) through
+    the native extractor, then save_ply. The last export, of the final
+    parameters, is byte for byte the JAX package's save_ply of the same
+    mesh, and that mesh is the JAX package's native extraction of its own
+    lattice of those parameters (triangles exactly, vertices within
+    1e-4)."""
+    from avatarcraft_tpu.models import instant_nsr as jnsr_
+    from avatarcraft_tpu.utils import mesh_export as jmesh
+    from avatarcraft_tpu.utils import native as jnative
+
+    default = stylize_cli.build_parser().parse_args(["--weights_path", bench.ARTIFACT_CKPT, "--use_cuda", "false"])
+    assert default.i_mesh == 1000 and stylize_cli.refusal(default) is None
+    monkeypatch.setattr(stylize_cli, "MESH_RESOLUTION", 16)
+    trainer, params, fcfg = _cli_run(tmp_path, "--i_mesh", i_mesh)
+    exp = tmp_path / "out" / "t"
+    plys = sorted(f for f in os.listdir(exp) if f.endswith(".ply"))
+    assert plys == [f"t_{s:04d}.ply" for s in steps]
+    final = map_leaves(trainer.params(), lambda t: t.numpy())
+    jparams = jax.tree_util.tree_map(jnp.asarray, final)
+    lattice = jnsr_.extract_sdf_grid(jparams, JAX_FCFG, 1.6, 16)
+    np.testing.assert_allclose(nsr.extract_sdf_grid(trainer.params(), fcfg, 1.6, 16), lattice, atol=1e-5, rtol=0)
+    verts, faces = nsr.extract_geometry(trainer.params(), fcfg, 1.6, 16)
+    jv, jt = jnative.native_marching_cubes(-np.asarray(lattice), 0.0)
+    assert len(faces) > 0
+    np.testing.assert_array_equal(faces, jt)
+    want = str(tmp_path / "jax.ply")
+    jmesh.save_ply(verts, faces, want)
+    assert (exp / plys[-1]).read_bytes() == open(want, "rb").read()
+    np.testing.assert_allclose(verts, jv / 15.0 * 3.2 - 1.6, atol=1e-4, rtol=0)
 
 
 def test_cli_runs_on_cpu(tmp_path):
