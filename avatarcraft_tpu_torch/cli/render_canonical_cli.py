@@ -1,12 +1,15 @@
-"""CLI: 360-degree canonical renders, body + head orbits, ``--sampler fast``
-(port of the JAX package's cli/render_canonical_cli.py; reference:
-render_canonical.py:37-137).
+"""CLI: 360-degree canonical renders, body + head orbits (port of the JAX
+package's cli/render_canonical_cli.py; reference: render_canonical.py:37-137).
 
     python -m avatarcraft_tpu_torch.cli.render_canonical_cli \
-        --weights_path artifacts/canonical/bare_smpl_tpu.pth.tar \
-        --grid_path artifacts/canonical/grid.npy --sampler fast
+        --weights_path artifacts/canonical/bare_smpl_tpu.pth.tar
 
-Without ``--grid_path`` the density grid is refreshed from the field's SDF.
+``--sampler parity`` (the default, as in the JAX package) renders the
+64+64 importance-sampled pipeline in ``--batch_size``-ray chunks without
+jitter. ``--sampler fast`` renders the occupancy-guided K-sample pipeline
+against the density grid of ``--grid_path``, refreshed from the field's SDF
+when omitted. The normal estimator is ``--normal_mode``, else the
+artifact's PROVENANCE.json, else fd7 (parity) or fd4 (fast).
 
 Writes one PNG per frame under ``<out_dir>/canonical_360/<exp_name>/``.
 Flag names follow the reference; ``--use_cuda false`` renders on the CPU.
@@ -22,12 +25,12 @@ import torch
 
 from avatarcraft_tpu_torch.cameras import default_360_path, pose2rays
 from avatarcraft_tpu_torch.constants import CAN_HEAD_CAMERA_DIST, CAN_HEAD_OFFSET, NSR_BOUND
-from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig
+from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig, RenderConfig
 from avatarcraft_tpu_torch.ops.occupancy import init_density_grid
 from avatarcraft_tpu_torch.utils.checkpoint import artifact_normal_mode, load_params_with_config
 from avatarcraft_tpu_torch.utils.metrics import integerify_img
 from avatarcraft_tpu_torch.utils.png import write_png
-from avatarcraft_tpu_torch.workloads.canonical_render import make_fast_frame_renderer
+from avatarcraft_tpu_torch.workloads.canonical_render import make_fast_frame_renderer, make_parity_frame_renderer
 from avatarcraft_tpu_torch.workloads.reconstruct import make_grid_update_fn
 
 # the reference overrides the module constant for its video
@@ -51,16 +54,16 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--exp_name", default="exp", type=str)
     parser.add_argument("--batch_size", type=int, default=4096)
     parser.add_argument("--out_dir", default="./demo", type=str)
-    parser.add_argument("--sampler", default="fast", choices=["parity", "fast"],
-                        help="fast = occupancy-guided K-sample rendering (the "
-                             "only sampler ported so far)")
+    parser.add_argument("--sampler", default="parity", choices=["parity", "fast"],
+                        help="parity = the 64+64 importance-sampled render; fast = "
+                             "occupancy-guided K-sample rendering")
     parser.add_argument("--grid_path", default=None, type=str,
-                        help="density grid .npy (from reconstruct); omit = "
-                             "refresh a 129^3 grid from the SDF")
+                        help="density grid .npy for --sampler fast (from "
+                             "reconstruct); omit = refresh a 129^3 grid from the SDF")
     parser.add_argument("--normal_mode", default=None, choices=["fd7", "fd4", "analytic"],
                         help="normal estimator (default: the artifact's "
-                             "PROVENANCE.json, else fd4; analytic = exact "
-                             "forward-mode gradient)")
+                             "PROVENANCE.json, else fd7 for parity, fd4 for fast; "
+                             "analytic = exact forward-mode gradient)")
     parser.add_argument("--mesh_devices", default=0, type=int,
                         help="ray-axis data parallelism; not ported yet")
     return parser
@@ -68,11 +71,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     opt = build_parser().parse_args(argv)
-    if opt.sampler != "fast":
-        raise SystemExit(
-            "--sampler parity is not ported yet (ROADMAP item 19, parity pipeline); "
-            "use --sampler fast"
-        )
     if opt.mesh_devices > 1:
         raise SystemExit(
             "--mesh_devices > 1 is not ported yet (ROADMAP item 22, parallel); "
@@ -85,18 +83,23 @@ def main(argv=None):
     h = opt.render_h or 256
     w = opt.render_w or 256
     params, fcfg = load_params_with_config(opt.weights_path, device)
-    normal_mode = opt.normal_mode or artifact_normal_mode(opt.weights_path) or "fd4"
-    print(f"[render] field: encoder={fcfg.encoder} normal_mode={normal_mode} device={device}")
-    if opt.grid_path:
-        grid = torch.as_tensor(np.load(opt.grid_path), dtype=torch.float32).to(device)
+    bg = 1.0 if opt.white_bkg else 0.0
+    # baked artifacts record the estimator their color net was trained
+    # against (PROVENANCE.json); it holds for both samplers, as in the JAX package
+    normal_mode = (opt.normal_mode or artifact_normal_mode(opt.weights_path)
+                   or ("fd7" if opt.sampler == "parity" else "fd4"))
+    print(f"[render] field: encoder={fcfg.encoder} sampler={opt.sampler} normal_mode={normal_mode} device={device}")
+    if opt.sampler == "parity":
+        rcfg = RenderConfig(num_steps=64, upsample_steps=64, bound=NSR_BOUND, perturb=False, normal_mode=normal_mode)
+        render = make_parity_frame_renderer(params, fcfg, rcfg, chunk=opt.batch_size, bg_color=bg)
     else:
-        print("[render] refreshing the density grid from the SDF ...")
-        grid = make_grid_update_fn(fcfg, NSR_BOUND)(params, init_density_grid(129, device))
-    cfg = FastRenderConfig(n_probes=192, k_samples=32, bound=NSR_BOUND, normal_mode=normal_mode)
-    render = make_fast_frame_renderer(
-        params, fcfg, cfg, grid, chunk=opt.batch_size * 4,
-        bg_color=1.0 if opt.white_bkg else 0.0,
-    )
+        if opt.grid_path:
+            grid = torch.as_tensor(np.load(opt.grid_path), dtype=torch.float32).to(device)
+        else:
+            print("[render] refreshing the density grid from the SDF ...")
+            grid = make_grid_update_fn(fcfg, NSR_BOUND)(params, init_density_grid(129, device))
+        cfg = FastRenderConfig(n_probes=192, k_samples=32, bound=NSR_BOUND, normal_mode=normal_mode)
+        render = make_fast_frame_renderer(params, fcfg, cfg, grid, chunk=opt.batch_size * 4, bg_color=bg)
 
     center, up = np.zeros(3), np.array([0.0, 1.0, 0.0])
     body_poses, _ = default_360_path(center, up, CANONICAL_CAMERA_DIST_VAL, opt.trajectory_resolution)

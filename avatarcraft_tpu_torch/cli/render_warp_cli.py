@@ -1,5 +1,5 @@
-"""CLI: animation and shape-interpolation renders, ``--sampler fast`` (port
-of the JAX package's cli/render_warp_cli.py; reference: render_warp.py).
+"""CLI: animation and shape-interpolation renders (port of the JAX
+package's cli/render_warp_cli.py; reference: render_warp.py).
 
     python -m avatarcraft_tpu_torch.cli.render_warp_cli \\
         --weights_path artifacts/canonical/bare_smpl_tpu.pth.tar \\
@@ -8,12 +8,15 @@ of the JAX package's cli/render_warp_cli.py; reference: render_warp.py).
         --data_path data/smpl_dataset --render_view 58
 
 The camera is view ``--render_view`` of the Blender-format dataset at
-``--data_path``, sampled down to ``--resolution``. Per frame the posed body
-is voxelized, and the samples near it are warped into the canonical field
-by the kNN inverse-LBS warp. Writes one PNG per frame under
-``<out_dir>/test_views/<exp_name>/``. ``--use_cuda false`` renders on the
-CPU. ``--normal_mode`` (an option of the port) picks the normal estimator:
-fd4 by default, as the JAX package renders.
+``--data_path``, sampled down to ``--resolution``. ``--sampler parity``
+(the default, as in the JAX package) bounds each ray by the spheres around
+the posed vertices and renders 32+32 importance samples with fd7 normals,
+every sample warped into the canonical field by the kNN inverse-LBS warp.
+``--sampler fast`` voxelizes the posed body per frame, and only the samples
+near it are warped; ``--normal_mode`` (an option of the port) picks its
+normal estimator, fd4 by default, as the JAX package renders. Writes one
+PNG per frame under ``<out_dir>/test_views/<exp_name>/``. ``--use_cuda
+false`` renders on the CPU.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from avatarcraft_tpu_torch.workloads.warp_render import (
     WarpRenderSettings,
     calc_local_trans,
     derive_warp_budget,
+    make_warp_frame_renderer,
     make_warp_frame_renderer_fast,
 )
 
@@ -61,12 +65,12 @@ def build_parser() -> argparse.ArgumentParser:
                              "reference), an .npz body, or 'synthetic' for the test-fixture body")
     parser.add_argument("--data_path", default="data/smpl_da_512", type=str)
     parser.add_argument("--out_dir", default="./demo", type=str)
-    parser.add_argument("--sampler", default="fast", choices=["parity", "fast"],
-                        help="fast = per-frame voxelized posed-space occupancy + compacted kNN warp "
-                             "(the only sampler ported so far)")
+    parser.add_argument("--sampler", default="parity", choices=["parity", "fast"],
+                        help="parity = geometry-guided bounds + 32+32 warped importance samples; fast = "
+                             "per-frame voxelized posed-space occupancy + compacted kNN warp")
     parser.add_argument("--normal_mode", default="fd4", choices=["fd7", "fd4", "analytic"],
-                        help="normal estimator of the fast sampler (the JAX package's warp render uses "
-                             "fd4; analytic = exact forward-mode gradient)")
+                        help="normal estimator of --sampler fast only (the JAX package's fast warp render "
+                             "uses fd4; analytic = exact forward-mode gradient); parity renders fd7")
     parser.add_argument("--rest_pose", default=None, choices=["da", "zero"],
                         help="pose the canonical field was trained in. Default: 'da' (reference "
                              "parity) for SMPL bodies, the body's rest_pose marker for .npz bodies")
@@ -90,9 +94,6 @@ def _rest_pose(opt) -> str:
 
 def main(argv=None):
     opt = build_parser().parse_args(argv)
-    if opt.sampler != "fast":
-        raise SystemExit("--sampler parity is not ported yet (ROADMAP item 19, parity pipeline); "
-                         "use --sampler fast")
     if opt.implicit_model != "instant_nsr":
         raise SystemExit(f"--implicit_model {opt.implicit_model} is not ported yet (ROADMAP item 20, "
                          "legacy models); use instant_nsr")
@@ -120,10 +121,14 @@ def main(argv=None):
     rays_o, rays_d = ds.gen_rays_pose(ds.poses[opt.render_view], subsample, device)
 
     settings = WarpRenderSettings(normal_mode=opt.normal_mode)
-    # the per-chunk budget from the pose sequence itself: no frame is clipped
-    budget = derive_warp_budget(world_verts, rays_o, rays_d, settings)
-    print(f"[render_warp] derived sample budget: {budget}/chunk (zero-clip over {n_frames} frames)")
-    render = make_warp_frame_renderer_fast(params, fcfg, settings, budget, 1.0 if opt.white_bkg else 0.0)
+    bg = 1.0 if opt.white_bkg else 0.0
+    if opt.sampler == "parity":
+        render = make_warp_frame_renderer(params, fcfg, settings, bg)
+    else:
+        # the per-chunk budget from the pose sequence itself: no frame is clipped
+        budget = derive_warp_budget(world_verts, rays_o, rays_d, settings)
+        print(f"[render_warp] derived sample budget: {budget}/chunk (zero-clip over {n_frames} frames)")
+        render = make_warp_frame_renderer_fast(params, fcfg, settings, budget, bg)
 
     exp_dir = os.path.join(opt.out_dir, "test_views", opt.exp_name)
     os.makedirs(exp_dir, exist_ok=True)

@@ -1,6 +1,10 @@
-"""CLI: SDS avatar creation, ``--sampler fast`` (port of the JAX package's
-cli/stylize_cli.py; reference: stylize.py entry point). Flag names are the
-JAX package's.
+"""CLI: SDS avatar creation (port of the JAX package's cli/stylize_cli.py;
+reference: stylize.py entry point). Flag names and defaults are the JAX
+package's: ``--sampler parity`` (the default) trains through the 64+64
+importance render with fd7 normals and validates on its unjittered frame;
+``--sampler fast`` through the occupancy-guided render against a density
+grid (``--grid_path``, else refreshed from the field) with a derived sample
+budget. Both stylize pyramid and hash-grid checkpoints.
 
     python -m avatarcraft_tpu_torch.cli.stylize_cli \\
         --weights_path artifacts/canonical/bare_smpl_tpu.pth.tar \\
@@ -19,10 +23,8 @@ with their field-config sidecar, and every ``--i_mesh`` steps a mesh
 device, the native extractor on the host). ``--use_cuda false`` runs on
 the CPU.
 
-Refused before anything is written, each naming its ROADMAP item:
-``--sampler parity`` (19), ``--implicit_model neus`` (20), a checkpoint
-whose encoder is not the pyramid (19); ``--guidance_type clip`` is refused
-as the JAX package refuses it.
+Refused before anything is written: ``--implicit_model neus`` (ROADMAP
+item 20), and ``--guidance_type clip`` as the JAX package refuses it.
 """
 
 from __future__ import annotations
@@ -45,7 +47,13 @@ from avatarcraft_tpu_torch.constants import (
     NSR_BOUND,
 )
 from avatarcraft_tpu_torch.models.diffusion import SDSGuidance, make_dummy_modules
-from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig, count_fast_samples, extract_geometry
+from avatarcraft_tpu_torch.models.instant_nsr import (
+    FastRenderConfig,
+    RenderConfig,
+    count_fast_samples,
+    extract_geometry,
+    render_rays_chunked,
+)
 from avatarcraft_tpu_torch.models.sd import load_stable_diffusion_modules
 from avatarcraft_tpu_torch.models.toy_guidance import STYLES, load_toy_guidance, make_toy_modules, style_index
 from avatarcraft_tpu_torch.ops.occupancy import init_density_grid
@@ -60,7 +68,6 @@ from avatarcraft_tpu_torch.utils.metrics import integerify_img
 from avatarcraft_tpu_torch.utils.png import write_png
 from avatarcraft_tpu_torch.workloads.reconstruct import make_grid_update_fn
 from avatarcraft_tpu_torch.workloads.stylize import (
-    PARITY_REFUSAL,
     StylizeConfig,
     StylizeTrainer,
     make_phaseA_render_fast,
@@ -109,10 +116,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--fine_head", default=0.5, type=float)
     parser.add_argument("--max_steps", default=None, type=int)
     parser.add_argument("--out_dir", default="./style/canonical_360", type=str)
-    parser.add_argument("--sampler", default="fast", choices=["parity", "fast"],
-                        help="fast = occupancy-guided K-sample SDS (the only sampler ported so far)")
+    parser.add_argument("--sampler", default="parity", choices=["parity", "fast"],
+                        help="parity = the 64+64 importance-sampled SDS; fast = occupancy-guided K-sample SDS")
     parser.add_argument("--grid_path", default=None, type=str,
-                        help="density grid .npy from reconstruct (refreshed from the field when omitted)")
+                        help="density grid .npy from reconstruct (fast sampler; refreshed from the field when "
+                             "omitted)")
     parser.add_argument("--encoder", default=None, choices=["hashgrid", "tpu_pyramid"],
                         help="override the checkpoint's (inferred) encoder")
     parser.add_argument("--normal_mode", default=None, choices=["fd7", "fd4", "analytic"],
@@ -136,15 +144,10 @@ def views_per_epoch(cfg: StylizeConfig, epoch: int) -> int:
 
 def refusal(opt) -> str | None:
     """Why this command line cannot run in the port yet (None if it can)."""
-    if opt.sampler != "fast":
-        return "--sampler parity: " + PARITY_REFUSAL
     if opt.guidance_type == "clip":
         return "--guidance_type clip: CLIP guidance is dead in the reference too (the JAX package refuses it)"
     if opt.implicit_model != "instant_nsr":
         return f"--implicit_model {opt.implicit_model} is not ported yet (ROADMAP item 20, legacy models)"
-    if opt.encoder == "hashgrid":
-        return ("--encoder hashgrid: stylization with the hash grid is not held against the JAX package yet "
-                "(ROADMAP item 19); the port stylizes the pyramid encoder")
     if opt.guidance_type == "toy" and style_index(opt.tgt_text) < 0:
         return f"--tgt_text must name a trained toy style ({', '.join(STYLES)})"
     if not opt.weights_path:
@@ -226,11 +229,11 @@ def stylize_config(opt) -> StylizeConfig:
 
 def setup(opt, grid_update_every: int | None = None):
     """(trainer, FieldConfig) of a parsed command line that ``refusal``
-    passed, as the CLI builds them: the canonical field, its density grid
-    (``--grid_path``, else refreshed from the field), the normal estimator,
-    the derived sample budget and the guidance. ``grid_update_every``
-    overrides the config's refresh period (the CLI keeps 200). Writes
-    nothing."""
+    passed, as the CLI builds them: the canonical field and the guidance,
+    and for the fast sampler its density grid (``--grid_path``, else
+    refreshed from the field), the normal estimator and the derived sample
+    budget. ``grid_update_every`` overrides the config's refresh period (the
+    CLI keeps 200). Writes nothing."""
     cfg = stylize_config(opt)
     if grid_update_every is not None:
         cfg = dataclasses.replace(cfg, grid_update_every=grid_update_every)
@@ -238,11 +241,10 @@ def setup(opt, grid_update_every: int | None = None):
     params_gt, fcfg = load_params_with_config(opt.weights_path, device)
     if opt.encoder and opt.encoder != fcfg.encoder:
         fcfg = dataclasses.replace(fcfg, encoder=opt.encoder)
-    if fcfg.encoder != "tpu_pyramid":
-        raise SystemExit(f"{opt.weights_path}: encoder {fcfg.encoder!r}: stylization with the hash grid is not "
-                         "held against the JAX package yet (ROADMAP item 19); the port stylizes the pyramid encoder")
-    print(f"[stylize] field: encoder={fcfg.encoder} device={device}")
+    print(f"[stylize] field: encoder={fcfg.encoder} sampler={opt.sampler} device={device}")
     params_style = map_leaves(params_gt, torch.Tensor.clone)
+    if opt.sampler == "parity":
+        return StylizeTrainer(cfg, fcfg, build_guidance(opt, device), params_style, params_gt), fcfg
 
     grid = None
     if opt.grid_path:
@@ -281,9 +283,15 @@ def main(argv=None) -> StylizeTrainer:
     exp_dir = os.path.join(opt.out_dir, opt.exp_name)
     os.makedirs(exp_dir, exist_ok=True)
 
+    rcfg_val = RenderConfig(num_steps=64, upsample_steps=64, bound=NSR_BOUND)
+
     def val_render(ro, rd):
-        """The validation frame through the fast sampler against the live
-        grid, in batch_size-ray calls (the budget is sized per call)."""
+        """The validation frame: parity, the 64+64 render without jitter on
+        white, fd7; fast, the fast sampler against the live grid. Both in
+        batch_size-ray calls (the fast budget is sized per call)."""
+        if not trainer.fast:
+            with torch.no_grad():
+                return render_rays_chunked(trainer.params(), ro, rd, fcfg, rcfg_val, 1.0, chunk=opt.batch_size)["rgb"]
         n = ro.shape[0]
         pad = (-n) % opt.batch_size
         if pad:

@@ -5,7 +5,8 @@ the encoder dispatch for the hash grid and the pyramid, forward_*, density,
 sdf_and_gradient, up_sample, cat_z_vals, render_rays, render_rays_chunked,
 sdf_tetra, the analytic normals, field_sdf_grad, FieldFns,
 network_field_fns, FastRenderConfig, _probe_occupied, count_fast_samples,
-render_rays_fast with its ``field``, ``near_far`` and ``warp_fn``,
+render_rays and render_rays_fast with their ``field``, ``near_far``
+and ``warp_fn``, the curvature term,
 extract_sdf_grid, extract_geometry).
 
 Both renders differentiate under PyTorch autograd; the JAX package's
@@ -198,6 +199,12 @@ def _softplus100(x: torch.Tensor) -> torch.Tensor:
 
 def _safe_norm(x: torch.Tensor, dim=-1, keepdim=True) -> torch.Tensor:
     return torch.sqrt(torch.sum(x * x, dim=dim, keepdim=keepdim) + 1e-12)
+
+
+def table_dtype(cfg: FieldConfig) -> torch.dtype:
+    """The dtype of the field's lookup tables: ``cfg.packed_dtype`` for the
+    pyramid, f32 for the hash grid (its table and dense cells)."""
+    return torch.float32 if cfg.encoder == "hashgrid" else _DTYPES[cfg.packed_dtype]
 
 
 def materialize_field_tables(params: dict, cfg: FieldConfig) -> dict:
@@ -407,17 +414,21 @@ def up_sample(rays_o, rays_d, z_vals, sdf, n_importance: int, inv_s: float) -> t
     return sample_pdf(z_vals, alpha * trans, n_importance, det=True).detach()
 
 
-def cat_z_vals(sdf_fn, rays_o, rays_d, z_vals, new_z_vals, sdf, bound: float, last: bool):
+def cat_z_vals(sdf_fn, rays_o, rays_d, z_vals, new_z_vals, sdf, bound: float, last: bool, warp=None):
     """Merge the new z values in (sorted per ray) and, unless ``last``,
     evaluate the SDF at the new points outside autograd. ``sdf_fn``:
-    [M,3] -> [M, 1+F]. Returns (z [B, T+n], sdf [B, T+n])."""
+    [M,3] -> [M, 1+F]; ``warp``: the posed -> canonical warp of the new
+    points ([B,n,3] -> (pts, dirs, mask)) before they are evaluated.
+    Returns (z [B, T+n], sdf [B, T+n])."""
     B, n_new = new_z_vals.shape
     z_sorted, order = torch.sort(torch.cat([z_vals, new_z_vals], dim=-1), dim=-1, stable=True)
     if last:
         return z_sorted, sdf
-    pts = rays_o[:, None, :] + rays_d[:, None, :] * new_z_vals[..., None]
-    pts = torch.clamp(pts, -bound, bound)
     with torch.no_grad():
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * new_z_vals[..., None]
+        if warp is not None:
+            pts = warp(pts)[0]
+        pts = torch.clamp(pts, -bound, bound)
         new_sdf = sdf_fn(pts.reshape(-1, 3))[:, 0].reshape(B, n_new)
     return z_sorted, torch.gather(torch.cat([sdf, new_sdf], dim=-1), -1, order)
 
@@ -430,46 +441,63 @@ def render_rays(
     rcfg: RenderConfig,
     bg_color=1.0,
     generator: torch.Generator | None = None,
+    *,
+    near_far=None,
     warp_fn=None,
+    field: FieldFns | None = None,
+    jitter: torch.Tensor | None = None,
+    curvature_dirs: torch.Tensor | None = None,
 ) -> dict:
     """The importance-sampled NeuS render of rays [N,3] on their device:
-    ``num_steps`` stratified samples (jittered from ``generator`` with
-    ``rcfg.perturb``), SDF-guided up-sampling in rounds of
+    ``num_steps`` stratified samples, SDF-guided up-sampling in rounds of
     ``upsample_round`` outside autograd, midpoint resampling, one field
     evaluation with fd7 or fd4 normals, NeuS alpha compositing and the
     eikonal term (reference: models/instant_nsr.py:133-299). Same outputs
-    as the JAX package's render_rays for a field without a warp."""
-    if warp_fn is not None:
-        raise NotImplementedError(
-            "warp_fn of the 64+64 render is not ported yet (ROADMAP item 19, parity pipeline); "
-            "the fast render takes it (render_rays_fast)"
-        )
-    if rcfg.curvature_loss:
-        raise NotImplementedError(
-            "curvature_loss is not ported yet (ROADMAP item 19, parity pipeline)"
-        )
+    as the JAX package's render_rays.
+
+    ``rcfg.perturb`` jitters the stratified samples by ``jitter`` (U(0, 1)
+    [N, num_steps]), drawn from ``generator`` when omitted. ``near_far``:
+    per-ray (near, far) [N,1] that replace the cube bounds where finite
+    (the geometry-guided bounds of an animation frame). ``warp_fn``: the
+    posed -> canonical warp ([N,T,3] -> (pts, dirs, mask)), applied to the
+    coarse points, each up-sampling round's new points and the midpoints;
+    the mask multiplies the alphas, and the shading and the up-sampler's
+    inside-sphere test keep the posed rays (reference:
+    models/instant_nsr.py:175-187,245-248). ``field``: the field to
+    evaluate (a frame or train step builds network_field_fns with its
+    tables once; built from ``params`` when omitted). ``rcfg.curvature_loss``
+    adds "curvature_error", whose random directions are ``curvature_dirs``
+    [N*T, 3] or, as the JAX package draws them, 2 N(0, 1) - 1 from
+    ``generator``."""
     N = rays_o.shape[0]
     bound = rcfg.bound
     num_steps = rcfg.num_steps
-    packed = materialize_field_tables(params, fcfg)
+    if field is None:
+        field = network_field_fns(params, fcfg, bound)
 
-    def sdf_fn(x):
-        return forward_sdf(params, x, fcfg, bound, packed)
+    def warp(pts):
+        return (pts, None, None) if warp_fn is None else warp_fn(pts)
 
     near, far = near_far_from_bound(rays_o, rays_d, bound)
-    z_vals = stratified_z_vals(near, far, num_steps, perturb=rcfg.perturb, generator=generator)
+    if near_far is not None:
+        ng, fg = near_far
+        near = torch.where(torch.isinf(ng), near, ng)
+        far = torch.where(torch.isinf(fg), far, fg)
+    z_vals = stratified_z_vals(near, far, num_steps, perturb=rcfg.perturb, generator=generator, u=jitter)
     sample_dist = (far - near) * recip(num_steps)
 
     if rcfg.upsample_steps > 0:
-        pts = torch.clamp(rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None], -bound, bound)
         with torch.no_grad():
-            sdf_cur = sdf_fn(pts.reshape(-1, 3))[:, 0].reshape(N, num_steps)
+            pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+            pts = torch.clamp(warp(pts)[0], -bound, bound)
+            sdf_cur = field.sdf(pts.reshape(-1, 3))[:, 0].reshape(N, num_steps)
         z_cur = z_vals
         n_rounds = rcfg.upsample_steps // rcfg.upsample_round
         for i in range(n_rounds):
             new_z = up_sample(rays_o, rays_d, z_cur, sdf_cur, rcfg.upsample_round, 64 * 2**i)
             z_cur, sdf_cur = cat_z_vals(
-                sdf_fn, rays_o, rays_d, z_cur, new_z, sdf_cur, bound, last=(i + 1 == n_rounds)
+                field.sdf, rays_o, rays_d, z_cur, new_z, sdf_cur, bound, last=(i + 1 == n_rounds),
+                warp=None if warp_fn is None else warp,
             )
         z_vals = z_cur
     T = rcfg.total_steps
@@ -479,15 +507,16 @@ def render_rays(
     z_mid = torch.cat([z_vals[:, :-1] + 0.5 * deltas[:, :-1], z_vals[:, -1:]], dim=-1)
     new_pts = rays_o[:, None, :] + rays_d[:, None, :] * z_mid[..., None]
     dirs = rays_d[:, None, :].expand(new_pts.shape)
+    new_pts, _, alpha_mask = warp(new_pts)  # the canonical directions are not used
     new_pts = torch.clamp(new_pts, -bound, bound)
 
     eps = 0.005 * (1.0 - rcfg.normal_epsilon_ratio)
     flat_pts = new_pts.reshape(-1, 3)
-    sdf, geo_feat, gradient = field_sdf_grad(params, flat_pts, fcfg, bound, eps, rcfg.normal_mode, packed)
+    sdf, geo_feat, gradient = stencil_sdf_grad(field.sdf, flat_pts, bound, eps, rcfg.normal_mode)
     normal = gradient / (1e-5 + _safe_norm(gradient))
     flat_dirs = dirs.reshape(-1, 3)
-    color = forward_color(params, flat_pts, flat_dirs, normal, geo_feat, fcfg)
-    inv_s = forward_variance(params)
+    color = field.color(flat_pts, flat_dirs, normal, geo_feat)
+    inv_s = field.inv_s()
 
     true_cos = torch.sum(flat_dirs * normal, dim=-1, keepdim=True)
     iter_cos = -(
@@ -498,6 +527,8 @@ def render_rays(
     prev_cdf = torch.sigmoid((sdf - iter_cos * flat_deltas * 0.5) * inv_s)
     next_cdf = torch.sigmoid((sdf + iter_cos * flat_deltas * 0.5) * inv_s)
     alpha = torch.clamp((prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5), 0.0, 1.0).reshape(N, T)
+    if alpha_mask is not None:
+        alpha = alpha * alpha_mask.reshape(N, T).to(alpha.dtype)
 
     trans = torch.cumprod(
         torch.cat([torch.ones((N, 1), dtype=alpha.dtype, device=alpha.device), 1.0 - alpha + 1e-7], dim=-1),
@@ -517,6 +548,19 @@ def render_rays(
     grad_err = (_safe_norm(gradient.reshape(N, T, 3), keepdim=False) - 1.0) ** 2
     gradient_error = (relax_inside * grad_err).sum() / (relax_inside.sum() + 1e-5)
 
+    curvature_error = torch.zeros((), device=rays_o.device)
+    if rcfg.curvature_loss:
+        # the normal's change along a random tangent, through fd7 whatever
+        # the normal mode (reference: models/instant_nsr.py:274-289)
+        if curvature_dirs is None:
+            curvature_dirs = 2.0 * torch.randn(normal.shape, generator=generator, device=normal.device) - 1.0
+        rand_vec = curvature_dirs / (1e-5 + torch.linalg.norm(curvature_dirs, dim=-1, keepdim=True))
+        perturbed = flat_pts + torch.linalg.cross(normal, rand_vec) * (0.01 * (1.0 - rcfg.normal_epsilon_ratio))
+        _, _, pgrad = _fd7(field.sdf, perturbed, bound, eps)
+        pnormal = pgrad / (1e-5 + _safe_norm(pgrad))
+        cerr = (torch.sum(normal * pnormal, dim=-1) - 1.0) ** 2
+        curvature_error = (relax_inside * cerr.reshape(N, T)).sum() / (relax_inside.sum() + 1e-5)
+
     image = image + (1.0 - weights_sum) * bg_color
     return {
         "rgb": image,
@@ -525,6 +569,7 @@ def render_rays(
         "weight_sum": weights_sum,
         "normal": normal_map,
         "gradient_error": gradient_error,
+        "curvature_error": curvature_error,
         "pts_color": color,
         "pts_alpha": alpha,
         "z_vals": z_vals,
@@ -540,13 +585,17 @@ def render_rays_chunked(
     bg_color=1.0,
     chunk: int = 4096,
     generator: torch.Generator | None = None,
+    field: FieldFns | None = None,
 ) -> dict:
     """``render_rays`` over any number of rays in chunks of ``chunk``
     (reference: utils/render_utils.py:514-600). As in the JAX package, the
     rays are padded to a multiple of ``chunk`` (origin (1,1,1), direction
     +z; a [N,3] background pads with ones) and ``gradient_error`` is the
-    mean over the chunks, padding included. Returns rgb [N,3], depth [N],
-    weight_sum [N,1], normal [N,3] and gradient_error."""
+    mean over the chunks, padding included. ``field``: as render_rays',
+    built once here when omitted. Returns rgb [N,3], depth [N], weight_sum
+    [N,1], normal [N,3] and gradient_error."""
+    if field is None:
+        field = network_field_fns(params, fcfg, rcfg.bound)
     n = rays_o.shape[0]
     n_pad = (-n) % chunk
     ro = torch.cat([rays_o, rays_o.new_ones((n_pad, 3))])
@@ -558,7 +607,7 @@ def render_rays_chunked(
     outs = {k: [] for k in keys + ("gradient_error",)}
     for i in range(0, n + n_pad, chunk):
         bg = bg_color[i : i + chunk] if bg_is_array else bg_color
-        out = render_rays(params, ro[i : i + chunk], rd[i : i + chunk], fcfg, rcfg, bg, generator)
+        out = render_rays(params, ro[i : i + chunk], rd[i : i + chunk], fcfg, rcfg, bg, generator, field=field)
         for k in outs:
             outs[k].append(out[k])
     result = {k: torch.cat(outs[k])[:n] for k in keys}

@@ -39,15 +39,16 @@ def near_far_from_bound(rays_o: torch.Tensor, rays_d: torch.Tensor, bound: float
 
 
 def stratified_z_vals(near: torch.Tensor, far: torch.Tensor, num_steps: int, *, perturb: bool = False,
-                      generator: torch.Generator | None = None) -> torch.Tensor:
+                      generator: torch.Generator | None = None, u: torch.Tensor | None = None) -> torch.Tensor:
     """[N, T] z values spanning [near, far] per ray; with ``perturb`` each is
-    jittered by U(-0.5, 0.5) * sample_dist, drawn from ``generator`` on the
-    rays' device."""
+    jittered by (u - 0.5) * sample_dist, ``u`` U(0, 1) [N, T], drawn from
+    ``generator`` on the rays' device when omitted."""
     t = linspace(0.0, 1.0, num_steps, near.device)
     z_vals = near + (far - near) * t[None, :]
     if perturb:
         sample_dist = (far - near) * recip(num_steps)
-        u = torch.rand(z_vals.shape, generator=generator, device=z_vals.device)
+        if u is None:
+            u = torch.rand(z_vals.shape, generator=generator, device=z_vals.device)
         z_vals = z_vals + (u - 0.5) * sample_dist
     return z_vals
 

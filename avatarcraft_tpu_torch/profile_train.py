@@ -309,11 +309,13 @@ def parity_main(warmup: int = WARMUP, timed: int = 10, profiled: int = 3, print_
 # -- the stylize path --------------------------------------------------------
 
 STYLIZE_PHASES = ("gather", "phaseA", "sds", "vae", "phaseB", "refresh")
-# the stylize CLI at its defaults on the committed artifact and toy guidance
-STYLIZE_ARGV = [
+# the stylize CLI at its defaults on the committed artifact and toy guidance,
+# the fast sampler (PARITY_STYLIZE_ARGV: the CLI's default sampler)
+PARITY_STYLIZE_ARGV = [
     "--weights_path", bench.ARTIFACT_CKPT, "--guidance_type", "toy", "--tgt_text", "lava",
     "--toy_weights", os.path.join(bench.REPO_ROOT, "artifacts", "toy_guidance"), "--i_mesh", "1000000",
 ]
+STYLIZE_ARGV = PARITY_STYLIZE_ARGV + ["--sampler", "fast"]
 STYLIZE_WARMUP, STYLIZE_TIMED, STYLIZE_PROFILED = 2, 6, 2
 
 
@@ -329,9 +331,9 @@ def sd_guidance(version: str = "1.5", device="cuda") -> SDSGuidance:
 
 def stylize_trainer(grid_update_every: int | None = None, guidance: SDSGuidance | None = None):
     """The stylize CLI's trainer (``stylize_cli.setup``) at the CLI's
-    defaults, ``--guidance_type toy --tgt_text lava``, on the card, with
-    ``guidance`` in place of the toy guidance where given (the trainer's
-    budget and grid do not depend on it)."""
+    defaults, ``--guidance_type toy --tgt_text lava --sampler fast``, on
+    the card, with ``guidance`` in place of the toy guidance where given
+    (the trainer's budget and grid do not depend on it)."""
     opt = stylize_cli.build_parser().parse_args(STYLIZE_ARGV)
     trainer, fcfg = stylize_cli.setup(opt, grid_update_every)
     if guidance is not None:

@@ -1,13 +1,15 @@
 """Multi-prompt avatar creation: P style fields trained against P prompts
 in one run, on one shared view per step. Port of the JAX package's
 workloads/multi_stylize.py (``stack_params``, ``unstack_params``,
-``MultiPromptTrainer``, ``_phaseB_grads_fast``), fast sampler only.
+``MultiPromptTrainer``, ``_phaseB_grads_fast``), both samplers; the
+parity phase B of each prompt is the single-prompt trainer's
+``make_phaseB_step`` (the JAX package's ``_phaseB_grads``).
 
 The JAX package vmaps every phase over the stacked prompt axis. Here the
 field phases loop over the prompts, each with the single-prompt trainer's
 pieces (workloads/stylize.py): its own row-sharded table (gathered once per
 step through ``all_gather_rows``, its lookup tables packed in f32), its own
-density grid, phase A, and phase B with one backward through the packing
+density grid (fast), phase A, and phase B with one backward through the packing
 (``reduce_scatter_rows``): P gathers and P reduce-scatters per step. The
 table kernels are bound with ctypes, which ``torch.func.vmap`` cannot pass
 through. Only the guidance is batched: one encode, one UNet call of 2P
@@ -17,14 +19,13 @@ update is elementwise and its step count shared.
 
 The view schedule (poses, view order, stride offsets, background keys)
 draws from one numpy generator in the JAX package's order; the noise
-backgrounds and SDS's t and noise from one torch generator.
+backgrounds, SDS's t and noise and the parity sampler's stratified jitter
+(prompt by prompt: phase A's calls, then each prompt's patches) from one
+torch generator.
 
 Profiler ranges: ``multi.gather``, ``multi.phaseA``, ``multi.vae``,
 ``multi.sds``, ``multi.vae`` again (the pullback), ``multi.phaseB`` and
-``multi.refresh``, as the single-prompt trainer names ``stylize.*``.
-
-The parity sampler (``_phaseB_grads`` and its branch of ``train_view``)
-comes with the parity pipeline (ROADMAP item 19).
+``multi.refresh`` (fast), as the single-prompt trainer names ``stylize.*``.
 """
 
 from __future__ import annotations
@@ -47,14 +48,14 @@ from avatarcraft_tpu_torch.constants import (
     WHITE_BKG,
 )
 from avatarcraft_tpu_torch.models.diffusion import SDSGuidance
-from avatarcraft_tpu_torch.models.instant_nsr import _DTYPES, FastRenderConfig, FieldConfig
+from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig, FieldConfig, RenderConfig, table_dtype
 from avatarcraft_tpu_torch.ops.occupancy import prune_grid_floaters
 from avatarcraft_tpu_torch.parallel.table_mp import gathered_params, trainable_shards
 from avatarcraft_tpu_torch.utils.background import select_background
 from avatarcraft_tpu_torch.utils.checkpoint import leaves, map_leaves
 from avatarcraft_tpu_torch.workloads.reconstruct import make_grid_update_fn
 from avatarcraft_tpu_torch.workloads.stylize import (
-    PARITY_REFUSAL,
+    SAMPLERS,
     StylizeConfig,
     backward_through_packing,
     cast_tables,
@@ -62,7 +63,9 @@ from avatarcraft_tpu_torch.workloads.stylize import (
     frozen_ground_truth,
     gather_packed,
     make_optimizer,
+    make_phaseA_render,
     make_phaseA_render_fast,
+    make_phaseB_step,
     make_phaseB_step_fast,
     view_rays,
     worst_chunk_count,
@@ -104,11 +107,12 @@ class MultiPromptTrainer:
 
     ``params_style``: the P fields stacked [P, ...] (``stack_params``);
     ``params_gt``: the shared frozen canonical field of the opacity loss.
-    ``grids``: each prompt's density grid [P, R, R, R] (a resumed run's
-    saved grids; when None, each field's grid refreshed from zeros at
-    129^3), refreshed and pruned every ``cfg.grid_update_every`` steps.
-    ``fast_cfg``: the fast render's settings (``derive_budget`` sizes its
-    sample budget)."""
+    ``cfg.sampler`` "parity" renders through ``rcfg`` (64+64, stratified
+    jitter, fd7), as the single-prompt trainer does. "fast": ``grids`` is
+    each prompt's density grid [P, R, R, R] (a resumed run's saved grids;
+    when None, each field's grid refreshed from zeros at 129^3), refreshed
+    and pruned every ``cfg.grid_update_every`` steps; ``fast_cfg``: the
+    fast render's settings (``derive_budget`` sizes its sample budget)."""
 
     cfg: StylizeConfig
     fcfg: FieldConfig
@@ -121,8 +125,9 @@ class MultiPromptTrainer:
 
     def __post_init__(self):
         c = self.cfg
-        if c.sampler != "fast":
-            raise NotImplementedError(PARITY_REFUSAL)
+        if c.sampler not in SAMPLERS:
+            raise ValueError(f"unknown sampler {c.sampler!r} (one of {', '.join(SAMPLERS)})")
+        self.fast = c.sampler == "fast"
         self.P = len(self.prompts)
         # per prompt (rest, shards, splice); the trainer's copy is these: params_list()
         self.fields = [trainable_shards(p) for p in unstack_params(self.params_style, self.P)]
@@ -131,23 +136,38 @@ class MultiPromptTrainer:
         self.opt = make_optimizer(c.lr, [t for rest, shards, _ in self.fields for t in leaves(rest) + shards])
         self.rng = np.random.default_rng(c.seed)
         self.generator = torch.Generator(self.device).manual_seed(c.seed)
-        if self.fast_cfg is None:
+        self.rcfg = RenderConfig(num_steps=64, upsample_steps=64, bound=NSR_BOUND, perturb=True)
+        if self.fast and self.fast_cfg is None:
             self.fast_cfg = FastRenderConfig(bound=NSR_BOUND)
         self._phaseA = {}
-        self._phaseB = _phaseB_grads_fast(self.fcfg, self.fast_cfg, c)
-        self._refresh_grid = make_grid_update_fn(self.fcfg, NSR_BOUND)
+        self._phaseB = self._make_phaseB()
         with record_function("multi.gather"):
-            self.gt = frozen_ground_truth(self.params_gt, self.fcfg, self.fast_cfg.bound)
+            self.gt = frozen_ground_truth(self.params_gt, self.fcfg, NSR_BOUND)
         self.params_gt = self.gt[0]
-        if self.grids is None:
-            # one grid per prompt field (geometry diverges under styling)
-            zeros = torch.zeros((129,) * 3, device=self.device)
-            self.grids = torch.stack([self._refresh_grid(p, zeros) for p in self.params_list()])
+        if self.fast:
+            self._refresh_grid = make_grid_update_fn(self.fcfg, NSR_BOUND)
+            if self.grids is None:
+                # one grid per prompt field (geometry diverges under styling)
+                zeros = torch.zeros((129,) * 3, device=self.device)
+                self.grids = torch.stack([self._refresh_grid(p, zeros) for p in self.params_list()])
         self._step_count = 0
         # [P, 2, L, D] embeddings per view description
         self._text_cache: dict[str, torch.Tensor] = {}
         self.text_embs = self.text_embeddings("")
         self.stats = {"refreshes": 0, "clip_guard_trips": 0}
+
+    def _make_phaseB(self):
+        c = self.cfg
+        if self.fast:
+            return _phaseB_grads_fast(self.fcfg, self.fast_cfg, c)
+        return make_phaseB_step(self.fcfg, self.rcfg, c.w_eikonal, c.use_opacity, c.batch_size, c.w_opacity,
+                                self.generator)
+
+    def _grid(self, p: int) -> tuple:
+        """The fast phases' density grid argument of prompt p (the parity
+        phases take none: their jitter generator is bound when they are
+        built)."""
+        return (self.grids[p],) if self.fast else ()
 
     def params_list(self) -> list[dict]:
         """The P current parameter trees (detached, each table gathered)."""
@@ -203,7 +223,7 @@ class MultiPromptTrainer:
         phases that read it."""
         self.fast_cfg = dataclasses.replace(self.fast_cfg, sample_budget=budget)
         self._phaseA = {}
-        self._phaseB = _phaseB_grads_fast(self.fcfg, self.fast_cfg, self.cfg)
+        self._phaseB = self._make_phaseB()
 
     def _budget_clip_guard(self, rays_o, rays_d):
         """After a grid refresh, count the current view against every
@@ -242,8 +262,9 @@ class MultiPromptTrainer:
         if chunk != c.batch_size:
             raise ValueError(f"a {th}x{tw} frame is smaller than one {c.batch_size}-ray patch")
         if chunk not in self._phaseA:
-            self._phaseA[chunk] = make_phaseA_render_fast(self.fcfg, self.fast_cfg, chunk)
-        table_dtype = _DTYPES[self.fcfg.packed_dtype]
+            self._phaseA[chunk] = (make_phaseA_render_fast(self.fcfg, self.fast_cfg, chunk) if self.fast
+                                   else make_phaseA_render(self.fcfg, self.rcfg, chunk, self.generator))
+        dtype = table_dtype(self.fcfg)
 
         self.opt.zero_grad(set_to_none=True)
         steps, rgbs, depths = [], [], []
@@ -252,8 +273,8 @@ class MultiPromptTrainer:
                 steps.append(gather_packed(rest, shards, splice, self.fcfg))
             params, _, tables = steps[-1]
             with record_function("multi.phaseA"), torch.no_grad():
-                rgb, depth = self._phaseA[chunk](params, rays_o, rays_d, bg, self.grids[p],
-                                                 cast_tables(tables, table_dtype))
+                rgb, depth = self._phaseA[chunk](params, rays_o, rays_d, bg, *self._grid(p),
+                                                 packed=cast_tables(tables, dtype))
             rgbs.append(rgb)
             depths.append(depth)
         imgs = torch.stack(rgbs).reshape(self.P, th, tw, 3).permute(0, 3, 1, 2)
@@ -270,12 +291,12 @@ class MultiPromptTrainer:
                 # each prompt's packed tables are let go after its backward
                 params, packed32, tables = steps[p]
                 steps[p] = None
-                losses.append(self._phaseB(params, tables, self.gt, rays_o, rays_d, g_rgb[p], bg, self.grids[p]))
+                losses.append(self._phaseB(params, tables, self.gt, rays_o, rays_d, g_rgb[p], bg, *self._grid(p)))
                 backward_through_packing(packed32, tables)
                 del params, packed32, tables
             self.opt.step()
         self._step_count += 1
-        if c.grid_update_every and self._step_count % c.grid_update_every == 0:
+        if self.fast and c.grid_update_every and self._step_count % c.grid_update_every == 0:
             with record_function("multi.refresh"):
                 self.refresh_grids()
                 self._budget_clip_guard(rays_o, rays_d)

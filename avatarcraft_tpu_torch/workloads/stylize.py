@@ -1,7 +1,11 @@
-"""SDS avatar stylization, the fast (occupancy-guided) sampler: port of the
-JAX package's workloads/stylize.py (``StylizeConfig``,
+"""SDS avatar stylization: port of the JAX package's workloads/stylize.py
+(``StylizeConfig``, ``make_phaseA_render``, ``make_phaseB_step``,
 ``make_phaseA_render_fast``, ``make_phaseB_step_fast``, ``StylizeTrainer``;
-reference: stylize.py:31-217). The NeRF-Art two-phase structure stays:
+reference: stylize.py:31-217). Two samplers: "parity" (the JAX package's
+default: the 64+64 importance render with jittered stratified samples and
+fd7 normals, ``rcfg``) and "fast" (the occupancy-guided K-sample render
+against a density grid that the trainer refreshes, prunes and
+clip-guards). The NeRF-Art two-phase structure stays:
 
 * **Phase A** (no gradients): render the full (subsampled) frame through the
   style field, then the SDS image-space gradient (``SDSGuidance``).
@@ -15,7 +19,11 @@ reference: stylize.py:31-217). The NeRF-Art two-phase structure stays:
 The camera, background and prompt schedule draws from a
 ``numpy.random.Generator`` in the JAX package's order, so one seed gives the
 same poses, head boxes, view order, backgrounds and stride offsets. SDS's t
-and noise and the noise backgrounds draw from a ``torch.Generator``.
+and noise, the noise backgrounds and the parity sampler's stratified
+jitter draw from a ``torch.Generator`` (``draw_jitter``: one draw per
+render call of phase A and one per phase-B patch, which the patch's
+styled render and its ground-truth render share, as the JAX package passes
+one key to both).
 
 The finest grid stays row-sharded (``parallel/table_mp.py``), as in the
 fast reconstruction trainer: once per SDS step the shards are gathered
@@ -23,7 +31,8 @@ fast reconstruction trainer: once per SDS step the shards are gathered
 reads them detached, and every phase-B patch backpropagates into a detached
 copy of them (cast to the field's table dtype per patch, so each patch's
 table cotangent is rounded as the JAX package rounds it, and the patches add
-in f32). One backward through the packing then carries the step's table
+in f32); a hash-grid field's detached copies include the table itself, which
+its hashed levels read. One backward through the packing then carries the step's table
 gradient to the rest of the tree and, through ``reduce_scatter_rows``, to
 the shards: one gather and one reduce-scatter per step. The frozen
 ground-truth field is gathered and packed once, at setup.
@@ -32,10 +41,8 @@ Profiler ranges: ``stylize.gather``, ``stylize.phaseA``, ``stylize.vae``
 (the resize and the encode), ``stylize.sds`` (the UNet's classifier-free
 pair and the guided gradient), ``stylize.vae`` again (the encode's
 pullback), ``stylize.phaseB`` (the patches, the packing's backward and
-Adam) and ``stylize.refresh`` (grid refresh, floater pruning, clip guard).
-
-The parity sampler (64+64 importance sampling, ``make_phaseA_render`` /
-``make_phaseB_step``) comes with the parity pipeline (ROADMAP item 19).
+Adam) and ``stylize.refresh`` (grid refresh, floater pruning, clip guard;
+the fast sampler only).
 """
 
 from __future__ import annotations
@@ -59,13 +66,15 @@ from avatarcraft_tpu_torch.constants import (
 )
 from avatarcraft_tpu_torch.models.diffusion import SDSGuidance
 from avatarcraft_tpu_torch.models.instant_nsr import (
-    _DTYPES,
     FastRenderConfig,
     FieldConfig,
+    RenderConfig,
     count_fast_samples,
     materialize_field_tables,
     network_field_fns,
+    render_rays,
     render_rays_fast,
+    table_dtype,
 )
 from avatarcraft_tpu_torch.ops.occupancy import prune_grid_floaters
 from avatarcraft_tpu_torch.parallel.ring import all_gather_table
@@ -74,8 +83,7 @@ from avatarcraft_tpu_torch.utils.background import select_background
 from avatarcraft_tpu_torch.utils.checkpoint import leaves, map_leaves
 from avatarcraft_tpu_torch.workloads.reconstruct import make_grid_update_fn, smooth_l1
 
-PARITY_REFUSAL = ("the parity sampler of stylize is not ported yet (ROADMAP item 19, parity pipeline); "
-                  "use sampler 'fast'")
+SAMPLERS = ("parity", "fast")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,11 +109,11 @@ class StylizeConfig:
     augment_text: bool = True
     white_bkg: bool = True
     seed: int = 42
-    # "fast" = occupancy-guided K-sample rendering against a density grid,
-    # refreshed during training since SDS reshapes the geometry; the JAX
-    # package's default, "parity", is not ported yet (ROADMAP item 19)
-    sampler: str = "fast"
-    grid_update_every: int = 200
+    # "parity" = the reference 64+64 importance pipeline; "fast" =
+    # occupancy-guided K-sample rendering against a density grid, refreshed
+    # during training since SDS reshapes the geometry
+    sampler: str = "parity"
+    grid_update_every: int = 200  # fast sampler only
     # at every grid refresh keep only the occupied components connected to
     # the previous grid's occupancy (ops/occupancy.prune_grid_floaters)
     prune_floaters: bool = True
@@ -114,6 +122,110 @@ class StylizeConfig:
 def cast_tables(packed: dict, dtype: torch.dtype) -> dict:
     """The packed lookup tables cast to ``dtype`` (the field's table dtype)."""
     return map_leaves(packed, lambda t: t.to(dtype))
+
+
+def table_field(params: dict, tables: dict, fcfg: FieldConfig, bound: float):
+    """(params, FieldFns) of a field that reads its lookup tables from
+    ``tables`` (f32 leaves, cast here to the field's table dtype): a
+    hash-grid field's table too, which ``params`` then carries."""
+    tables = cast_tables(tables, table_dtype(fcfg))
+    if "table" in tables:
+        params = {**params, "table": tables["table"]}
+    return params, network_field_fns(params, fcfg, bound, tables)
+
+
+def draw_jitter(n: int, rcfg: RenderConfig, generator: torch.Generator | None, device) -> torch.Tensor | None:
+    """The stratified jitter U(0, 1) [n, num_steps] of one ``n``-ray render
+    call through ``rcfg`` (None without ``rcfg.perturb``)."""
+    if not rcfg.perturb:
+        return None
+    return torch.rand((n, rcfg.num_steps), generator=generator, device=device)
+
+
+def make_phaseA_render(fcfg: FieldConfig, rcfg: RenderConfig, chunk: int,
+                       generator: torch.Generator | None = None):
+    """phaseA(params, rays_o [N,3], rays_d [N,3], bg [N,3], packed=None) ->
+    (rgb [N,3], depth [N]): the 64+64 full-frame render through ``rcfg`` in
+    ``chunk``-ray calls, without gradients, each call's jitter drawn from
+    ``generator`` (the JAX package's make_phaseA_render). ``packed``: the
+    field's lookup tables in its table dtype (built from ``params`` when
+    omitted)."""
+
+    @torch.no_grad()
+    def phaseA(params, rays_o, rays_d, bg, packed=None):
+        n = rays_o.shape[0]
+        if n % chunk:
+            raise ValueError(f"{n} rays are not a whole number of {chunk}-ray chunks")
+        field = network_field_fns(params, fcfg, rcfg.bound, packed)
+        rgb, depth = [], []
+        for i in range(0, n, chunk):
+            out = render_rays(params, rays_o[i : i + chunk], rays_d[i : i + chunk], fcfg, rcfg, bg[i : i + chunk],
+                              field=field, jitter=draw_jitter(chunk, rcfg, generator, rays_o.device))
+            rgb.append(out["rgb"])
+            depth.append(out["depth"])
+        return torch.cat(rgb), torch.cat(depth)
+
+    return phaseA
+
+
+def clip01(x: torch.Tensor) -> torch.Tensor:
+    """x clipped to [0, 1] with ``jnp.clip``'s gradient: half of it where x
+    lies on a bound (torch.clamp passes all of it). A weight sum of exactly
+    1.0 is common where a ray saturates."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+
+
+def _opacity_term(out, out_gt) -> torch.Tensor:
+    return smooth_l1(clip01(out["weight_sum"]), clip01(out_gt["weight_sum"]))
+
+
+def _accumulate_patches(patch_loss, chunk: int):
+    """step(params, tables, gt, rays_o, rays_d, g_rgb, bg, *grid) over the
+    ``chunk``-ray patches (``grid``: the fast sampler's density grid, none
+    for parity): each patch's loss and its backward; returns the summed
+    loss (detached)."""
+
+    def step(params, tables, gt, rays_o, rays_d, g_rgb, bg, *grid):
+        n = rays_o.shape[0]
+        if n % chunk:
+            raise ValueError(f"{n} rays are not a whole number of {chunk}-ray patches")
+        total = torch.zeros((), device=rays_o.device)
+        for i in range(0, n, chunk):
+            sl = slice(i, i + chunk)
+            loss = patch_loss(params, tables, gt, rays_o[sl], rays_d[sl], g_rgb[sl], bg[sl], *grid)
+            loss.backward()
+            total += loss.detach()
+        return total
+
+    return step
+
+
+def make_phaseB_step(fcfg: FieldConfig, rcfg: RenderConfig, w_eikonal: float, use_opacity: bool, chunk: int,
+                     w_opacity: float = 1e5, generator: torch.Generator | None = None):
+    """step(params, tables, gt, rays_o, rays_d, g_rgb, bg) -> the
+    summed patch loss (detached), the 64+64 render through ``rcfg`` in
+    ``chunk``-ray patches (the JAX package's make_phaseB_step): for each,
+    the loss <rgb, g> + reg_scale (w_eikonal eikonal + w_opacity smooth_l1(
+    clip(opacity), clip(opacity of the ground truth))) and its backward,
+    which adds into the .grad of ``params``' MLP and variance leaves and of
+    ``tables`` (f32 leaves, cast to the field's table dtype per patch).
+    ``gt``: (params, FieldFns) of the frozen ground truth, rendered with the
+    patch's own jitter (one draw from ``generator`` per patch). reg_scale =
+    chunk/4096 (make_phaseB_step_fast)."""
+    reg_scale = chunk / 4096.0
+
+    def patch_loss(params, tables, gt, ro, rd, g, bg):
+        jitter = draw_jitter(ro.shape[0], rcfg, generator, ro.device)
+        params, field = table_field(params, tables, fcfg, rcfg.bound)
+        out = render_rays(params, ro, rd, fcfg, rcfg, bg, field=field, jitter=jitter)
+        loss = torch.sum(out["rgb"] * g) + reg_scale * w_eikonal * out["gradient_error"]
+        if use_opacity:
+            with torch.no_grad():
+                out_gt = render_rays(gt[0], ro, rd, fcfg, rcfg, bg, field=gt[1], jitter=jitter)
+            loss = loss + reg_scale * w_opacity * _opacity_term(out, out_gt)
+        return loss
+
+    return _accumulate_patches(patch_loss, chunk)
 
 
 def make_phaseA_render_fast(fcfg: FieldConfig, fast_cfg: FastRenderConfig, chunk: int):
@@ -151,34 +263,18 @@ def make_phaseB_step_fast(fcfg: FieldConfig, fast_cfg: FastRenderConfig, w_eikon
     chunk/4096 keeps the reference's SDS:regularizer balance at other patch
     sizes (the SDS term sums over rays, the regularizers are means)."""
     reg_scale = chunk / 4096.0
-    table_dtype = _DTYPES[fcfg.packed_dtype]
 
-    def patch_loss(params, packed, gt, ro, rd, g, bg, grid):
-        field = network_field_fns(params, fcfg, fast_cfg.bound, packed)
+    def patch_loss(params, tables, gt, ro, rd, g, bg, grid):
+        params, field = table_field(params, tables, fcfg, fast_cfg.bound)
         out = render_rays_fast(params, ro, rd, fcfg, fast_cfg, grid, bg, field)
         loss = torch.sum(out["rgb"] * g) + reg_scale * w_eikonal * out["gradient_error"]
         if use_opacity:
             with torch.no_grad():
                 out_gt = render_rays_fast(gt[0], ro, rd, fcfg, fast_cfg, grid, bg, gt[1])
-            op_pred = torch.clamp(out["weight_sum"], 0.0, 1.0)
-            op_gt = torch.clamp(out_gt["weight_sum"], 0.0, 1.0)
-            loss = loss + reg_scale * w_opacity * smooth_l1(op_pred, op_gt)
+            loss = loss + reg_scale * w_opacity * _opacity_term(out, out_gt)
         return loss
 
-    def step(params, tables, gt, rays_o, rays_d, g_rgb, bg, grid):
-        n = rays_o.shape[0]
-        if n % chunk:
-            raise ValueError(f"{n} rays are not a whole number of {chunk}-ray patches")
-        total = torch.zeros((), device=rays_o.device)
-        for i in range(0, n, chunk):
-            sl = slice(i, i + chunk)
-            loss = patch_loss(params, cast_tables(tables, table_dtype), gt, rays_o[sl], rays_d[sl],
-                              g_rgb[sl], bg[sl], grid)
-            loss.backward()
-            total += loss.detach()
-        return total
-
-    return step
+    return _accumulate_patches(patch_loss, chunk)
 
 
 def make_optimizer(lr: float, params) -> torch.optim.Adam:
@@ -225,10 +321,12 @@ def frozen_ground_truth(params_gt: dict, fcfg: FieldConfig, bound: float):
 def gather_packed(rest: dict, shards, splice, fcfg: FieldConfig):
     """(params, packed32, tables): a step's parameter tree with the table
     gathered (through autograd), its lookup tables packed in f32 (through
-    autograd), and detached f32 copies of those tables that require grad,
-    for the patches to backpropagate into."""
+    autograd; a hash grid's table among them), and detached f32 copies of
+    those tables that require grad, for the patches to backpropagate into."""
     params = splice(rest, all_gather_table(shards))
     packed32 = materialize_field_tables(params, dataclasses.replace(fcfg, packed_dtype="float32"))
+    if "table" in params:
+        packed32 = {**packed32, "table": params["table"]}
     tables = map_leaves(packed32, lambda t: t.detach().requires_grad_())
     return params, packed32, tables
 
@@ -257,9 +355,12 @@ class StylizeTrainer:
 
     ``params_style`` / ``params_gt``: parameter trees of the canonical field
     (the trainer trains clones of ``params_style``; ``params_gt`` is the
-    frozen reference of the opacity loss). ``grid``: the density grid of the
-    fast sampler (refreshed from the field when None), re-refreshed every
-    ``cfg.grid_update_every`` SDS steps because SDS reshapes the geometry.
+    frozen reference of the opacity loss). ``cfg.sampler`` "parity" renders
+    through ``rcfg``: 64+64 samples, stratified jitter, fd7 normals, even on
+    an artifact trained with another estimator (the JAX package honours the
+    provenance only for the fast sampler). "fast": ``grid`` is the density
+    grid (refreshed from the field when None), re-refreshed every
+    ``cfg.grid_update_every`` SDS steps because SDS reshapes the geometry;
     ``fast_cfg``: the fast render's settings (its ``sample_budget`` from
     ``cli.stylize_cli.derive_sample_budget``)."""
 
@@ -273,32 +374,48 @@ class StylizeTrainer:
 
     def __post_init__(self):
         c = self.cfg
-        if c.sampler != "fast":
-            raise NotImplementedError(PARITY_REFUSAL)
+        if c.sampler not in SAMPLERS:
+            raise ValueError(f"unknown sampler {c.sampler!r} (one of {', '.join(SAMPLERS)})")
+        self.fast = c.sampler == "fast"
         self.rest, self.shards, self.splice = trainable_shards(self.params_style)
         self.params_style = None  # the trainer's copy is (rest, shards): params()
         self.device = self.shards[0].device
         self.opt = make_optimizer(c.lr, leaves(self.rest) + self.shards)
         self.rng = np.random.default_rng(c.seed)
         self.generator = torch.Generator(self.device).manual_seed(c.seed)
-        if self.fast_cfg is None:
+        self.rcfg = RenderConfig(num_steps=64, upsample_steps=64, bound=NSR_BOUND, perturb=True)
+        if self.fast and self.fast_cfg is None:
             self.fast_cfg = FastRenderConfig(bound=NSR_BOUND)
         self._phaseA = {}
         self._phaseB = self._make_phaseB()
-        self._refresh_grid = make_grid_update_fn(self.fcfg, NSR_BOUND)
         with record_function("stylize.gather"):
-            self.gt = frozen_ground_truth(self.params_gt, self.fcfg, self.fast_cfg.bound)
+            self.gt = frozen_ground_truth(self.params_gt, self.fcfg, NSR_BOUND)
         self.params_gt = self.gt[0]
-        if self.grid is None:
-            self.grid = self._refresh_grid(self.params(), torch.zeros((129,) * 3, device=self.device))
+        if self.fast:
+            self._refresh_grid = make_grid_update_fn(self.fcfg, NSR_BOUND)
+            if self.grid is None:
+                self.grid = self._refresh_grid(self.params(), torch.zeros((129,) * 3, device=self.device))
         self._step_count = 0
         self._text_cache: dict[str, torch.Tensor] = {}
         self.stats = {"refreshes": 0, "clip_guard_trips": 0}
 
+    def _make_phaseA(self, chunk: int):
+        if self.fast:
+            return make_phaseA_render_fast(self.fcfg, self.fast_cfg, chunk)
+        return make_phaseA_render(self.fcfg, self.rcfg, chunk, self.generator)
+
     def _make_phaseB(self):
         c = self.cfg
-        return make_phaseB_step_fast(self.fcfg, self.fast_cfg, c.w_eikonal, c.use_opacity, c.batch_size,
-                                     c.w_opacity)
+        if self.fast:
+            return make_phaseB_step_fast(self.fcfg, self.fast_cfg, c.w_eikonal, c.use_opacity, c.batch_size,
+                                         c.w_opacity)
+        return make_phaseB_step(self.fcfg, self.rcfg, c.w_eikonal, c.use_opacity, c.batch_size, c.w_opacity,
+                                self.generator)
+
+    def _grid(self) -> tuple:
+        """The fast phases' density grid argument (the parity phases take
+        none: their jitter generator is bound when they are built)."""
+        return (self.grid,) if self.fast else ()
 
     def params(self) -> dict:
         """The current full parameter tree (detached, the table gathered)."""
@@ -337,13 +454,12 @@ class StylizeTrainer:
         self.opt.zero_grad(set_to_none=True)
         with record_function("stylize.gather"):  # all_gather_rows
             params, packed32, tables = gather_packed(self.rest, self.shards, self.splice, self.fcfg)
-        table_dtype = _DTYPES[self.fcfg.packed_dtype]
         with record_function("stylize.phaseA"):
             if chunk not in self._phaseA:
-                self._phaseA[chunk] = make_phaseA_render_fast(self.fcfg, self.fast_cfg, chunk)
+                self._phaseA[chunk] = self._make_phaseA(chunk)
             with torch.no_grad():
-                rgb_full, depth_full = self._phaseA[chunk](params, rays_o, rays_d, bg, self.grid,
-                                                           cast_tables(tables, table_dtype))
+                rgb_full, depth_full = self._phaseA[chunk](params, rays_o, rays_d, bg, *self._grid(),
+                                                           packed=cast_tables(tables, table_dtype(self.fcfg)))
         img = rgb_full.reshape(1, th, tw, 3).permute(0, 3, 1, 2)
         # SD 2.0-depth conditions the UNet on the frame's depth
         pred_depth = depth_full.reshape(1, 1, th, tw) if self.guidance.m.use_depth else None
@@ -354,11 +470,11 @@ class StylizeTrainer:
             g_rgb = g_img.permute(0, 2, 3, 1).reshape(-1, 3)
             if chunk != c.batch_size:
                 raise ValueError(f"a {th}x{tw} frame is smaller than one {c.batch_size}-ray patch")
-            loss = self._phaseB(params, tables, self.gt, rays_o, rays_d, g_rgb, bg, self.grid)
+            loss = self._phaseB(params, tables, self.gt, rays_o, rays_d, g_rgb, bg, *self._grid())
             backward_through_packing(packed32, tables)
             self.opt.step()
         self._step_count += 1
-        if c.grid_update_every and self._step_count % c.grid_update_every == 0:
+        if self.fast and c.grid_update_every and self._step_count % c.grid_update_every == 0:
             with record_function("stylize.refresh"):
                 new_grid = self._refresh_grid(self.params(), self.grid)
                 if c.prune_floaters:

@@ -1,7 +1,7 @@
-"""Animation and shape interpolation: the warped fast render of a canonical
+"""Animation and shape interpolation: the warped renders of a canonical
 field. Port of the JAX package's workloads/warp_render.py (``da_pose``,
-``calc_local_trans``, ``WarpRenderSettings``, ``derive_warp_budget``,
-``make_warp_frame_renderer_fast``).
+``calc_local_trans``, ``WarpRenderSettings``, ``make_warp_frame_renderer``,
+``derive_warp_budget``, ``make_warp_frame_renderer_fast``).
 
 calc_local_trans (reference: render_warp.py:127-222) composes, per frame,
 the canonical (rest pose, beta = 0) -> posed (target pose and shape) chain
@@ -11,8 +11,11 @@ the canonical (rest pose, beta = 0) -> posed (target pose and shape) chain
 
 with T_shape a translation-only blend-shape displacement. It runs the SMPL
 functions on the CPU and composes in numpy f32, where the JAX package uses
-numpy. The frame renderer then voxelizes the posed body into a density
-grid, and only the samples that grid selects pay the kNN warp and the field.
+numpy. The parity frame renderer (the JAX package's default) bounds each
+ray by the spheres around the posed vertices and renders 32+32 importance
+samples, every one of them warped; the fast one voxelizes the posed body
+into a density grid, and only the samples that grid selects pay the kNN
+warp and the field.
 """
 
 from __future__ import annotations
@@ -27,16 +30,16 @@ from avatarcraft_tpu_torch.constants import DEFAULT_GEO_THRESH, NSR_BOUND, SMPL_
 from avatarcraft_tpu_torch.models.instant_nsr import (
     FastRenderConfig,
     FieldConfig,
+    RenderConfig,
     count_fast_samples,
-    materialize_field_tables,
-    network_field_fns,
+    render_rays,
     render_rays_fast,
 )
 from avatarcraft_tpu_torch.models.smpl import SMPLParams, smpl_forward, verts_transformations
 from avatarcraft_tpu_torch.ops.occupancy import voxelize_verts
-from avatarcraft_tpu_torch.parallel.ring import all_gather_table
 from avatarcraft_tpu_torch.parallel.table_mp import shard_grid_rows
-from avatarcraft_tpu_torch.warp import WarpData, make_warp_fn
+from avatarcraft_tpu_torch.warp import WarpData, geometry_guided_near_far, make_warp_fn
+from avatarcraft_tpu_torch.workloads.canonical_render import gathered_field
 
 # the fast warp render's probe pass and posed-body grid (the JAX package's
 # make_warp_frame_renderer_fast defaults, which its CLI and bench use)
@@ -138,13 +141,15 @@ def calc_local_trans(
 
 @dataclasses.dataclass(frozen=True)
 class WarpRenderSettings:
-    """The fast warp render's settings (the parity render's num_steps and
-    upsample_steps come with it, ROADMAP item 19)."""
+    """The warp renders' settings: the parity render's samples, and the
+    fast render's normal estimator."""
 
+    num_steps: int = 32  # reference: render_warp.py:104-105
+    upsample_steps: int = 32
     bound: float = NSR_BOUND
     chunk: int = 8192  # rays per chunk (reference: render_warp.py:93, 64*128)
     geo_threshold: float = DEFAULT_GEO_THRESH
-    normal_mode: str = "fd4"  # the JAX package's fast warp render: fd4
+    normal_mode: str = "fd4"  # the fast render's (the JAX package's fast warp render: fd4)
 
 
 def _fast_config(settings: WarpRenderSettings, sample_budget: int = 0) -> FastRenderConfig:
@@ -177,6 +182,42 @@ def derive_warp_budget(world_verts: list, rays_o: torch.Tensor, rays_d: torch.Te
     return int(warp_worst_count(world_verts, rays_o, rays_d, settings) * BUDGET_SAFETY)
 
 
+def make_warp_frame_renderer(params: dict, fcfg: FieldConfig, settings: WarpRenderSettings, bg_value: float = 1.0):
+    """render(rays_o [n,3], rays_d [n,3], warp_data) -> rgb [n,3] of one
+    animation frame through the 64+64 pipeline's render at
+    ``settings.num_steps`` + ``settings.upsample_steps`` samples (rounds of
+    16, no jitter, fd7 normals), on the device of ``params`` and the rays
+    (the JAX package's make_warp_frame_renderer).
+
+    Per frame: gather the row-sharded table and build the lookup tables
+    once; then, in chunks of ``settings.chunk`` rays, bound each ray by the
+    spheres around the posed vertices (geometry_guided_near_far) and render
+    it through render_rays with the kNN warp, which warps every sample.
+    ``n`` must be a multiple of the chunk."""
+    params_rest, shards, splice = shard_grid_rows(params)
+    rcfg = RenderConfig(num_steps=settings.num_steps, upsample_steps=settings.upsample_steps, upsample_round=16,
+                        bound=settings.bound, perturb=False)
+
+    @torch.no_grad()
+    def render(rays_o: torch.Tensor, rays_d: torch.Tensor, warp_data: WarpData) -> torch.Tensor:
+        n = rays_o.shape[0]
+        chunk = min(settings.chunk, n)
+        if n % chunk:
+            raise ValueError(f"{n} rays are not a whole number of {chunk}-ray chunks")
+        full, field = gathered_field(params_rest, shards, splice, fcfg, settings.bound)
+        warp_fn = make_warp_fn(warp_data, settings.geo_threshold)
+        rgb = []
+        for i in range(0, n, chunk):
+            ro, rd = rays_o[i : i + chunk], rays_d[i : i + chunk]
+            with record_function("render.near_far"):
+                near_far = geometry_guided_near_far(ro, rd, warp_data.verts, settings.geo_threshold)
+            rgb.append(render_rays(full, ro, rd, fcfg, rcfg, bg_value, near_far=near_far, warp_fn=warp_fn,
+                                   field=field)["rgb"])
+        return torch.cat(rgb)
+
+    return render
+
+
 def make_warp_frame_renderer_fast(params: dict, fcfg: FieldConfig, settings: WarpRenderSettings,
                                   sample_budget: int, bg_value: float = 1.0):
     """render(rays_o [n,3], rays_d [n,3], warp_data) -> rgb [n,3] of one
@@ -200,10 +241,7 @@ def make_warp_frame_renderer_fast(params: dict, fcfg: FieldConfig, settings: War
         chunk = min(settings.chunk, n)
         if n % chunk:
             raise ValueError(f"{n} rays are not a whole number of {chunk}-ray chunks")
-        with record_function("render.gather"):  # the all_gather_rows kernel
-            full = splice(params_rest, all_gather_table(shards))
-        with record_function("render.materialize"):
-            field = network_field_fns(full, fcfg, settings.bound, materialize_field_tables(full, fcfg))
+        full, field = gathered_field(params_rest, shards, splice, fcfg, settings.bound)
         with record_function("render.voxelize"):  # K6
             grid = voxelize_verts(warp_data.verts, settings.bound, GRID_RESOLUTION)
         warp_fn = make_warp_fn(warp_data, settings.geo_threshold)

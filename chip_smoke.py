@@ -170,7 +170,49 @@ Phases, each printed with its start, end and wall seconds:
               once on the artifact's field (SDF lattice, native marching
               cubes), and at 128^3 the native extractor held against the
               numpy plain version (the same triangle count, the sorted
-              vertices within 1e-4), both timed.
+              vertices within 1e-4), both timed. Its dataset and the parity
+              run's hash-grid checkpoint stay for the parity phases;
+20. parity_render -- the canonical CLI (cli.render_canonical_cli.main) at
+              its defaults, --sampler parity (64+64, no jitter, the
+              artifact's fd4, 4096-ray chunks), PARITY_ORBIT frames of each
+              orbit at 256x256: every PNG shows the body, one gather per
+              frame, counted exactly; ms per frame. Then a 32x32 frame with
+              f32 tables on the card and the CPU: all but 5% of the values
+              within 1e-4, every value within 1e-2;
+21. parity_warp -- the warp CLI (cli.render_warp_cli.main) at its defaults,
+              --sampler parity (geometry-guided bounds, 32+32 samples all
+              warped, fd7), the artifact on the demo body in 2 demo poses
+              at 128x128 from view 58 of the reconstruct dataset: every PNG
+              a body on white, one gather per frame; ms per frame and peak
+              memory. Then demo frame 10 at 16x16 from the warp bench's
+              camera on the card and the CPU: all but 5% of the values
+              within 2e-3, every value within 1e-2;
+22. parity_stylize -- the stylize CLI at its defaults (--sampler parity:
+              64+64 with jitter, fd7; the toy guidance, lava) on the
+              artifact for 3 coarse SDS steps, the last with the validation
+              PNG and a 512^3 mesh, then a fine trainer (256x256, 16
+              patches) for 2 steps, the first step of each stage a warm-up
+              and one more of each profiled; every loss and gradient
+              finite; one gather and one reduce-scatter per step, plus a
+              gather each for the ground truth, the validation render, the
+              mesh and the final save, counted exactly; the PNG, the .ply
+              and the final checkpoint, which loads as the trainer's
+              parameters. Prints SDS steps/s, device ms per stylize.* range
+              and peak memory per stage. Then the reference chain: the
+              reconstruct phase's hash-grid checkpoint through one parity
+              step of the stylize CLI and one parity frame of the warp CLI
+              (4 gathers and 1 reduce-scatter);
+23. parity_multi -- MultiPromptTrainer with the parity sampler on the
+              artifact at P = 2 (lava, emerald), 2 coarse steps: P gathers
+              and P reduce-scatters a step, plus the ground truth's gather;
+24. parity_card_vs_cpu -- a reduced-width pyramid field (grids 16/32,
+              planes 64/128, f32 tables) on a 128x128 view (a 32x32 coarse
+              frame, one 1024-ray patch, with jitter drawn once on the CPU
+              for both): one parity SDS step and one multi-prompt step at
+              P = 2, t and the noise injected, stage by stage at
+              stylize_card_vs_cpu's bounds, the variance's gradient at
+              1e-1 x max|g| (it moves by 3.5e-2 when the parameters move
+              by one ulp).
 
 Before the last line it prints one JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -195,7 +237,7 @@ import torch
 import avatarcraft_tpu_torch
 from avatarcraft_tpu_torch import bench, profile_train
 from avatarcraft_tpu_torch.cameras import dataset_rays, pose2rays, pose_spherical
-from avatarcraft_tpu_torch.cli import reconstruct_cli, stylize_cli
+from avatarcraft_tpu_torch.cli import reconstruct_cli, render_canonical_cli, render_warp_cli, stylize_cli
 from avatarcraft_tpu_torch.constants import CANONICAL_CAMERA_DIST_TRAIN, CANONICAL_ZOOM_FACTOR, NSR_BOUND
 from avatarcraft_tpu_torch.data import SMPLMultiviewDataset
 from avatarcraft_tpu_torch.models import sd
@@ -211,6 +253,7 @@ from avatarcraft_tpu_torch.models.instant_nsr import (
 )
 from avatarcraft_tpu_torch.models.sd import unet_apply
 from avatarcraft_tpu_torch.ops.grid_encoder import scatter_rows
+from avatarcraft_tpu_torch.ops.hash_encoder import HashGridSpec
 from avatarcraft_tpu_torch.models.toy_guidance import (
     load_toy_guidance,
     make_ddpm_loss,
@@ -220,16 +263,18 @@ from avatarcraft_tpu_torch.models.toy_guidance import (
 )
 from avatarcraft_tpu_torch.parallel import ring
 from avatarcraft_tpu_torch.parallel.table_mp import TableMPTrainStep, trainable_shards
-from avatarcraft_tpu_torch.utils.checkpoint import leaves, load_params_with_config, map_leaves
+from avatarcraft_tpu_torch.utils.checkpoint import artifact_normal_mode, leaves, load_params_with_config, map_leaves
 from avatarcraft_tpu_torch.tools import run_multi_stylize
 from avatarcraft_tpu_torch.utils import cuda_build, marching_cubes as mc, native, style_delta
 from avatarcraft_tpu_torch.utils.metrics import integerify_img
-from avatarcraft_tpu_torch.utils.png import write_png
+from avatarcraft_tpu_torch.utils.png import read_png, write_png
 from avatarcraft_tpu_torch.utils.device import card_line
 from avatarcraft_tpu_torch.utils.timing import cold_device_ms, cuda_ms, cuda_ms_cold, device_names
 from avatarcraft_tpu_torch.warp import WarpData
 from avatarcraft_tpu_torch.workloads import reconstruct
-from avatarcraft_tpu_torch.workloads.canonical_render import make_fast_frame_renderer
+from avatarcraft_tpu_torch.workloads import stylize as stylize_workload
+from avatarcraft_tpu_torch.workloads import warp_render
+from avatarcraft_tpu_torch.workloads.canonical_render import make_fast_frame_renderer, make_parity_frame_renderer
 from avatarcraft_tpu_torch.workloads.multi_stylize import MultiPromptTrainer, stack_params
 from avatarcraft_tpu_torch.workloads.stylize import StylizeConfig, StylizeTrainer
 from avatarcraft_tpu_torch.workloads.warp_render import (
@@ -254,6 +299,10 @@ REFRESH_ATOL = 512.0**2 / 4 * 1e-6
 # a refreshed grid of a field with a surface: neither empty nor saturated
 MIN_OCCUPIED_SHARE, MAX_OCCUPIED_SHARE = 1e-3, 0.5
 GRID_ROWS, GRID_COLS = 128**3, 4  # the artifact's finest grid as a table
+# the hash grid's table at the CLIs' defaults (16 levels x 2^19 rows at
+# most, 2 f32 a row): what the parity stylize and reconstruct paths gather
+# and reduce-scatter for a hash-grid field
+HASH_ROWS, HASH_COLS = HashGridSpec().total_params, HashGridSpec().level_dim
 HERE = os.path.dirname(os.path.abspath(__file__))
 LAVA_DELTA = os.path.join(HERE, "artifacts", "styled", "multi_lava_delta.npz")
 STYLED_GOLDEN = os.path.join(HERE, "tests", "golden_styled_warp_32.npy")
@@ -324,6 +373,42 @@ RECON_FAST_REFRESH = 20  # the fast run's grid warmup, refresh period and state 
 # divides an SDF difference by a bin's CDF step), which move a sample's
 # trilinear weights by up to 640 x its shift on the finest level
 HASH_GRAD_REL = 1e-2
+# the parity pipeline: the canonical CLI's frames (a body and a head orbit of
+# PARITY_ORBIT frames each at 256x256), card against CPU on a 32x32 frame
+# with f32 tables; the warp CLI's frames at 128x128 of the demo body, card
+# against CPU on a 16x16 frame. A parity frame is held per value at 1e-2,
+# and all but 1% of its values at 1e-4 (canonical, f32 tables) or all but
+# 3% at 2e-3 (warp, the fast warp frame's bound,
+# tests/test_torch_warp_render.py). Each share lies above two readings: the
+# card against the CPU on an H100 (0.2%, 6 of 3,072 values; 1.2%, 9 of
+# 768) and the share a one-ulp change of the inputs moves past the bound
+# (0.29%, the port's frame; 2.3%, the JAX package's warp frame):
+# the up-sampler's CDF inversion moves a sample by up to 10^4 x an SDF
+# difference where the CDF is flat, and the warp resolves near-ties inside
+# the body to other faces, so a pixel at a silhouette moves by up to 7.2e-3
+# when the artifact's parameters move by one ulp (the port's own 32x32
+# frame, f32 tables; the JAX package's warp frame by up to 1.1e-2;
+# tests/parity_sensitivity.py)
+PARITY_ORBIT, PARITY_RES, PARITY_CPU_RES, PARITY_CPU_ATOL = 2, 256, 32, 1e-4
+PARITY_WARP_RES, PARITY_WARP_FRAMES, PARITY_WARP_VIEW = 128, 2, 58
+PARITY_WARP_CPU_RES, PARITY_FRAME_ATOL, PARITY_FRAME_MAX = 16, 2e-3, 1e-2
+PARITY_CPU_OUTLIER_SHARE, PARITY_WARP_OUTLIER_SHARE = 0.01, 0.03
+# a parity SDS step card against CPU: the gradients per leaf at
+# stylize_card_vs_cpu's 1e-2 x max|g|, but the variance's at 1e-1: its
+# gradient, one sum over every sample, moves by up to 3.5e-2 x max|g| when
+# the field's parameters move by one ulp (the reduced-width field below,
+# on the CPU; tests/parity_sensitivity.py)
+PARITY_VARIANCE_GRAD_REL = 1e-1
+# the parity stylize CLI's coarse steps (the first a warm-up) and the fine
+# trainer's (the first a warm-up); one more of each is profiled
+PARITY_COARSE_STEPS, PARITY_FINE_STEPS = 3, 2
+# card against CPU: a reduced-width pyramid field with f32 tables and a
+# surface (the init's SDF shifted by -1), a 128x128 view whose coarse frame
+# is 32x32, one 1024-ray patch
+PARITY_SMALL_FCFG = instant_nsr.FieldConfig(
+    encoder="tpu_pyramid", packed_dtype="float32",
+    pyramid=instant_nsr.PyramidSpec(grid_resolutions=(16, 32), grid_dim=4, plane_resolutions=(64, 128), plane_dim=4))
+PARITY_SMALL_VIEW = dict(H=128, W=128, batch_size=1024)
 KERNELS = {
     ring.KERNEL: {
         "route": "cuda",
@@ -406,6 +491,8 @@ def check_gather_kernel() -> dict:
         (ring.MAX_SHARDS, torch.float16, 37, 3),  # the cap, shards at every even offset mod 16
         (3, torch.float16, 699_051, 3),  # shards 1 and 2 off by 2 and 4 bytes mod 16, over many blocks
         (5, torch.float32, 419_430, 4),  # 5 shards: spans that cross shard boundaries
+        (1, torch.float32, HASH_ROWS, HASH_COLS),  # the hash table: 8-byte rows, 8 bytes past a 16-byte multiple
+        (4, torch.float32, HASH_ROWS // 4, HASH_COLS),
     ]
     max_err = 0.0
     for n, dtype, rows, cols in cases:
@@ -464,6 +551,16 @@ def check_gather_kernel() -> dict:
         print(f"all_gather_rows n={n} [{GRID_ROWS},{GRID_COLS}] f32: " + json.dumps(t), flush=True)
         print(f"torch.cat of {n} shard(s) launches: {library_names}", flush=True)
         timings[n] = t
+    shards = [torch.randn(HASH_ROWS, HASH_COLS, generator=gen, device="cuda")]
+    ptrs, out = ring.shard_pointers(shards), torch.empty(HASH_ROWS, HASH_COLS, device="cuda")
+    t = {
+        "kernel_ms": cuda_ms(lambda: ring.launch(ptrs, out, HASH_ROWS * HASH_COLS * 4)),
+        "wrapper_ms": cuda_ms(lambda: ring.all_gather_rows(shards)),
+        "plain_ms": cuda_ms(lambda: ring.all_gather_rows_plain(shards)),
+        "library_ms": cuda_ms(lambda: torch.cat(shards, dim=0)),
+        "bound_ms": 2 * HASH_ROWS * HASH_COLS * 4 / HBM_BYTES_PER_S * 1e3,
+    }
+    print(f"all_gather_rows n=1 [{HASH_ROWS},{HASH_COLS}] f32 (the hash table): " + json.dumps(t), flush=True)
     return {"max_abs_err": max_err, **timings[1]}
 
 
@@ -493,6 +590,10 @@ def check_reduce_scatter_kernel() -> dict:
     # a table that starts 4 bytes past a 16-byte boundary
     base = torch.randn(2, 4 * 64 * 4 + 1, generator=gen, device="cuda")
     check([b[1:].view(4 * 64, 4) for b in base], 4, "m=2 n=4, misaligned")
+    # the hash table: one replica as the SDS and train steps give it, and two
+    for m in (1, 2):
+        check([torch.randn(HASH_ROWS, HASH_COLS, generator=gen, device="cuda") for _ in range(m)], 1,
+              f"m={m} n=1 [{HASH_ROWS},{HASH_COLS}], the hash table")
     print(f"reduce_scatter_rows bitwise equal to its plain version in {n_cases} cases", flush=True)
 
     timings = {}
@@ -518,6 +619,16 @@ def check_reduce_scatter_kernel() -> dict:
         }
         print(f"reduce_scatter_rows m={m} n={n} [{GRID_ROWS},{GRID_COLS}] f32: " + json.dumps(t), flush=True)
         timings[(m, n)] = t
+    cts = [torch.randn(HASH_ROWS, HASH_COLS, generator=gen, device="cuda")]
+    ptrs = ring.pointer_array(cts + [torch.empty(HASH_ROWS, HASH_COLS, device="cuda")])
+    t = {
+        "kernel_ms": cuda_ms(lambda: ring.launch_reduce_scatter(ptrs, HASH_ROWS, HASH_COLS, 1, 1)),
+        "wrapper_ms": cuda_ms(lambda: ring.reduce_scatter_rows(cts, 1)),
+        "plain_ms": cuda_ms(lambda: ring.reduce_scatter_rows_plain(cts, 1)),
+        "library_ms": cuda_ms(lambda: [c.contiguous() for c in torch.stack(cts).sum(0).chunk(1)]),
+        "bound_ms": 2 * HASH_ROWS * HASH_COLS * 4 / HBM_BYTES_PER_S * 1e3,
+    }
+    print(f"reduce_scatter_rows m=1 n=1 [{HASH_ROWS},{HASH_COLS}] f32 (the hash table): " + json.dumps(t), flush=True)
     return {"max_abs_err": max_err, **timings[(1, 1)]}
 
 
@@ -947,7 +1058,8 @@ def _sds_step_record(device: str, noise: torch.Tensor, packed_dtype: str, cpu: d
     fcfg = dataclasses.replace(fcfg, packed_dtype=packed_dtype)
     toy, tcfg, embs = load_toy_guidance(TOY_DIR, device)
     guide = SDSGuidance(make_toy_modules(toy, tcfg, embs))
-    cfg = StylizeConfig(tgt_text="lava", augment_bkg=False, coarse_epochs=1, fine_epochs=0, grid_update_every=0)
+    cfg = StylizeConfig(tgt_text="lava", augment_bkg=False, coarse_epochs=1, fine_epochs=0, grid_update_every=0,
+                        sampler="fast")
     trainer = StylizeTrainer(cfg, fcfg, guide, params, params, grid=grid, fast_cfg=fast)
     rec = {}
     sds = guide.sds_image_grad
@@ -1154,7 +1266,7 @@ def _multi_step_record(device: str, noise: torch.Tensor, cpu: dict | None = None
     fcfg = dataclasses.replace(fcfg, packed_dtype="float32")
     toy, tcfg, embs = load_toy_guidance(TOY_DIR, device)
     guide = SDSGuidance(make_toy_modules(toy, tcfg, embs))
-    cfg = StylizeConfig(augment_bkg=False, coarse_epochs=1, fine_epochs=0, grid_update_every=0)
+    cfg = StylizeConfig(augment_bkg=False, coarse_epochs=1, fine_epochs=0, grid_update_every=0, sampler="fast")
     trainer = MultiPromptTrainer(cfg, fcfg, guide, ["lava", "emerald"], stack_params([params, params]), params,
                                  grids=torch.stack([grid, grid]), fast_cfg=fast)
     rec = {}
@@ -1662,91 +1774,552 @@ def time_mesh_export() -> None:
         raise AssertionError("marching cubes: the native extractor and the numpy version differ")
 
 
-def check_reconstruct() -> dict:
+def check_reconstruct(root: str) -> dict:
     """reconstruct_cli at its defaults on a dataset written from the
-    artifact: the parity sampler (the hash grid, 64+64, fd7, batch 1600)
-    and the fast sampler (the pyramid, fd4, 128 probes) for RECON_STEPS
-    steps each, the fast one resumed from its state; the hash-grid step
-    card against CPU; the parity step's device ms per train.* range."""
+    artifact into ``root``: the parity sampler (the hash grid, 64+64, fd7,
+    batch 1600) and the fast sampler (the pyramid, fd4, 128 probes) for
+    RECON_STEPS steps each, the fast one resumed from its state; the
+    hash-grid step card against CPU; the parity step's device ms per
+    train.* range. The dataset and the parity run's checkpoint
+    (``recon_parity_checkpoint``) stay in ``root`` for the parity phases."""
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # what earlier phases still hold
-    root = tempfile.mkdtemp(prefix="recon_")
+    write_recon_dataset(root)
+    out = os.path.join(root, "out")
+    # --white_bkg false: the set is black-backed, as smpl_da_512 is, and the
+    # raw images against renders on white are the inconsistent supervision
+    # the JAX package's ReconstructConfig names
+    base = ["--data_path", root, "--out_dir", out, "--batch_size", "1600", "--mesh_resolution", str(RECON_MESH_RES),
+            "--white_bkg", "false"]
+    each = str(RECON_STEPS)
+
+    # the parity sampler: no table kernel
+    params, stats, _, launches, losses = _run_recon_cli(
+        base + ["--exp_name", "parity", "--max_steps", each, "--i_val", each, "--i_save", each, "--i_mesh", each],
+        {}, "parity")
+    if any(launches.values()):
+        raise AssertionError(f"reconstruct parity: table kernels launched: {launches}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if len(losses) != RECON_STEPS or not last < first:
+        raise AssertionError(f"reconstruct parity: {len(losses)} losses, mean of the first 5 {first}, last 5 {last}")
+    exp = os.path.join(out, "parity")
+    _expect_files(exp, [f"parity_{RECON_STEPS:04d}.png", f"parity_{RECON_STEPS:04d}.pth.tar",
+                        f"parity_{RECON_STEPS:04d}.ply", "parity_final.pth.tar"])
+    for name in (f"parity_{RECON_STEPS:04d}.pth.tar", "parity_final.pth.tar"):
+        _expect_checkpoint(os.path.join(exp, name), params)
+    print(f"reconstruct parity: mean loss of the first 5 steps {first:.6f}, last 5 {last:.6f}", flush=True)
+
+    # the fast sampler: one gather and one reduce-scatter per step, and a
+    # gather for each refresh, state save, read of the parameters by the
+    # CLI's callbacks (validation render, save, mesh) and the final tree
+    fast_argv = base + ["--sampler", "fast", "--grid_warmup_steps", str(RECON_FAST_REFRESH),
+                        "--save_state_every", str(RECON_FAST_REFRESH)]
+    params, stats, record, launches, losses = _run_recon_cli(
+        fast_argv + ["--exp_name", "fast", "--max_steps", each, "--i_val", each, "--i_save", each, "--i_mesh", each],
+        {"grid_update_every": RECON_FAST_REFRESH}, "fast")
+    refreshes = saves = RECON_STEPS // RECON_FAST_REFRESH
+    _expect_launches("reconstruct fast", launches, {ring.KERNEL: RECON_STEPS + refreshes + saves + 3 + 1,
+                                                    ring.RS_KERNEL: RECON_STEPS})
+    grid_max, grid_finite = record[RECON_FAST_REFRESH - 1][2]
+    if not (grid_finite and grid_max < 100.0):
+        raise AssertionError(f"reconstruct fast: the grid after the refresh at step {RECON_FAST_REFRESH}: "
+                             f"max {grid_max}, finite {grid_finite}")
+    exp = os.path.join(out, "fast")
+    _expect_files(exp, [f"fast_{RECON_STEPS:04d}.png", f"fast_{RECON_STEPS:04d}.pth.tar", f"fast_{RECON_STEPS:04d}.ply",
+                        "fast_final.pth.tar", "fast_grid.npy", "state_latest.pt", "state_final.pt"])
+    _expect_checkpoint(os.path.join(exp, "fast_final.pth.tar"), params)
+    print(f"reconstruct fast: grid after the refresh at step {RECON_FAST_REFRESH}: max {grid_max:.4g}; "
+          f"mean loss of the first 5 steps {np.mean(losses[:5]):.6f}, steps 15-19 {np.mean(losses[15:20]):.6f}",
+          flush=True)
+    counts = dict(launches)
+
+    # a resume from the fast run's state at step RECON_STEPS
+    end = str(RECON_STEPS + RECON_RESUME_STEPS)
+    params, stats, _, launches, losses = _run_recon_cli(
+        fast_argv + ["--exp_name", "fast_resume", "--max_steps", end, "--i_val", "100000", "--i_save", "100000",
+                     "--i_mesh", "100000", "--resume_from", os.path.join(exp, "state_latest.pt")],
+        {"grid_update_every": RECON_FAST_REFRESH}, "fast resumed")
+    _expect_launches("reconstruct fast resumed", launches, {ring.KERNEL: RECON_RESUME_STEPS + 1,
+                                                            ring.RS_KERNEL: RECON_RESUME_STEPS})
+    if stats["steps"] != RECON_STEPS + RECON_RESUME_STEPS or len(losses) != RECON_RESUME_STEPS:
+        raise AssertionError(f"reconstruct fast resumed: {stats['steps']} steps, {len(losses)} losses")
+    for k in counts:
+        counts[k] += launches[k]
+
+    ds = SMPLMultiviewDataset(root)
+    check_hash_card_vs_cpu(os.path.join(out, "parity", "parity_final.pth.tar"), ds)
+    prof = profile_train.parity_main(warmup=2, timed=6, profiled=2, print_json=False)
+    print("reconstruct parity step (profile_train --path parity): " + json.dumps(
+        {k: v for k, v in prof.items() if k != "top_kernels"}), flush=True)
+    print("reconstruct parity step top kernels: " + json.dumps(prof["top_kernels"]), flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"reconstruct: peak memory {peak / 2**30:.2f} GiB, {(peak - held) / 2**30:.2f} GiB above the "
+          f"{held / 2**30:.2f} GiB held when the phase began", flush=True)
+    time_mesh_export()
+    for name in ("fast", "fast_resume"):  # their train-state files (about 0.9 GB each)
+        shutil.rmtree(os.path.join(out, name), ignore_errors=True)
+    return counts
+
+
+def recon_parity_checkpoint(root: str) -> str:
+    """The hash-grid checkpoint that check_reconstruct's parity CLI run wrote."""
+    return os.path.join(root, "out", "parity", "parity_final.pth.tar")
+
+
+# -- the parity pipeline ------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _timed_renderer(module, name: str, record: list):
+    """Replaces ``module.<name>`` (a renderer factory) so that every call
+    of the renderers it makes appends its host seconds, ending in a
+    synchronize, to ``record``."""
+    real = getattr(module, name)
+
+    def factory(*args, **kw):
+        render = real(*args, **kw)
+
+        def call(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = render(*a)
+            torch.cuda.synchronize()
+            record.append(time.perf_counter() - t0)
+            return out
+
+        return call
+
+    setattr(module, name, factory)
     try:
-        write_recon_dataset(root)
-        out = os.path.join(root, "out")
-        # --white_bkg false: the set is black-backed, as smpl_da_512 is, and the
-        # raw images against renders on white are the inconsistent supervision
-        # the JAX package's ReconstructConfig names
-        base = ["--data_path", root, "--out_dir", out, "--batch_size", "1600", "--mesh_resolution", str(RECON_MESH_RES),
-                "--white_bkg", "false"]
-        each = str(RECON_STEPS)
-
-        # the parity sampler: no table kernel
-        params, stats, _, launches, losses = _run_recon_cli(
-            base + ["--exp_name", "parity", "--max_steps", each, "--i_val", each, "--i_save", each, "--i_mesh", each],
-            {}, "parity")
-        if any(launches.values()):
-            raise AssertionError(f"reconstruct parity: table kernels launched: {launches}")
-        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-        if len(losses) != RECON_STEPS or not last < first:
-            raise AssertionError(f"reconstruct parity: {len(losses)} losses, mean of the first 5 {first}, last 5 {last}")
-        exp = os.path.join(out, "parity")
-        _expect_files(exp, [f"parity_{RECON_STEPS:04d}.png", f"parity_{RECON_STEPS:04d}.pth.tar",
-                            f"parity_{RECON_STEPS:04d}.ply", "parity_final.pth.tar"])
-        for name in (f"parity_{RECON_STEPS:04d}.pth.tar", "parity_final.pth.tar"):
-            _expect_checkpoint(os.path.join(exp, name), params)
-        print(f"reconstruct parity: mean loss of the first 5 steps {first:.6f}, last 5 {last:.6f}", flush=True)
-
-        # the fast sampler: one gather and one reduce-scatter per step, and a
-        # gather for each refresh, state save, read of the parameters by the
-        # CLI's callbacks (validation render, save, mesh) and the final tree
-        fast_argv = base + ["--sampler", "fast", "--grid_warmup_steps", str(RECON_FAST_REFRESH),
-                            "--save_state_every", str(RECON_FAST_REFRESH)]
-        params, stats, record, launches, losses = _run_recon_cli(
-            fast_argv + ["--exp_name", "fast", "--max_steps", each, "--i_val", each, "--i_save", each, "--i_mesh", each],
-            {"grid_update_every": RECON_FAST_REFRESH}, "fast")
-        refreshes = saves = RECON_STEPS // RECON_FAST_REFRESH
-        _expect_launches("reconstruct fast", launches, {ring.KERNEL: RECON_STEPS + refreshes + saves + 3 + 1,
-                                                        ring.RS_KERNEL: RECON_STEPS})
-        grid_max, grid_finite = record[RECON_FAST_REFRESH - 1][2]
-        if not (grid_finite and grid_max < 100.0):
-            raise AssertionError(f"reconstruct fast: the grid after the refresh at step {RECON_FAST_REFRESH}: "
-                                 f"max {grid_max}, finite {grid_finite}")
-        exp = os.path.join(out, "fast")
-        _expect_files(exp, [f"fast_{RECON_STEPS:04d}.png", f"fast_{RECON_STEPS:04d}.pth.tar", f"fast_{RECON_STEPS:04d}.ply",
-                            "fast_final.pth.tar", "fast_grid.npy", "state_latest.pt", "state_final.pt"])
-        _expect_checkpoint(os.path.join(exp, "fast_final.pth.tar"), params)
-        print(f"reconstruct fast: grid after the refresh at step {RECON_FAST_REFRESH}: max {grid_max:.4g}; "
-              f"mean loss of the first 5 steps {np.mean(losses[:5]):.6f}, steps 15-19 {np.mean(losses[15:20]):.6f}",
-              flush=True)
-        counts = dict(launches)
-
-        # a resume from the fast run's state at step RECON_STEPS
-        end = str(RECON_STEPS + RECON_RESUME_STEPS)
-        params, stats, _, launches, losses = _run_recon_cli(
-            fast_argv + ["--exp_name", "fast_resume", "--max_steps", end, "--i_val", "100000", "--i_save", "100000",
-                         "--i_mesh", "100000", "--resume_from", os.path.join(exp, "state_latest.pt")],
-            {"grid_update_every": RECON_FAST_REFRESH}, "fast resumed")
-        _expect_launches("reconstruct fast resumed", launches, {ring.KERNEL: RECON_RESUME_STEPS + 1,
-                                                                ring.RS_KERNEL: RECON_RESUME_STEPS})
-        if stats["steps"] != RECON_STEPS + RECON_RESUME_STEPS or len(losses) != RECON_RESUME_STEPS:
-            raise AssertionError(f"reconstruct fast resumed: {stats['steps']} steps, {len(losses)} losses")
-        for k in counts:
-            counts[k] += launches[k]
-
-        ds = SMPLMultiviewDataset(root)
-        check_hash_card_vs_cpu(os.path.join(out, "parity", "parity_final.pth.tar"), ds)
-        prof = profile_train.parity_main(warmup=2, timed=6, profiled=2, print_json=False)
-        print("reconstruct parity step (profile_train --path parity): " + json.dumps(
-            {k: v for k, v in prof.items() if k != "top_kernels"}), flush=True)
-        print("reconstruct parity step top kernels: " + json.dumps(prof["top_kernels"]), flush=True)
-        peak = torch.cuda.max_memory_allocated()
-        print(f"reconstruct: peak memory {peak / 2**30:.2f} GiB, {(peak - held) / 2**30:.2f} GiB above the "
-              f"{held / 2**30:.2f} GiB held when the phase began", flush=True)
-        time_mesh_export()
-        return counts
+        yield record
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        setattr(module, name, real)
+
+
+def _body_png(path: str, res: int, body: bool = True) -> float:
+    """The share of foreground pixels in the PNG at ``path``, which must be
+    res x res and, with ``body``, a body over the white background."""
+    img = read_png(path)
+    fg = float((img.astype(int).sum(-1) < 3 * 250).mean())
+    if img.shape != (res, res, 3) or (body and not 0.01 <= fg <= 0.99):
+        raise AssertionError(f"{path}: shape {img.shape}, foreground share {fg}")
+    return fg
+
+
+def check_parity_render() -> dict:
+    """render_canonical_cli at its defaults (parity: 64+64, no jitter, the
+    artifact's fd4, 4096-ray chunks) on the artifact, PARITY_ORBIT frames of
+    each orbit at PARITY_RES^2: every PNG a body on white, one gather per
+    frame; ms per frame. Then a PARITY_CPU_RES^2 frame with f32 tables on the
+    card and the CPU within PARITY_CPU_ATOL."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_parity_render_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        with _timed_renderer(render_canonical_cli, "make_parity_frame_renderer", []) as frame_s:
+            render_canonical_cli.main(["--weights_path", bench.ARTIFACT_CKPT, "--render_h", str(PARITY_RES),
+                                       "--render_w", str(PARITY_RES), "--trajectory_resolution", str(PARITY_ORBIT),
+                                       "--out_dir", out_dir, "--exp_name", "parity"])
+        torch.cuda.synchronize()
+        launches = _read_launches("parity_render", [ring.KERNEL])
+        n = 2 * PARITY_ORBIT
+        _expect_launches("parity_render", launches, {ring.KERNEL: n, ring.RS_KERNEL: 0})
+        exp = os.path.join(out_dir, "canonical_360", "parity")
+        for name in sorted(os.listdir(exp)):
+            # a head close-up may fill its frame
+            _body_png(os.path.join(exp, name), PARITY_RES, body="_body_" in name)
+            if _body_png(os.path.join(exp, name), PARITY_RES, body=False) < 0.01:
+                raise AssertionError(f"parity_render: {name} shows nothing")
+        if len(frame_s) != n:
+            raise AssertionError(f"parity_render: {len(frame_s)} frames timed, {n} expected")
+        print(f"parity_render: {n} frames at {PARITY_RES}x{PARITY_RES} (64+64, "
+              f"{artifact_normal_mode(bench.ARTIFACT_CKPT) or 'fd7'}, 4096-ray chunks): "
+              f"{json.dumps([round(1e3 * t, 2) for t in frame_s])} ms (the first a warm-up); "
+              f"{1e3 * float(np.mean(frame_s[1:])):.2f} ms per frame; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card_line()})", flush=True)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    pose = bench.bench_poses()[0]
+    frames = {}
+    for device in ("cpu", "cuda"):
+        params, fcfg = load_params_with_config(bench.ARTIFACT_CKPT, device)
+        fcfg = dataclasses.replace(fcfg, packed_dtype="float32")
+        rcfg = RenderConfig(num_steps=64, upsample_steps=64, bound=NSR_BOUND, perturb=False,
+                            normal_mode=artifact_normal_mode(bench.ARTIFACT_CKPT) or "fd7")
+        ro, rd = pose2rays(PARITY_CPU_RES, PARITY_CPU_RES, pose, device=device)
+        frames[device] = make_parity_frame_renderer(params, fcfg, rcfg, chunk=PARITY_CPU_RES**2)(ro, rd)["rgb"].cpu()
+    check_parity_frame_close(frames["cuda"], frames["cpu"], PARITY_CPU_ATOL, PARITY_CPU_OUTLIER_SHARE,
+                             f"parity {PARITY_CPU_RES}x{PARITY_CPU_RES} frame, f32 tables")
+    return launches
+
+
+def _warp_argv(weights: str, root: str, out_dir: str, name: str, frames: int) -> list:
+    """render_warp_cli at its defaults on the demo body, a view of the
+    dataset in ``root``, PARITY_WARP_RES^2."""
+    return ["--weights_path", weights, "--smpl_path", bench.RIG, "--poseseq_path", bench.POSES, "--data_path", root,
+            "--resolution", str(PARITY_WARP_RES), "--render_view", str(PARITY_WARP_VIEW), "--max_frames", str(frames),
+            "--out_dir", out_dir, "--exp_name", name]
+
+
+def check_parity_frame_close(card: torch.Tensor, cpu: torch.Tensor, atol: float, max_share: float,
+                             what: str) -> None:
+    """Every value within PARITY_FRAME_MAX, all but ``max_share`` of them
+    within ``atol``; the card's frame finite and not empty."""
+    d = (card - cpu).abs()
+    err, share = float(d.max()), float((d > atol).float().mean())
+    print(f"{what}, card vs CPU: max abs diff {err:.3g} (atol {PARITY_FRAME_MAX}), share above {atol}: "
+          f"{share:.4f} (at most {max_share}), mean abs diff {float(d.mean()):.3g}", flush=True)
+    if not (torch.isfinite(card).all() and err <= PARITY_FRAME_MAX and share <= max_share
+            and (card < 0.99).any()):
+        raise AssertionError(f"{what}: card and CPU differ (max {err}, share {share}), or the frame is empty")
+
+
+def check_parity_warp(root: str) -> dict:
+    """render_warp_cli at its defaults (parity: geometry-guided bounds, 32+32
+    warped samples, fd7) on the artifact animated on the demo body, view
+    PARITY_WARP_VIEW of the dataset in ``root`` at PARITY_WARP_RES^2,
+    PARITY_WARP_FRAMES frames: one gather per frame, every PNG a body on
+    white; ms per frame, peak memory. Then check_parity_warp_card_vs_cpu."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_parity_warp_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        with _timed_renderer(render_warp_cli, "make_warp_frame_renderer", []) as frame_s:
+            render_warp_cli.main(_warp_argv(bench.ARTIFACT_CKPT, root, out_dir, "parity", PARITY_WARP_FRAMES))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = _read_launches("parity_warp", [ring.KERNEL])
+        _expect_launches("parity_warp", launches, {ring.KERNEL: PARITY_WARP_FRAMES, ring.RS_KERNEL: 0})
+        exp = os.path.join(out_dir, "test_views", "parity")
+        for i in range(PARITY_WARP_FRAMES):
+            _body_png(os.path.join(exp, f"parity_{i:04d}.png"), PARITY_WARP_RES)
+        print(f"parity_warp: {PARITY_WARP_FRAMES} frames at {PARITY_WARP_RES}x{PARITY_WARP_RES} (32+32 warped, fd7, "
+              f"8192-ray chunks): {json.dumps([round(1e3 * t, 2) for t in frame_s])} ms (the first a warm-up); "
+              f"peak {peak:.2f} GiB ({card_line()})", flush=True)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    check_parity_warp_card_vs_cpu()
+    return launches
+
+
+def check_parity_warp_card_vs_cpu() -> None:
+    """Demo frame 10 through the parity warp frame renderer at
+    PARITY_WARP_CPU_RES^2 from the warp bench's camera on the card and the
+    CPU."""
+    model, world_verts, Ts = bench.demo_frames(1, first=STYLED_FRAME)
+    frames = {}
+    for device in ("cpu", "cuda"):
+        params, fcfg = load_params_with_config(bench.ARTIFACT_CKPT, device)
+        ro, rd = pose2rays(PARITY_WARP_CPU_RES, PARITY_WARP_CPU_RES, bench.warp_view(), device=device)
+        render = warp_render.make_warp_frame_renderer(params, fcfg, warp_render.WarpRenderSettings())
+        frames[device] = render(ro, rd, WarpData.create(world_verts[0], model.faces, Ts[0], device)).cpu()
+    check_parity_frame_close(frames["cuda"], frames["cpu"], PARITY_FRAME_ATOL, PARITY_WARP_OUTLIER_SHARE,
+                             f"parity warp frame {PARITY_WARP_CPU_RES}x{PARITY_WARP_CPU_RES}")
+
+
+@contextlib.contextmanager
+def _recorded_stylize_steps(record: list):
+    """StylizeTrainer.train_view wrapped: each step appends (epoch, host
+    seconds ending in a synchronize, loss, whether the loss and every
+    parameter gradient are finite)."""
+    real = StylizeTrainer.train_view
+
+    def recorded(self, pose, desc, epoch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = real(self, pose, desc, epoch)
+        torch.cuda.synchronize()
+        grads = [t.grad for t in leaves(self.rest) + self.shards]
+        finite = bool(torch.isfinite(loss)) and all(g is not None and bool(torch.isfinite(g).all()) for g in grads)
+        record.append((epoch, time.perf_counter() - t0, float(loss), finite))
+        return loss
+
+    StylizeTrainer.train_view = recorded
+    try:
+        yield record
+    finally:
+        StylizeTrainer.train_view = real
+
+
+def _ranges(prof: dict) -> str:
+    return ", ".join(f"{k} {v:.2f}" for k, v in prof["range_device_ms_per_step"].items())
+
+
+def check_parity_stylize() -> dict:
+    """The stylize CLI at its defaults (parity: 64+64 with jitter, fd7, the
+    toy guidance, lava) on the artifact for PARITY_COARSE_STEPS coarse steps,
+    the last with the validation render and a 512^3 mesh; then a fine
+    trainer for PARITY_FINE_STEPS steps; one more step of each profiled.
+    Every loss and gradient finite; one gather and one reduce-scatter per
+    step (the CLI also gathers for the ground truth, the validation render,
+    the mesh and the final save); the PNG, the .ply and the final
+    checkpoint. Returns the launches of the CLI run and the fine steps."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_parity_stylize_")
+    try:
+        with _recorded_stylize_steps([]) as record:
+            n = PARITY_COARSE_STEPS
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            with _timed_export({}) as export:
+                trainer = stylize_cli.main(profile_train.PARITY_STYLIZE_ARGV + [
+                    "--max_steps", str(n), "--i_val", str(n), "--i_save", "1000000", "--i_mesh", str(n),
+                    "--out_dir", out_dir, "--exp_name", "lava"])
+            torch.cuda.synchronize()
+            coarse_peak = torch.cuda.max_memory_allocated() / 2**30
+            cli = _read_launches("parity_stylize (CLI)", [ring.KERNEL, ring.RS_KERNEL])
+            _expect_launches("parity_stylize (CLI)", cli, {ring.KERNEL: n + 4, ring.RS_KERNEL: n})
+            if not (trainer.cfg.sampler == "parity" and trainer.grid is None and trainer.rcfg == RenderConfig(
+                    num_steps=64, upsample_steps=64, bound=NSR_BOUND, perturb=True, normal_mode="fd7")):
+                raise AssertionError(f"parity_stylize: the CLI's trainer is not the parity one: {trainer.rcfg}")
+            exp = os.path.join(out_dir, "lava")
+            _body_png(os.path.join(exp, f"lava_{n:04d}_body.png"), trainer.cfg.H)
+            nv, nf = _ply_counts(os.path.join(exp, f"lava_{n:04d}.ply"))
+            params = trainer.params()
+            loaded, _ = load_params_with_config(os.path.join(exp, "lava_final.pth.tar"), "cuda")
+            if not (nf > 0 and all(torch.equal(a, b) for a, b in zip(leaves(loaded), leaves(params)))):
+                raise AssertionError("parity_stylize: no mesh, or the final checkpoint does not load as the trainer's")
+            coarse_s = [t for _, t, _, _ in record[1:]]
+            coarse_prof = profile_train.profile_stylize_steps(trainer, 0, 1)
+
+            base, fcfg = load_params_with_config(bench.ARTIFACT_CKPT, "cuda")
+            fine_cfg = dataclasses.replace(trainer.cfg, coarse_epochs=0, fine_epochs=1)
+            fine = StylizeTrainer(fine_cfg, fcfg, trainer.guidance, base, base)
+            del trainer, params, loaded
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            first = len(record)
+            profile_train.time_stylize_steps(fine, 0, PARITY_FINE_STEPS)
+            torch.cuda.synchronize()
+            fine_launches = _read_launches("parity_stylize (fine)", [ring.KERNEL, ring.RS_KERNEL])
+            m = PARITY_FINE_STEPS
+            _expect_launches("parity_stylize (fine)", fine_launches, {ring.KERNEL: m, ring.RS_KERNEL: m})
+            fine_peak = torch.cuda.max_memory_allocated() / 2**30
+            fine_s = [t for _, t, _, _ in record[first + 1:]]
+            _, _, th, tw = fine.view_rays(bench.bench_poses()[0], 0)
+            fine_prof = profile_train.profile_stylize_steps(fine, 0, 1)
+        if (th, tw) != (PARITY_RES, PARITY_RES) or not all(ok for _, _, _, ok in record):
+            raise AssertionError(f"parity_stylize: a {th}x{tw} fine frame, or a loss or gradient not finite: {record}")
+        summary = {
+            "card": card_line(),
+            "losses": [l for _, _, l, _ in record],
+            "coarse_steps_per_sec": len(coarse_s) / sum(coarse_s),
+            "coarse_step_ms": [1e3 * t for t in coarse_s],
+            "coarse_peak_mem_gib": coarse_peak,
+            "fine_steps_per_sec": len(fine_s) / sum(fine_s),
+            "fine_step_ms": [1e3 * t for t in fine_s],
+            "fine_peak_mem_gib": fine_peak,
+            "mesh_export_s": {k: v[0] for k, v in export.items()},
+            "coarse_profile": coarse_prof,
+            "fine_profile": fine_prof,
+        }
+        print("parity_stylize: " + json.dumps(summary), flush=True)
+        for stage, prof in (("coarse", coarse_prof), ("fine", fine_prof)):
+            print(f"parity_stylize {stage}: {summary[stage + '_steps_per_sec']:.3f} SDS steps/s; device ms per step: "
+                  f"{_ranges(prof)}; idle share {prof['device_idle_share']:.3f}; peak "
+                  f"{summary[stage + '_peak_mem_gib']:.2f} GiB", flush=True)
+        return {k: cli[k] + fine_launches[k] for k in cli}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def check_reference_chain(root: str) -> dict:
+    """The reference pipeline at its defaults: the hash-grid checkpoint of
+    the reconstruct phase's parity CLI run, one parity SDS step of the
+    stylize CLI on it (toy guidance, lava), then one parity frame of the
+    styled field animated on the demo body (render_warp_cli). Returns the
+    table kernels' launches of the two CLIs."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_chain_")
+    try:
+        _reset_launches()
+        trainer = stylize_cli.main(["--weights_path", recon_parity_checkpoint(root), "--guidance_type", "toy",
+                                    "--tgt_text", "lava", "--toy_weights", TOY_DIR, "--max_steps", "1",
+                                    "--i_val", "1000000", "--i_save", "1000000", "--i_mesh", "1000000",
+                                    "--out_dir", out_dir, "--exp_name", "chain"])
+        styled = os.path.join(out_dir, "chain", "chain_final.pth.tar")
+        if trainer.fcfg.encoder != "hashgrid" or not trainer.cfg.sampler == "parity":
+            raise AssertionError(f"chain: stylized a {trainer.fcfg.encoder} field with {trainer.cfg.sampler}")
+        del trainer
+        render_warp_cli.main(_warp_argv(styled, root, out_dir, "chain", 1))
+        torch.cuda.synchronize()
+        launches = _read_launches("parity_chain", [ring.KERNEL, ring.RS_KERNEL])
+        # stylize: the ground truth, the step, the final save; the warp frame
+        _expect_launches("parity_chain", launches, {ring.KERNEL: 4, ring.RS_KERNEL: 1})
+        # a field reconstructed for RECON_STEPS steps only: its frame is written, not judged
+        fg = _body_png(os.path.join(out_dir, "test_views", "chain", "chain_0000.png"), PARITY_WARP_RES, body=False)
+        print(f"reference chain (reconstruct parity -> stylize parity -> render_warp parity): the styled hash-grid "
+              f"field animated on the demo body, foreground share {fg:.3f} of {PARITY_WARP_RES}^2", flush=True)
+        return launches
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def check_parity_multi() -> dict:
+    """MultiPromptTrainer with the parity sampler on the artifact at P = 2
+    (lava, emerald; the toy guidance; the CLI's defaults otherwise): two
+    coarse steps, the first a warm-up; P gathers and P reduce-scatters a
+    step, plus the ground truth's gather, counted exactly."""
+    params, fcfg = load_params_with_config(bench.ARTIFACT_CKPT, "cuda")
+    toy, tcfg, embs = load_toy_guidance(TOY_DIR, "cuda")
+    guide = SDSGuidance(make_toy_modules(toy, tcfg, embs))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    trainer = MultiPromptTrainer(StylizeConfig(), fcfg, guide, ["lava", "emerald"], stack_params([params, params]),
+                                 params)
+    steps, losses = [], []
+    for pose, desc in profile_train.stylize_views(trainer, 0, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.train_view(pose, desc, 0))
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    launches = _read_launches("parity_multi", [ring.KERNEL, ring.RS_KERNEL])
+    P = trainer.P
+    _expect_launches("parity_multi", launches, {ring.KERNEL: 1 + 2 * P, ring.RS_KERNEL: 2 * P})
+    losses = torch.stack(losses)
+    if trainer.grids is not None or not torch.isfinite(losses).all():
+        raise AssertionError(f"parity_multi: grids {trainer.grids}, losses {losses}")
+    print(f"parity_multi: P = {P} coarse steps {json.dumps([round(1e3 * t, 2) for t in steps])} ms (the first a "
+          f"warm-up), losses {losses.tolist()}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"({card_line()})", flush=True)
+    return launches
+
+
+def _small_parity_field(device: str) -> dict:
+    params = instant_nsr.init_field_params(torch.Generator().manual_seed(3), PARITY_SMALL_FCFG)
+    params["sdf"][-1]["b"][0] -= 1.0
+    return map_leaves(params, lambda t: t.to(device))
+
+
+@contextlib.contextmanager
+def _cpu_jitter():
+    """stylize's draw_jitter drawing from one CPU generator (seeded 7) and
+    moved to the device, so that the card and the CPU render with the same
+    jitter."""
+    real = stylize_workload.draw_jitter
+    gen = torch.Generator().manual_seed(7)
+
+    def draw(n, rcfg, generator, device):
+        return None if not rcfg.perturb else torch.rand((n, rcfg.num_steps), generator=gen).to(device)
+
+    stylize_workload.draw_jitter = draw
+    try:
+        yield
+    finally:
+        stylize_workload.draw_jitter = real
+
+
+def _parity_step_record(device: str, field, noise: torch.Tensor, prompts: list | None,
+                        cpu: dict | None = None) -> dict:
+    """One coarse parity SDS step of the field that ``field(device)``
+    returns as (params, fcfg) (a 32x32 frame, one 1024-ray patch, white,
+    with jitter) on ``device``: single-prompt (``prompts`` None) or
+    multi-prompt; t = MULTI_T[:P] and ``noise`` injected; with ``cpu`` (the
+    CPU's record) the card's SDS gradient is also computed on the CPU's
+    images, and phase B runs on the CPU's gradient. Records the gradient and
+    the updated value of every MLP and variance leaf and of the table
+    (gathered and reduce-scattered by the table kernels)."""
+    params, fcfg = field(device)
+    toy, tcfg, embs = load_toy_guidance(TOY_DIR, device)
+    guide = SDSGuidance(make_toy_modules(toy, tcfg, embs))
+    cfg = StylizeConfig(tgt_text="lava", augment_bkg=False, coarse_epochs=1, fine_epochs=0, **PARITY_SMALL_VIEW)
+    rec = {}
+    if prompts is None:
+        trainer = StylizeTrainer(cfg, fcfg, guide, params, params)
+        name, t = "sds_image_grad", SDS_T
+    else:
+        trainer = MultiPromptTrainer(cfg, fcfg, guide, prompts, stack_params([params] * len(prompts)), params)
+        name, t = "sds_image_grad_batch", MULTI_T[: len(prompts)]
+    sds = getattr(guide, name)
+
+    def injected(emb, img, gs, pred_depth=None, **kw):
+        rec["img"] = img.cpu()
+        g = sds(emb, img, gs, t_override=t, noise_override=noise.to(device))
+        rec["g"] = g.cpu()
+        if cpu is None:
+            return g
+        rec["g_same_img"] = sds(emb, cpu["img"].to(device), gs, t_override=t, noise_override=noise.to(device)).cpu()
+        return cpu["g"].to(device)
+
+    setattr(guide, name, injected)
+    poses, descs = trainer.epoch_poses(0)
+    i = int(trainer.rng.permutation(len(poses))[0])
+    with _cpu_jitter():
+        rec["loss"] = trainer.train_view(poses[i], descs[i], 0).reshape(-1).cpu()
+    fields = [(trainer.rest, trainer.shards)] if prompts is None else [(r, s) for r, s, _ in trainer.fields]
+    rec["grad"], rec["params"] = {}, {}
+    for p, (rest, shards) in enumerate(fields):
+        for k, leaf in _mlp_leaves(rest).items():
+            rec["grad"][(p, k)] = trainer.opt.state[leaf]["exp_avg"].cpu() / 0.1
+            rec["params"][(p, k)] = leaf.detach().cpu()
+        rec["grad"][(p, "table")] = torch.cat([trainer.opt.state[s]["exp_avg"] for s in shards]).cpu() / 0.1
+        rec["params"][(p, "table")] = torch.cat([s.detach() for s in shards]).cpu()
+    return rec
+
+
+def _hold_step_card_vs_cpu(what: str, card: dict, cpu: dict) -> None:
+    """stylize_card_vs_cpu's bounds on one step's records (every MLP leaf
+    and the table at TRAIN_GRAD_REL), the variance's gradient at
+    PARITY_VARIANCE_GRAD_REL."""
+    img_err = float((card["img"] - cpu["img"]).abs().max())
+    sds_err = float((card["g_same_img"] - cpu["g"]).abs().max())
+    loss_rel = float(((card["loss"] - cpu["loss"]).abs() / cpu["loss"].abs()).max())
+    per_leaf = {f"{p}.{k}": float((card["grad"][(p, k)] - g).abs().max() / g.abs().max()) if g.any()
+                else float(card["grad"][(p, k)].abs().max()) for (p, k), g in cpu["grad"].items()}
+    grad_rel = max(v for k, v in per_leaf.items() if not k.endswith(".variance"))
+    var_rel = max(v for k, v in per_leaf.items() if k.endswith(".variance"))
+    table_rel = max(v for k, v in per_leaf.items() if k.endswith(".table"))
+    per_leaf = {k: round(v, 6) for k, v in per_leaf.items() if v > 1e-3}
+    lr = StylizeConfig().lr
+    big_err, any_err = 0.0, 0.0
+    for k, g in cpu["grad"].items():
+        d = (card["params"][k] - cpu["params"][k]).abs()
+        big = g.abs() > 1e-2 * g.abs().max()
+        big_err = max(big_err, float(d[big].max()) if big.any() else 0.0)
+        any_err = max(any_err, float(d.max()))
+    print(f"{what}, card vs CPU: phase A {img_err:.3g} (atol {CARD_VS_CPU_ATOL}); SDS gradient of one image "
+          f"{sds_err:.3g} (atol {SDS_ATOL:.3g}), max |g| {float(cpu['g'].abs().max()):.3g}; losses "
+          f"{card['loss'].tolist()} / {cpu['loss'].tolist()} (rel {loss_rel:.3g}, rtol {TRAIN_LOSS_RTOL}); MLP and "
+          f"table gradients {grad_rel:.3g} x max|g| (tolerance {TRAIN_GRAD_REL}; the table's {table_rel:.3g}), the "
+          f"variance's {var_rel:.3g} (tolerance {PARITY_VARIANCE_GRAD_REL}), leaves above 1e-3 "
+          f"{json.dumps(per_leaf)}; updated parameters {big_err:.3g} where |g| > 1e-2 max|g| (atol 1e-6), "
+          f"{any_err:.3g} elsewhere (atol {2 * lr})",
+          flush=True)
+    if not (img_err <= CARD_VS_CPU_ATOL and sds_err <= SDS_ATOL):
+        raise AssertionError(f"{what}: the guidance or phase A differ")
+    if not (torch.isfinite(card["loss"]).all() and loss_rel <= TRAIN_LOSS_RTOL and grad_rel <= TRAIN_GRAD_REL
+            and var_rel <= PARITY_VARIANCE_GRAD_REL):
+        raise AssertionError(f"{what}: phase B differs")
+    if not (big_err <= 1e-6 and any_err <= 2 * lr):
+        raise AssertionError(f"{what}: the Adam step differs")
+
+
+def check_parity_card_vs_cpu(root: str) -> None:
+    """One parity SDS step (single prompt) and one multi-prompt step at
+    P = 2 of the reduced-width field, then one parity SDS step of the
+    reconstruct phase's hash-grid field (its table at the CLIs' default
+    size, f32 tables), stage by stage from the same inputs and the same
+    jitter on the card and the CPU, at stylize_card_vs_cpu's and
+    multi_card_vs_cpu's bounds."""
+
+    def small(device):
+        return _small_parity_field(device), PARITY_SMALL_FCFG
+
+    def hash_grid(device):
+        params, fcfg = load_params_with_config(recon_parity_checkpoint(root), device)
+        if fcfg.encoder != "hashgrid" or params["table"].shape != (HASH_ROWS, HASH_COLS):
+            raise AssertionError(f"the reconstruct phase's field: {fcfg.encoder} {tuple(params['table'].shape)}")
+        return params, dataclasses.replace(fcfg, packed_dtype="float32")
+
+    gen = torch.Generator().manual_seed(4)
+    for what, field, prompts in (("parity SDS step", small, None),
+                                 ("parity multi step, P = 2", small, ["lava", "emerald"]),
+                                 ("hash-grid parity SDS step", hash_grid, None)):
+        noise = torch.randn((1 if prompts is None else len(prompts), 3, 64, 64), generator=gen)
+        cpu = _parity_step_record("cpu", field, noise, prompts)
+        card = _parity_step_record("cuda", field, noise, prompts, cpu)
+        _hold_step_card_vs_cpu(what, card, cpu)
 
 
 def main() -> int:
@@ -1754,6 +2327,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"chip_smoke: {avatarcraft_tpu_torch.__name__} {avatarcraft_tpu_torch.__version__}", flush=True)
+    # the reconstruct phase's dataset and parity checkpoint, kept for the parity phases
+    recon_root = tempfile.mkdtemp(prefix="recon_")
     try:
         with Phase("device"):
             device = check_device()
@@ -1798,11 +2373,24 @@ def main() -> int:
         with Phase("sd_card_vs_cpu"):
             check_sd_card_vs_cpu()
         with Phase("reconstruct"):
-            paths["reconstruct_fast"] = check_reconstruct()
+            paths["reconstruct_fast"] = check_reconstruct(recon_root)
+        with Phase("parity_render"):
+            paths["parity_render"] = check_parity_render()
+        with Phase("parity_warp"):
+            paths["parity_warp"] = check_parity_warp(recon_root)
+        with Phase("parity_stylize"):
+            paths["parity_stylize"] = check_parity_stylize()
+            paths["parity_chain"] = check_reference_chain(recon_root)
+        with Phase("parity_multi"):
+            paths["parity_multi"] = check_parity_multi()
+        with Phase("parity_card_vs_cpu"):
+            check_parity_card_vs_cpu(recon_root)
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         print("chip_smoke: FAILED", flush=True)
         return 1
+    finally:
+        shutil.rmtree(recon_root, ignore_errors=True)
     kernels = []
     for name, meta in KERNELS.items():
         m = measured[name]

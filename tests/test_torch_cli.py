@@ -1,4 +1,6 @@
-"""The PyTorch port's CLIs: render_canonical_cli's fast sampler renders
+"""The PyTorch port's CLIs, their fast samplers (the parity samplers, the
+CLIs' defaults, are held in tests/test_torch_parity_render.py):
+render_canonical_cli's fast sampler renders
 the committed artifact to PNG on the CPU; render_warp_cli's fast sampler
 renders a small field that the port saved, animated on the synthetic body,
 from a camera of a tiny dataset written here, equal within one 8-bit level
@@ -13,13 +15,10 @@ import pytest
 from avatarcraft_tpu_torch import bench
 from avatarcraft_tpu_torch.cli import render_canonical_cli as cli
 
-ARGS = ["--weights_path", bench.ARTIFACT_CKPT, "--grid_path", bench.ARTIFACT_GRID]
+ARGS = ["--weights_path", bench.ARTIFACT_CKPT, "--grid_path", bench.ARTIFACT_GRID, "--sampler", "fast"]
 
 
-@pytest.mark.parametrize(
-    "extra,msg",
-    [(["--sampler", "parity"], "parity is not ported"), (["--mesh_devices", "2"], "mesh_devices > 1 is not ported")],
-)
+@pytest.mark.parametrize("extra,msg", [(["--mesh_devices", "2"], "mesh_devices > 1 is not ported")])
 def test_unported_options_refuse(extra, msg, tmp_path):
     with pytest.raises(SystemExit, match=msg):
         cli.main(ARGS + extra + ["--out_dir", str(tmp_path), "--use_cuda", "false"])
@@ -100,7 +99,7 @@ def test_renders_with_refreshed_grid(tmp_path, capsys):
     with open(ckpt + ".fieldcfg.json", "w") as fp:
         json.dump(side, fp)
 
-    cli.main(["--weights_path", ckpt, "--use_cuda", "false", "--render_h", "10", "--render_w", "10",
+    cli.main(["--weights_path", ckpt, "--sampler", "fast", "--use_cuda", "false", "--render_h", "10", "--render_w", "10",
               "--trajectory_resolution", "1", "--batch_size", "25", "--out_dir", str(tmp_path), "--exp_name", "r"])
     assert "refreshing the density grid" in capsys.readouterr().out
     from test_torch_guards import _read_png
@@ -140,7 +139,6 @@ def warp_inputs(tmp_path):
 
 
 @pytest.mark.parametrize("extra,msg", [
-    (["--sampler", "parity"], "parity is not ported yet \\(ROADMAP item 19"),
     (["--implicit_model", "neus"], "neus is not ported yet \\(ROADMAP item 20"),
     (["--implicit_model", "nerf"], "nerf is not ported yet \\(ROADMAP item 20"),
 ])

@@ -239,10 +239,12 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 def test_stylize_entry_points_default_to_cuda():
     """Every entry point of the stylize slice that puts tensors on a device
     takes it explicitly and defaults to ``cuda``; the trainer runs where its
-    parameters are; the CLI runs on the card unless --use_cuda false."""
+    parameters are; the CLI runs on the card unless --use_cuda false. The
+    stylize CLI and the two render CLIs default to the JAX CLIs' sampler,
+    parity."""
     import inspect
 
-    from avatarcraft_tpu_torch.cli import stylize_cli
+    from avatarcraft_tpu_torch.cli import render_canonical_cli, render_warp_cli, stylize_cli
     from avatarcraft_tpu_torch.models import diffusion, sd, toy_guidance
     from avatarcraft_tpu_torch.utils import background
 
@@ -251,7 +253,10 @@ def test_stylize_entry_points_default_to_cuda():
                sd.vae_decoder_params_from_torch, sd.clip_text_params_from_torch, sd.params_from_jax):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
     opt = stylize_cli.build_parser().parse_args([])
-    assert opt.use_cuda is True and opt.sampler == "fast"
+    assert opt.use_cuda is True and opt.sampler == "parity"
+    for render_cli in (render_canonical_cli, render_warp_cli):
+        opt = render_cli.build_parser().parse_args(["--weights_path", "w"])
+        assert opt.use_cuda is True and opt.sampler == "parity", render_cli.__name__
 
 
 def test_reconstruct_entry_points_default_to_cuda():

@@ -220,16 +220,9 @@ def test_clip_guard_trips_on_the_same_step_as_jax(monkeypatch, toy):
     assert jtr.rng.bit_generator.state == tr.rng.bit_generator.state
 
 
-def test_parity_sampler_is_refused(toy):
-    _, guide = _guides(toy)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
-        ms.MultiPromptTrainer(stylize.StylizeConfig(sampler="parity"), _port_fcfg(JAX_FCFG), guide, PROMPTS,
-                              ms.stack_params([_port(_jfield(0))] * 2), _port(_jfield(1)), grids=_t(np.stack([_grid()] * 2)))
-
-
 def test_text_embeddings_cached_per_view(toy):
     _, guide = _guides(toy)
-    tr = ms.MultiPromptTrainer(stylize.StylizeConfig(), _port_fcfg(JAX_FCFG), guide, PROMPTS,
+    tr = ms.MultiPromptTrainer(stylize.StylizeConfig(sampler="fast"), _port_fcfg(JAX_FCFG), guide, PROMPTS,
                                ms.stack_params([_port(_jfield(0))] * 2), _port(_jfield(1)),
                                grids=_t(np.stack([_grid()] * 2)))
     e = tr.text_embeddings("front view")
@@ -325,7 +318,8 @@ def test_phaseB_matches_single_prompt_trainer(toy):
     _, guide = _guides(toy)
     fcfg = _port_fcfg(JAX_FCFG)
     cfg = stylize.StylizeConfig(H=32, W=32, batch_size=64, n_cap=8, coarse_epochs=0, fine_epochs=1,
-                                w_eikonal=0.3, w_opacity=7.0, augment_bkg=False, grid_update_every=0)
+                                w_eikonal=0.3, w_opacity=7.0, augment_bkg=False, grid_update_every=0,
+                                sampler="fast")
     fast = nsr.FastRenderConfig(n_probes=32, k_samples=8)
     ps, gt = [_port(_jfield(0)), _port(_jfield(2))], _port(_jfield(1, bias=-0.8))
     grids = [_t(_grid(9)), _t(_grid(10))]

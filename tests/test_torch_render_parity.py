@@ -24,6 +24,8 @@ Tolerances:
   carry that (measured 1.1e-5 on rgb).
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -125,16 +127,21 @@ def test_render_rays_matches_jax(upsample_round, normal_mode):
 
 
 def test_render_rays_perturb_and_unported_options():
+    """The jitter draws from the generator, or is injected: the same draw
+    gives the same render. (The warp, the near/far override and the
+    curvature term, refused here before they were ported, are held against
+    JAX in tests/test_torch_parity_render.py.)"""
     _, params, fcfg = _small_field()
     ro, rd = _rays(8)
     rcfg = nsr.RenderConfig(num_steps=6, upsample_steps=6, upsample_round=3, perturb=True)
     a = nsr.render_rays(params, _t(ro), _t(rd), fcfg, rcfg, generator=torch.Generator().manual_seed(0))
     b = nsr.render_rays(params, _t(ro), _t(rd), fcfg, rcfg, generator=torch.Generator().manual_seed(0))
     assert torch.equal(a["rgb"], b["rgb"]) and torch.isfinite(a["rgb"]).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
-        nsr.render_rays(params, _t(ro), _t(rd), fcfg, nsr.RenderConfig(curvature_loss=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
-        nsr.render_rays(params, _t(ro), _t(rd), fcfg, rcfg, warp_fn=lambda pts: (pts, None, None))
+    u = torch.rand((8, 6), generator=torch.Generator().manual_seed(0))
+    c = nsr.render_rays(params, _t(ro), _t(rd), fcfg, rcfg, jitter=u)
+    assert torch.equal(a["rgb"], c["rgb"]) and torch.equal(a["z_vals"], c["z_vals"])
+    flat = nsr.render_rays(params, _t(ro), _t(rd), fcfg, dataclasses.replace(rcfg, perturb=False))
+    assert not torch.equal(a["z_vals"], flat["z_vals"])
 
 
 def hash_field(seed=0):
