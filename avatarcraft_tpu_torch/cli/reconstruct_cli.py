@@ -16,9 +16,13 @@ meshes through ``extract_geometry`` + ``save_ply``, the fast trainer's
 grid to ``<exp>_grid.npy``. Runs on the CUDA card unless ``--use_cuda
 false``.
 
+``--scan_steps S`` (fast sampler) runs S steps per call with the dataset on
+the device: on the card one step captured into a CUDA graph and replayed
+(``workloads.reconstruct.make_train_scan_fast``).
+
 Refused as the JAX package refuses them: ``--data_format neuman`` and
-``--normal_mode analytic`` for training. Refused by the port:
-``--scan_steps`` > 0 and a ``--resume_from`` naming an orbax directory.
+``--normal_mode analytic`` for training. Refused by the port: a
+``--resume_from`` naming an orbax directory.
 """
 
 from __future__ import annotations
@@ -72,7 +76,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--sample_budget", default=0, type=int,
                         help="global field-sample budget per batch (adaptive K compaction; 0 = off)")
     parser.add_argument("--scan_steps", default=0, type=int,
-                        help="optimizer steps per call; only 0 (one step per call) is ported")
+                        help="optimizer steps per jit call (lax.scan over on-device batches); 0 = one step per "
+                             "call. Pick a divisor of the grid refresh interval.")
     parser.add_argument("--grid_warmup_steps", default=2000, type=int,
                         help="steps with a saturated grid before the first real occupancy refresh (fast sampler)")
     parser.add_argument("--normal_mode", default=None, choices=["fd7", "fd4", "analytic"],
@@ -95,9 +100,6 @@ def refusal(opt) -> str | None:
         # 31 -> 1 dB in 1k steps)
         return ("--normal_mode analytic is a render-time option; training under the analytic eikonal "
                 "destroys the field. Use fd7/fd4 for training and 'analytic' only in render/eval CLIs.")
-    if opt.scan_steps > 0:
-        return ("--scan_steps > 0 (several optimizer steps per call) is not ported yet: a CUDA graph of the "
-                "step (ROADMAP item 12)")
     if opt.resume_from and os.path.isdir(opt.resume_from):
         return (f"--resume_from {opt.resume_from} is a directory (an orbax train state of the JAX package); "
                 "reading orbax checkpoints is not ported yet (ROADMAP item 24)")

@@ -11,23 +11,36 @@ against the density grid of ``--grid_path``, refreshed from the field's SDF
 when omitted. The normal estimator is ``--normal_mode``, else the
 artifact's PROVENANCE.json, else fd7 (parity) or fd4 (fast).
 
-Writes one PNG per frame under ``<out_dir>/canonical_360/<exp_name>/``.
-Flag names follow the reference; ``--use_cuda false`` renders on the CPU.
+Writes one PNG per frame and one GIF per orbit at 15 fps
+(``<exp>_{body,head}_can.gif``, ``utils.gif``) under
+``<out_dir>/canonical_360/<exp_name>/``. ``--log_extra true`` adds each
+frame's depth as a JET PNG (``_depth.png``: the depth normalised over the
+frame, the empty pixels black, cv2's BGR output written as RGB, as the JAX
+package writes it) and each orbit's intrinsics and camera-to-world poses as
+pickles. ``--encoder`` overrides the checkpoint's encoder. The flags are the
+JAX CLI's (its flag groups of the reference's options.py included), so its
+command lines parse; ``--implicit_model neus|nerf`` is refused (ROADMAP
+item 20) and ``--mesh_devices > 1`` (item 22). ``--use_cuda false``
+renders on the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
+import pickle
 
 import numpy as np
 import torch
 
-from avatarcraft_tpu_torch.cameras import default_360_path, pose2rays
+from avatarcraft_tpu_torch.cameras import canonical_camera, default_360_path, pose2rays
+from avatarcraft_tpu_torch.cli import options
 from avatarcraft_tpu_torch.constants import CAN_HEAD_CAMERA_DIST, CAN_HEAD_OFFSET, NSR_BOUND
 from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig, RenderConfig
 from avatarcraft_tpu_torch.ops.occupancy import init_density_grid
 from avatarcraft_tpu_torch.utils.checkpoint import artifact_normal_mode, load_params_with_config
+from avatarcraft_tpu_torch.utils.gif import jet_colormap, write_gif
 from avatarcraft_tpu_torch.utils.metrics import integerify_img
 from avatarcraft_tpu_torch.utils.png import write_png
 from avatarcraft_tpu_torch.workloads.canonical_render import make_fast_frame_renderer, make_parity_frame_renderer
@@ -38,22 +51,22 @@ from avatarcraft_tpu_torch.workloads.reconstruct import make_grid_update_fn
 CANONICAL_CAMERA_DIST_VAL = 1.7
 
 
-def str2bool(v: str) -> bool:
-    return str(v).lower() in ("true", "1", "yes", "y", "t")
-
-
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--use_cuda", type=str2bool, default=True,
-                        help="render on the CUDA card; false = CPU")
-    parser.add_argument("--render_h", default=None, type=int)
-    parser.add_argument("--render_w", default=None, type=int)
-    parser.add_argument("--weights_path", required=True, type=str)
-    parser.add_argument("--white_bkg", type=str2bool, default=True)
-    parser.add_argument("--trajectory_resolution", default=60, type=int)
+    options.set_general_option(parser)
+    options.set_nerf_option(parser)
+    options.set_pe_option(parser)
+    options.set_render_option(parser)
+    options.set_trajectory_option(parser)
     parser.add_argument("--exp_name", default="exp", type=str)
+    parser.add_argument("--implicit_model", default="instant_nsr", choices=["neus", "nerf", "instant_nsr"],
+                        help="instant_nsr; the legacy neus and nerf fields are not ported yet")
+    parser.add_argument("--log_extra", default=False, type=options.str2bool,
+                        help="also write each frame's JET depth PNG and each orbit's camera pickles")
     parser.add_argument("--batch_size", type=int, default=4096)
     parser.add_argument("--out_dir", default="./demo", type=str)
+    parser.add_argument("--encoder", default=None, choices=["hashgrid", "tpu_pyramid"],
+                        help="override the checkpoint's (inferred) encoder")
     parser.add_argument("--sampler", default="parity", choices=["parity", "fast"],
                         help="parity = the 64+64 importance-sampled render; fast = "
                              "occupancy-guided K-sample rendering")
@@ -69,8 +82,29 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def depth_image(depth: np.ndarray) -> np.ndarray:
+    """[H, W, 3] uint8 of a frame's depth [H, W, 1], as the JAX package
+    writes it (cli/render_canonical_cli.py:234-248; the reference's
+    render_canonical.py:85-109): depths under 0.4 (empty pixels) set to
+    0.45, the frame normalised to [0, 1], its 8-bit levels through cv2's
+    JET (BGR), the empty pixels black."""
+    depth = depth.copy()
+    mask = depth < 4e-1
+    depth[mask] = 0.45
+    depth = (depth - depth.min()) / max(depth.max() - depth.min(), 1e-8)
+    img = jet_colormap((depth * 255).astype(np.uint8))
+    img[mask.repeat(3, axis=2)] = 0
+    return img
+
+
 def main(argv=None):
-    opt = build_parser().parse_args(argv)
+    parser = build_parser()
+    opt = parser.parse_args(argv)
+    if opt.weights_path is None:
+        parser.error("--weights_path is required")
+    if opt.implicit_model != "instant_nsr":
+        raise SystemExit(f"--implicit_model {opt.implicit_model} is not ported yet (ROADMAP item 20, legacy models); "
+                         "use instant_nsr")
     if opt.mesh_devices > 1:
         raise SystemExit(
             "--mesh_devices > 1 is not ported yet (ROADMAP item 22, parallel); "
@@ -83,6 +117,8 @@ def main(argv=None):
     h = opt.render_h or 256
     w = opt.render_w or 256
     params, fcfg = load_params_with_config(opt.weights_path, device)
+    if opt.encoder and opt.encoder != fcfg.encoder:
+        fcfg = dataclasses.replace(fcfg, encoder=opt.encoder)
     bg = 1.0 if opt.white_bkg else 0.0
     # baked artifacts record the estimator their color net was trained
     # against (PROVENANCE.json); it holds for both samplers, as in the JAX package
@@ -109,13 +145,26 @@ def main(argv=None):
     exp_dir = os.path.join(opt.out_dir, "canonical_360", opt.exp_name)
     os.makedirs(exp_dir, exist_ok=True)
     for pose_name, poses in (("body", body_poses), ("head", head_poses)):
+        imgs = []
         for i, c2w in enumerate(poses):
             rays_o, rays_d = pose2rays(h, w, c2w, device=device)
-            rgb = render(rays_o, rays_d)["rgb"]
-            img = integerify_img(rgb.reshape(h, w, 3).cpu().numpy())
+            out = render(rays_o, rays_d)
+            img = integerify_img(out["rgb"].reshape(h, w, 3).cpu().numpy())
+            imgs.append(img)
             path = os.path.join(exp_dir, f"{opt.exp_name}_{pose_name}_can_{i:04d}.png")
             write_png(path, img)
             print(f"image saved: {path}")
+            if opt.log_extra:
+                write_png(os.path.join(exp_dir, f"{opt.exp_name}_{pose_name}_can_{i:04d}_depth.png"),
+                          depth_image(out["depth"].reshape(h, w, 1).cpu().numpy()))
+        gif = os.path.join(exp_dir, f"{opt.exp_name}_{pose_name}_can.gif")
+        write_gif(gif, imgs, fps=15, loop=0)
+        print(f"gif saved: {gif}")
+        if opt.log_extra:
+            with open(os.path.join(exp_dir, f"{opt.exp_name}_{pose_name}_intrinsic.pkl"), "wb") as f:
+                pickle.dump(canonical_camera(h, w).intrinsic, f)
+            with open(os.path.join(exp_dir, f"{opt.exp_name}_{pose_name}_extrinsic.pkl"), "wb") as f:
+                pickle.dump(np.stack([np.asarray(c2w) for c2w in poses]), f)
 
 
 if __name__ == "__main__":

@@ -15,8 +15,11 @@ every sample warped into the canonical field by the kNN inverse-LBS warp.
 ``--sampler fast`` voxelizes the posed body per frame, and only the samples
 near it are warped; ``--normal_mode`` (an option of the port) picks its
 normal estimator, fd4 by default, as the JAX package renders. Writes one
-PNG per frame under ``<out_dir>/test_views/<exp_name>/``. ``--use_cuda
-false`` renders on the CPU.
+PNG per frame and ``<exp_name>.gif`` at 10 fps (for ``interp_shape`` the
+frames forward, then back) under ``<out_dir>/test_views/<exp_name>/``. The
+flags are the JAX CLI's (its flag groups of the reference's options.py
+included), so its command lines parse. ``--use_cuda false`` renders on the
+CPU.
 """
 
 from __future__ import annotations
@@ -27,11 +30,12 @@ import os
 import numpy as np
 import torch
 
-from avatarcraft_tpu_torch.cli.render_canonical_cli import str2bool
+from avatarcraft_tpu_torch.cli import options
 from avatarcraft_tpu_torch.data import SMPLMultiviewDataset
 from avatarcraft_tpu_torch.data.amass import load_pose_sequence
 from avatarcraft_tpu_torch.models.smpl import load_smpl, synthetic_smpl_params
 from avatarcraft_tpu_torch.utils.checkpoint import load_params_with_config
+from avatarcraft_tpu_torch.utils.gif import write_gif
 from avatarcraft_tpu_torch.utils.metrics import integerify_img
 from avatarcraft_tpu_torch.utils.png import write_png
 from avatarcraft_tpu_torch.warp import WarpData
@@ -46,10 +50,11 @@ from avatarcraft_tpu_torch.workloads.warp_render import (
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--use_cuda", type=str2bool, default=True,
-                        help="render on the CUDA card; false = CPU")
-    parser.add_argument("--weights_path", required=True, type=str)
-    parser.add_argument("--white_bkg", type=str2bool, default=True)
+    options.set_general_option(parser)
+    options.set_nerf_option(parser)
+    options.set_pe_option(parser)
+    options.set_render_option(parser)
+    options.set_trajectory_option(parser)
     parser.add_argument("--exp_name", default="exp", type=str)
     parser.add_argument("--implicit_model", default="instant_nsr", choices=["neus", "nerf", "instant_nsr"])
     parser.add_argument("--poseseq_path", default=None, type=str)
@@ -93,7 +98,10 @@ def _rest_pose(opt) -> str:
 
 
 def main(argv=None):
-    opt = build_parser().parse_args(argv)
+    parser = build_parser()
+    opt = parser.parse_args(argv)
+    if opt.weights_path is None:
+        parser.error("--weights_path is required")
     if opt.implicit_model != "instant_nsr":
         raise SystemExit(f"--implicit_model {opt.implicit_model} is not ported yet (ROADMAP item 20, "
                          "legacy models); use instant_nsr")
@@ -132,11 +140,19 @@ def main(argv=None):
 
     exp_dir = os.path.join(opt.out_dir, "test_views", opt.exp_name)
     os.makedirs(exp_dir, exist_ok=True)
+    preds = []
     for i in range(n_frames):
         rgb = render(rays_o, rays_d, WarpData.create(world_verts[i], model.faces, Ts[i], device))
+        img = integerify_img(rgb.reshape(opt.resolution, opt.resolution, 3).cpu().numpy())
         path = os.path.join(exp_dir, f"{opt.exp_name}_{i:04d}.png")
-        write_png(path, integerify_img(rgb.reshape(opt.resolution, opt.resolution, 3).cpu().numpy()))
+        write_png(path, img)
         print(f"image saved: {path}")
+        preds.append(img)
+    if opt.render_type == "interp_shape":
+        preds = preds + preds[::-1]  # a smoother loop (the reference's render_warp.py:118-120)
+    gif = os.path.join(exp_dir, f"{opt.exp_name}.gif")
+    write_gif(gif, preds, fps=10, loop=0)
+    print(f"gif saved: {gif}")
 
 
 if __name__ == "__main__":

@@ -52,6 +52,7 @@ from avatarcraft_tpu_torch.ops.occupancy import (
     select_occupied_samples,
 )
 from avatarcraft_tpu_torch.ops.sampling import (
+    device_constant,
     linspace,
     near_far_from_bound,
     recip,
@@ -197,6 +198,32 @@ def _softplus100(x: torch.Tensor) -> torch.Tensor:
     return F.softplus(x * 100.0) * recip(100.0)
 
 
+class _TransmittanceCumprod(torch.autograd.Function):
+    """``torch.cumprod`` along the last dim of factors with no zero (the
+    transmittance factors 1 - alpha + 1e-7 >= 1e-7), with torch's own
+    backward for that case, reversed_cumsum(out * grad) / x, the same
+    numbers: torch's backward first asks the card whether any factor is 0
+    (a host read), which a CUDA graph cannot hold."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return (out * grad).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
+def _transmittance(alpha: torch.Tensor) -> torch.Tensor:
+    """[N, T] transmittance before each sample: the exclusive cumprod of
+    1 - alpha + 1e-7 (the reference's +1e-7)."""
+    ones = torch.ones((alpha.shape[0], 1), dtype=alpha.dtype, device=alpha.device)
+    return _TransmittanceCumprod.apply(torch.cat([ones, 1.0 - alpha + 1e-7], dim=-1))[:, :-1]
+
+
 def _safe_norm(x: torch.Tensor, dim=-1, keepdim=True) -> torch.Tensor:
     return torch.sqrt(torch.sum(x * x, dim=dim, keepdim=keepdim) + 1e-12)
 
@@ -281,7 +308,7 @@ def _sdf_fn(params: dict, cfg: FieldConfig, bound: float, packed: dict | None):
 def _tetra(sdf_fn, x: torch.Tensor, bound: float, epsilon: float):
     """The 4-tap tetrahedral stencil through ``sdf_fn`` ([M,3] -> [M,1+F])."""
     N = x.shape[0]
-    dirs = torch.as_tensor(_TETRA_DIRS, device=x.device)
+    dirs = device_constant(tuple(map(tuple, _TETRA_DIRS.tolist())), torch.float32, x.device)
     pts = torch.clamp(x[None, :, :] + epsilon * dirs[:, None, :], -bound, bound)
     out = sdf_fn(pts.reshape(4 * N, 3)).reshape(4, N, -1)
     sdf = out[..., :1].mean(dim=0)
@@ -307,7 +334,7 @@ _FD_OFFSETS = np.array(
 def _fd7(sdf_fn, x: torch.Tensor, bound: float, epsilon: float):
     """The 7-point stencil through ``sdf_fn`` ([M,3] -> [M,1+F])."""
     N = x.shape[0]
-    offs = torch.as_tensor(_FD_OFFSETS * np.float32(epsilon), device=x.device)
+    offs = device_constant(tuple(map(tuple, (_FD_OFFSETS * np.float32(epsilon)).tolist())), torch.float32, x.device)
     stenciled = torch.clamp(x[None, :, :] + offs[:, None, :], -bound, bound)
     all_pts = torch.cat([x[None], stenciled], dim=0).reshape(7 * N, 3)
     out = sdf_fn(all_pts).reshape(7, N, -1)
@@ -530,10 +557,7 @@ def render_rays(
     if alpha_mask is not None:
         alpha = alpha * alpha_mask.reshape(N, T).to(alpha.dtype)
 
-    trans = torch.cumprod(
-        torch.cat([torch.ones((N, 1), dtype=alpha.dtype, device=alpha.device), 1.0 - alpha + 1e-7], dim=-1),
-        dim=-1,
-    )[:, :-1]
+    trans = _transmittance(alpha)
     weights = alpha * trans
     weights_sum = weights.sum(dim=-1, keepdim=True)
     color = color.reshape(N, T, 3)
@@ -766,10 +790,7 @@ def render_rays_fast(
         alpha = torch.clamp((prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5), 0.0, 1.0)
         alpha = alpha.reshape(N, K) * valid.to(alpha.dtype)
 
-        trans = torch.cumprod(
-            torch.cat([torch.ones((N, 1), dtype=alpha.dtype, device=alpha.device), 1.0 - alpha + 1e-7], dim=-1),
-            dim=-1,
-        )[:, :-1]
+        trans = _transmittance(alpha)
         weights = alpha * trans
         weights_sum = weights.sum(dim=-1, keepdim=True)
 

@@ -26,11 +26,6 @@ import torch
 from avatarcraft_tpu_torch.ops.sampling import recip
 
 _PLANE_AXES = ((0, 1), (0, 2), (1, 2))
-_GRID_BITS = (
-    [0, 1, 0, 1, 0, 1, 0, 1],
-    [0, 0, 1, 1, 0, 0, 1, 1],
-    [0, 0, 0, 0, 1, 1, 1, 1],
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,7 +184,9 @@ def _grid_lookup(packed: torch.Tensor, x01: torch.Tensor, R: int, C: int) -> tor
     wx = torch.cat([1 - fx, fx], dim=1)
     wy = torch.cat([1 - fy, fy], dim=1)
     wz = torch.cat([1 - fz, fz], dim=1)
-    w = wx[:, _GRID_BITS[0]] * wy[:, _GRID_BITS[1]] * wz[:, _GRID_BITS[2]]
+    # corner c = bit0 x + 2 bit1 y + 4 bit2 z: broadcasts, not index lists
+    # (a list index is a host-to-device copy, which a CUDA graph cannot hold)
+    w = (wx[:, None, None, :] * wy[:, None, :, None] * wz[:, :, None, None]).reshape(-1, 8)
     return _interp(rows, w)
 
 
@@ -204,7 +201,7 @@ def _plane_lookup(packed3: torch.Tensor, uv: torch.Tensor, R: int, C: int, plane
     fu, fv = frac[:, 0:1], frac[:, 1:2]
     wu = torch.cat([1 - fu, fu], dim=1)
     wv = torch.cat([1 - fv, fv], dim=1)
-    w = wu[:, [0, 1, 0, 1]] * wv[:, [0, 0, 1, 1]]
+    w = (wu[:, None, :] * wv[:, :, None]).reshape(-1, 4)  # corner c = bit0 u + 2 bit1 v
     return _interp(rows, w)
 
 
@@ -222,7 +219,14 @@ def pyramid_encode(packed: dict, x: torch.Tensor, spec: PyramidSpec, *, size: fl
     for p3, R in zip(packed["planes"], spec.plane_resolutions):
         lvl = None
         for pi, axes in enumerate(_PLANE_AXES):
-            f = _plane_lookup(p3, x01[:, list(axes)], R, spec.plane_dim, pi)
+            f = _plane_lookup(p3, torch.stack([x01[:, a] for a in axes], dim=1), R, spec.plane_dim, pi)
             lvl = f if lvl is None else lvl + f
         feats.append(lvl)
     return torch.cat(feats, dim=-1).reshape(*prefix, spec.output_dim)
+
+
+def pyramid_encode_unpacked(params: dict, x: torch.Tensor, spec: PyramidSpec, *, size: float = 1.0) -> torch.Tensor:
+    """``pyramid_encode`` of the tables packed on the fly, in their own
+    dtype (the JAX package's convenience wrapper, ops/grid_encoder.py:188,
+    for tests and small calls)."""
+    return pyramid_encode(materialize_packed(params, spec), x, spec, size=size)

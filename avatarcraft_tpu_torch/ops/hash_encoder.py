@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from avatarcraft_tpu_torch.ops.grid_encoder import lookup_rows
-from avatarcraft_tpu_torch.ops.sampling import recip
+from avatarcraft_tpu_torch.ops.sampling import device_constant, recip
 
 # XOR-hash primes (reference: encoder/hashencoder/src/hashencoder.cu:43)
 _PRIMES = (1, 2654435761, 805459861)
@@ -165,7 +165,7 @@ def hash_encode(
     scales, resolutions, offsets, _, _ = spec.level_constants
     N, C = x01.shape[0], spec.level_dim
     oob = ((x01 < 0.0) | (x01 > 1.0)).any(dim=-1)
-    bits = torch.tensor(_CORNER_BITS, dtype=torch.int64, device=x.device)
+    bits = device_constant(tuple(map(tuple, _CORNER_BITS)), torch.int64, x.device)
     outs = []
     for lvl in range(spec.num_levels):
         # pos = x * scale + 0.5 (hashencoder.cu:127-131)

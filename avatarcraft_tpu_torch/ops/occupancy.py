@@ -191,6 +191,16 @@ def pack_occupancy_bits(grid: torch.Tensor, threshold) -> torch.Tensor:
     return words.to(torch.int32).reshape(R * R * z32)
 
 
+def occupancy_lookup(grid: torch.Tensor, pts: torch.Tensor, bound: float) -> torch.Tensor:
+    """Nearest-cell density of the [R,R,R] ``grid`` at ``pts`` ([..., 3] in
+    [-bound, bound]) -> [...] (the JAX package's ops/occupancy.py:197)."""
+    R = grid.shape[0]
+    x01 = ((pts + bound) * recip(2 * bound)).clamp(0.0, 1.0)
+    idx = torch.round(x01 * (R - 1)).to(torch.int64).clamp(0, R - 1)
+    flat = (idx[..., 0] * R + idx[..., 1]) * R + idx[..., 2]
+    return grid.reshape(-1)[flat.reshape(-1)].reshape(pts.shape[:-1])
+
+
 def occupancy_lookup_bits(packed: torch.Tensor, resolution: int, pts: torch.Tensor, bound: float) -> torch.Tensor:
     """Nearest-cell occupancy (bool, shape ``pts.shape[:-1]``) from a
     :func:`pack_occupancy_bits` table."""

@@ -4,8 +4,24 @@ models/instant_nsr.py:21-77,155-162)."""
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+
+
+@functools.cache
+def device_constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``torch.tensor(values, dtype)`` on ``device``, made once per device
+    and kept: a train step captured into a CUDA graph may copy nothing from
+    the host, so it reads the tensor its eager warm-up step made. On the
+    card the values come from pinned memory without blocking the host (a
+    blocking copy would stop the warm-up's check for synchronising calls,
+    ``reconstruct.capture_step``)."""
+    t = torch.tensor(values, dtype=dtype)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def recip(c: float) -> float:

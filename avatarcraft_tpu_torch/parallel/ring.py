@@ -16,8 +16,13 @@ raises:
   equal spans and TMA bulk copies. Plain version: ``torch.cat``.
 * ``reduce_scatter_rows`` (``csrc/reduce_scatter_rows.cu``), the backward:
   the m replicas' cotangent tables summed in replica order and split into
-  the n shard gradients. Plain version: the same f32 adds in the same
-  order, then the split.
+  the n shard gradients, with the m + n pointers passed by value as the
+  gather passes its own (at most ``MAX_TABLES``). Plain version: the same
+  f32 adds in the same order, then the split.
+
+Neither wrapper copies anything to the card, so a launch captured into a
+CUDA graph holds all it reads (``workloads/reconstruct.py``'s graphed
+train step).
 
 ``all_gather_table`` is the ``torch.autograd.Function`` over the two. On one
 card there is one replica (m = 1). The ring over NVLink across cards is
@@ -35,11 +40,13 @@ from avatarcraft_tpu_torch.utils.cuda_build import load_library
 
 KERNEL = "all_gather_rows"
 RS_KERNEL = "reduce_scatter_rows"
-# the gather kernel's by-value pointer table (csrc/all_gather_rows.cu kMaxShards)
+# the kernels' by-value pointer tables (csrc/all_gather_rows.cu kMaxShards,
+# csrc/reduce_scatter_rows.cu kMaxTables)
 MAX_SHARDS = 128
+MAX_TABLES = 128
 
 # launches of each CUDA kernel in this process; only the launch functions
-# add to them
+# add to them, and ``add_replayed`` for the launches a CUDA graph replays
 launches = {KERNEL: 0, RS_KERNEL: 0}
 
 
@@ -76,7 +83,7 @@ def _library(name: str) -> ctypes.CDLL:
         ]
     else:
         lib.reduce_scatter_rows.argtypes = [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_void_p,
         ]
     getattr(lib, name).restype = ctypes.c_int
@@ -86,15 +93,6 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def pointer_array(tensors) -> torch.Tensor:
-    """The device array of the tensors' data pointers that
-    reduce_scatter_rows reads, copied from pinned memory without blocking the
-    host (the caching host allocator keeps the pinned block until the copy on
-    this stream ran)."""
-    ptrs = torch.tensor([t.data_ptr() for t in tensors], dtype=torch.int64).pin_memory()
-    return ptrs.to(tensors[0].device, non_blocking=True)
-
-
 def _checked(name: str, rc: int) -> None:
     if rc != 0:
         msg = getattr(_library(name), f"{name}_error_string")(rc).decode()
@@ -102,9 +100,17 @@ def _checked(name: str, rc: int) -> None:
     launches[name] += 1
 
 
+def add_replayed(counts: dict) -> None:
+    """Count the launches of one replay of a CUDA graph: ``counts`` holds
+    the launches its capture recorded, which the replay makes without
+    passing through the launch functions."""
+    for name, n in counts.items():
+        launches[name] += n
+
+
 def shard_pointers(shards):
-    """The shards' data pointers as the host array that the gather's launch
-    copies into its parameters."""
+    """The tensors' data pointers as the host array that a launch copies
+    into the kernel's parameters."""
     return (ctypes.c_void_p * len(shards))(*(t.data_ptr() for t in shards))
 
 
@@ -117,12 +123,12 @@ def launch(ptrs, out: torch.Tensor, shard_bytes: int) -> None:
     _checked(KERNEL, rc)
 
 
-def launch_reduce_scatter(ptrs: torch.Tensor, rows: int, cols: int, m: int, n: int) -> None:
-    """Launch reduce_scatter_rows on the current stream: ``ptrs`` holds the
-    m cotangent tables' pointers, then the n outputs'. Counts the launch;
-    raises if CUDA refuses it."""
-    stream = torch.cuda.current_stream(ptrs.device).cuda_stream
-    rc = _library(RS_KERNEL).reduce_scatter_rows(ptrs.data_ptr(), rows, cols, m, n, stream)
+def launch_reduce_scatter(ptrs, device, rows: int, cols: int, m: int, n: int) -> None:
+    """Launch reduce_scatter_rows on the current stream of ``device``:
+    ``ptrs`` (``shard_pointers``) holds the m cotangent tables' pointers,
+    then the n outputs'. Counts the launch; raises if CUDA refuses it."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = _library(RS_KERNEL).reduce_scatter_rows(ptrs, m, n, rows, cols, stream)
     _checked(RS_KERNEL, rc)
 
 
@@ -163,10 +169,13 @@ def reduce_scatter_rows(cts, n: int) -> list[torch.Tensor]:
     rows, cols = first.shape
     if n < 1 or rows % n:
         raise ValueError(f"table rows {rows} not divisible into {n} shards")
+    if len(cts) + n > MAX_TABLES:
+        raise ValueError(f"{RS_KERNEL} takes at most MAX_TABLES = {MAX_TABLES} tables and shards, got "
+                         f"{len(cts)} + {n}")
     if first.device.type == "cpu":
         return reduce_scatter_rows_plain(cts, n)
     outs = [torch.empty((rows // n, cols), dtype=first.dtype, device=first.device) for _ in range(n)]
-    launch_reduce_scatter(pointer_array(cts + outs), rows // n, cols, len(cts), n)
+    launch_reduce_scatter(shard_pointers(cts + outs), first.device, rows // n, cols, len(cts), n)
     return outs
 
 

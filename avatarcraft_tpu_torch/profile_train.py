@@ -2,6 +2,7 @@
 card.
 
     python -m avatarcraft_tpu_torch.profile_train                 # reconstruct (fast)
+    python -m avatarcraft_tpu_torch.profile_train --scan_steps 8  # reconstruct (fast), a CUDA graph of the step
     python -m avatarcraft_tpu_torch.profile_train --path parity   # reconstruct (64+64, hash grid)
     python -m avatarcraft_tpu_torch.profile_train --path stylize [--guidance sd]
 
@@ -33,7 +34,12 @@ kernels run side by side (some of cuDNN's f32 convolutions do).
 
 reconstruct: the fast trainer's step
 (``workloads.reconstruct.make_train_step_fast``) at the artifact's width,
-batch 1600.
+batch 1600. With ``--scan_steps S`` the same step through
+``make_train_scan_fast`` (the dataset on the card, S replays of one
+captured CUDA graph a call; ``scan_main``): ms per step over whole calls,
+device busy and idle share, the table kernels' ms and K10's launches per
+step (the graph's replays counted), the top kernels; a replay runs no
+host range, so there is no split by ``train.*`` range.
 
 The image set is rendered here from the baked artifact (``artifact_image_set``:
 8 bench cameras at 128x128); the field starts from ``init_field_params`` at
@@ -66,6 +72,7 @@ from avatarcraft_tpu_torch.constants import CANONICAL_ZOOM_FACTOR
 from avatarcraft_tpu_torch.models.diffusion import SDSGuidance
 from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig, FieldConfig, RenderConfig, init_field_params
 from avatarcraft_tpu_torch.models.sd import random_stable_diffusion_modules
+from avatarcraft_tpu_torch.parallel import ring
 from avatarcraft_tpu_torch.parallel.table_mp import trainable_shards
 from avatarcraft_tpu_torch.utils.checkpoint import leaves
 from avatarcraft_tpu_torch.utils.device import card_line
@@ -76,6 +83,7 @@ from avatarcraft_tpu_torch.workloads.reconstruct import (
     ReconstructConfig,
     make_batch_ray_fn,
     make_optimizer,
+    make_train_scan_fast,
     make_train_step_fast,
     pixel_batches,
     setup,
@@ -241,6 +249,83 @@ def main() -> dict:
         "table_kernel_ms_per_step": kernel_ms,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "top_kernels": _top_kernels(prof, PROFILED),
+    }
+    print(json.dumps(result))
+    return result
+
+
+def scan_main(scan_steps: int, calls: int = 4, profiled_calls: int = 2) -> dict:
+    """The fast step as a CUDA graph, ``scan_steps`` replays a call: ms per
+    step over ``calls`` calls after two warm-up calls (the first captures),
+    then ``profiled_calls`` calls under torch.profiler."""
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train measures a CUDA card; none is available")
+    device = "cuda"
+    ds, fcfg, normal_mode = artifact_image_set(device)
+    fast_cfg = FastRenderConfig(normal_mode=normal_mode)
+    cfg = ReconstructConfig()
+    params = init_field_params(torch.Generator(device).manual_seed(cfg.seed), fcfg)
+    rest, shards, splice = trainable_shards(params)
+    del params
+    opt, sched = make_optimizer(cfg, ds.n_images * ds.H * ds.W // cfg.batch_size, leaves(rest) + shards)
+    scan = make_train_scan_fast(fcfg, fast_cfg, opt, make_batch_ray_fn(ds.K, ds.H, ds.W), cfg.eikonal_weight,
+                                cfg.bkg_mode, cfg.white_bkg, splice)
+    images = torch.as_tensor(ds.images.reshape(ds.n_images, -1, 3), device=device)
+    masks = torch.zeros((1, 1), device=device)
+    grid = torch.full((129,) * 3, 100.0, device=device)
+    poses = torch.as_tensor(ds.poses, device=device)
+    rng = np.random.default_rng(cfg.seed)
+
+    def blocks():
+        while True:
+            batches = list(pixel_batches(ds.n_images, ds.H * ds.W, cfg.batch_size, rng))
+            for i in range(0, len(batches) - scan_steps + 1, scan_steps):
+                chunk = batches[i : i + scan_steps]
+                yield np.stack([v for v, _ in chunk]), np.stack([p for _, p in chunk])
+
+    chunks = blocks()
+
+    def call():
+        vis, pis = next(chunks)
+        return scan(rest, shards, poses, images, masks, vis, pis, sched.advance(scan_steps), grid)
+
+    torch.cuda.reset_peak_memory_stats()  # the peak holds the graph's pool
+    for _ in range(2):
+        call()
+    torch.cuda.synchronize()
+    before = dict(ring.launches)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        losses = call()
+    torch.cuda.synchronize()
+    ms_per_step = (time.perf_counter() - t0) * 1e3 / (calls * scan_steps)
+    launches = {k: (ring.launches[k] - before[k]) / (calls * scan_steps) for k in before}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(profiled_calls):
+            call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    n = profiled_calls * scan_steps
+    device_events = _device_events(prof)
+    busy = busy_us(device_events)
+    result = {
+        "device": torch.cuda.get_device_name(0),
+        "card": card_line(),
+        "batch": cfg.batch_size,
+        "scan_steps": scan_steps,
+        "normal_mode": fast_cfg.normal_mode,
+        "ms_per_step": ms_per_step,
+        "rays_per_sec": cfg.batch_size / ms_per_step * 1e3,
+        "profiled_wall_ms_per_step": wall * 1e3 / n,
+        "device_busy_ms_per_step": busy / 1e3 / n,
+        "device_idle_share": 1.0 - busy / 1e6 / wall,
+        "device_launches_per_step": len(device_events) / n,
+        "table_kernel_ms_per_step": {k: kernel_device_us(prof.events(), k) / 1e3 / n for k in KERNEL_EVENTS},
+        "table_kernel_launches_per_step": launches,
+        "last_loss": float(losses[-1]),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "top_kernels": _top_kernels(prof, n),
     }
     print(json.dumps(result))
     return result
@@ -442,10 +527,14 @@ if __name__ == "__main__":
     ap.add_argument("--path", default="reconstruct", choices=["reconstruct", "parity", "stylize"])
     ap.add_argument("--guidance", default="toy", choices=["toy", "sd"],
                     help="stylize: the toy guidance, or SD 1.5 at full width from random weights")
+    ap.add_argument("--scan_steps", default=0, type=int,
+                    help="reconstruct: S > 0 replays a CUDA graph of the step S times a call")
     args = ap.parse_args()
     if args.path == "stylize":
         stylize_main(args.guidance)
     elif args.path == "parity":
         parity_main()
+    elif args.scan_steps > 0:
+        scan_main(args.scan_steps)
     else:
         main()

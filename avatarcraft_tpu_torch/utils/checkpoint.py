@@ -142,14 +142,26 @@ def params_from_jax(tree, device="cuda") -> dict:
     )
 
 
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Every param group's learning rate to ``lr``: a tensor learning rate
+    (a capturable Adam's on the card) is filled in place, so that what
+    holds it (a CUDA graph) reads the new value."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
 def adam_state_from_optax(optimizer: torch.optim.Optimizer, params, mu, nu, count: int, scheduler=None) -> None:
     """Carry an optax Adam state across into ``optimizer`` (a
     ``torch.optim.Adam`` over the tensors of ``params``): ``mu`` and ``nu``
     are optax's first and second moments as trees of numpy arrays with the
     layout of ``params`` (``jax.tree_util.tree_map(np.asarray, state.mu)``),
-    ``count`` its step count. A ``LambdaLR`` ``scheduler`` of the optimizer
-    is moved to the same step, so the next update uses lr(count) as optax's
-    schedule does."""
+    ``count`` its step count (on the parameters' device for a capturable
+    Adam, as it keeps it). A ``scheduler`` of the optimizer
+    (``reconstruct.CosineSchedule``) is moved to the same step, so the next
+    update uses lr(count) as optax's schedule does."""
     tensors, mus, nus = leaves(params), leaves(mu), leaves(nu)
     if not len(tensors) == len(mus) == len(nus):
         raise ValueError(f"trees differ: {len(tensors)} tensors, {len(mus)} mu, {len(nus)} nu leaves")
@@ -159,12 +171,13 @@ def adam_state_from_optax(optimizer: torch.optim.Optimizer, params, mu, nu, coun
             return a.detach().to(device=p.device, dtype=torch.float32).clone().reshape(p.shape)
         return torch.as_tensor(np.array(a, np.float32), device=p.device).reshape(p.shape)
 
+    capturable = optimizer.defaults.get("capturable", False)
     for p, m, v in zip(tensors, mus, nus):
-        optimizer.state[p] = {"step": torch.tensor(float(count)), "exp_avg": moment(m, p), "exp_avg_sq": moment(v, p)}
+        step = torch.tensor(float(count), dtype=torch.float32, device=p.device if capturable else "cpu")
+        optimizer.state[p] = {"step": step, "exp_avg": moment(m, p), "exp_avg_sq": moment(v, p)}
     if scheduler is not None:
         scheduler.last_epoch = count
-        for group, base, fn in zip(optimizer.param_groups, scheduler.base_lrs, scheduler.lr_lambdas):
-            group["lr"] = base * fn(count)
+        set_lr(optimizer, scheduler.lr_at(count))
 
 
 def _refuse_orbax(path: str) -> None:

@@ -26,8 +26,13 @@ step count, the fast trainer's grid, the step) is one ``torch.save`` file
 (``utils.checkpoint.save_train_state``). A resume follows the JAX package:
 it restores that state and restarts the epoch loop and the numpy pixel
 order from the seed (reconstruct.py:423-443, 540-543), so a resumed run
-is not the uninterrupted run. Multi-step calls (the JAX package's
-``scan_steps``) are not ported (ROADMAP item 12).
+is not the uninterrupted run.
+
+Several steps per call (the JAX package's ``scan_steps``, a ``lax.scan``
+over on-device batches; ``make_train_scan_fast``): on the card one train
+step, from the batch's gathers to Adam's update, is captured into a CUDA
+graph and replayed once a step; both table kernels run inside it. On the
+CPU the same step runs eagerly.
 """
 
 from __future__ import annotations
@@ -52,7 +57,8 @@ from avatarcraft_tpu_torch.models.instant_nsr import (
     render_rays_fast,
 )
 from avatarcraft_tpu_torch.ops.occupancy import update_density_grid
-from avatarcraft_tpu_torch.ops.sampling import recip
+from avatarcraft_tpu_torch.ops.sampling import device_constant, recip
+from avatarcraft_tpu_torch.parallel import ring
 from avatarcraft_tpu_torch.parallel.ring import all_gather_table
 from avatarcraft_tpu_torch.parallel.table_mp import gathered_params, shard_grid_rows, trainable_shards
 from avatarcraft_tpu_torch.utils.checkpoint import (
@@ -61,6 +67,7 @@ from avatarcraft_tpu_torch.utils.checkpoint import (
     load_train_state,
     map_leaves,
     save_train_state,
+    set_lr,
     sorted_leaves,
 )
 
@@ -138,13 +145,13 @@ def make_batch_ray_fn_ss(K: np.ndarray, H: int, W: int, ss: int):
     fx, fy, cx, cy = float(K[0, 0]), float(K[1, 1]), float(K[0, 2]), float(K[1, 2])
     off = (np.arange(ss) + 0.5) / ss - 0.5
     ox, oy = np.meshgrid(off, off, indexing="xy")
-    ox = ox.reshape(-1).astype(np.float32)
-    oy = oy.reshape(-1).astype(np.float32)
+    ox = tuple(ox.reshape(-1).astype(np.float32).tolist())
+    oy = tuple(oy.reshape(-1).astype(np.float32).tolist())
 
     def ray_fn(poses, view_idx, pix_idx):
         pose = poses[view_idx]
-        dx = torch.as_tensor(ox, device=poses.device)
-        dy = torch.as_tensor(oy, device=poses.device)
+        dx = device_constant(ox, torch.float32, poses.device)
+        dy = device_constant(oy, torch.float32, poses.device)
         y = torch.div(pix_idx, W, rounding_mode="floor").float()[:, None] + dy[None]
         x = (pix_idx % W).float()[:, None] + dx[None]
         p = torch.stack([(x - cx) * recip(fx), -((y - cy) * recip(fy)), -torch.ones_like(x)], dim=-1)
@@ -174,14 +181,48 @@ def cosine_decay(decay_steps: int):
     return factor
 
 
+class CosineSchedule:
+    """The cosine learning rate of ``make_optimizer``'s Adam, stepped after
+    each optimizer step as a ``LambdaLR`` is: after ``last_epoch`` steps the
+    next update takes ``lr_at(last_epoch)``, so the first update uses
+    lr(0), as optax's count does. A tensor learning rate (the card's
+    capturable Adam) is written in place, so a captured step keeps reading
+    the same tensor."""
+
+    def __init__(self, optimizer, base_lr: float, decay_steps: int):
+        self.optimizer, self.base_lr, self.factor = optimizer, base_lr, cosine_decay(decay_steps)
+        self.last_epoch = 0
+        set_lr(optimizer, self.lr_at(0))
+
+    def lr_at(self, step: int) -> float:
+        return self.base_lr * self.factor(step)
+
+    def step(self) -> None:
+        self.advance(1)
+
+    def advance(self, n: int) -> list[float]:
+        """The learning rates of the next n steps; the schedule moves past
+        them."""
+        lrs = [self.lr_at(self.last_epoch + i) for i in range(n)]
+        self.last_epoch += n
+        set_lr(self.optimizer, self.lr_at(self.last_epoch))
+        return lrs
+
+
 def make_optimizer(cfg: ReconstructConfig, steps_per_epoch: int, params):
-    """(Adam, LambdaLR) over the tensors ``params``: Adam(cfg.lr, betas
-    (0.9, 0.99), eps 1e-15) with the learning rate on a cosine decay to 0
-    over ``cfg.epochs * steps_per_epoch`` steps. Step the scheduler after
-    each optimizer step: the first update uses lr(0), as optax's count does."""
-    opt = torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.99), eps=1e-15)
-    sched = torch.optim.lr_scheduler.LambdaLR(opt, cosine_decay(max(cfg.epochs * steps_per_epoch, 1)))
-    return opt, sched
+    """(Adam, CosineSchedule) over the tensors ``params``: Adam(cfg.lr,
+    betas (0.9, 0.99), eps 1e-15) with the learning rate on a cosine decay
+    to 0 over ``cfg.epochs * steps_per_epoch`` steps. Step the schedule
+    after each optimizer step. On the card Adam is capturable (its step
+    count on the device) and its learning rate a device tensor, so that a
+    CUDA graph can hold the update (``make_train_scan_fast``); its bias
+    corrections are then f32 tensor math, where on the CPU they are Python
+    floats."""
+    params = list(params)
+    on_card = params[0].device.type == "cuda"
+    lr = torch.tensor(cfg.lr, dtype=torch.float32, device=params[0].device) if on_card else cfg.lr
+    opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.99), eps=1e-15, capturable=on_card)
+    return opt, CosineSchedule(opt, cfg.lr, max(cfg.epochs * steps_per_epoch, 1))
 
 
 def _update(optimizer, scheduler) -> None:
@@ -252,6 +293,160 @@ def make_train_step_fast(fcfg: FieldConfig, fast_cfg, optimizer, ray_fn, eikonal
     return train_step
 
 
+def draw_backgrounds(generator: torch.Generator | None, n: int, device) -> torch.Tensor:
+    """The ``composite_random`` gray levels of n steps, one U(0, 1) per
+    step, drawn on ``device`` from ``generator``: the numpy pixel order
+    draws nothing for them, as in the JAX package's scan branch (its
+    per-step branch draws one ``rng.uniform()`` a step)."""
+    return torch.rand(n, generator=generator, device=device)
+
+
+def graphed(device) -> bool:
+    """Whether a scan on ``device`` replays a CUDA graph: on the card,
+    always."""
+    return torch.device(device).type == "cuda"
+
+
+def capture_step(step, optimizer):
+    """The card's CUDA graph of one train step: ``step()`` runs once eagerly
+    on a side stream (a real step, which makes Adam's state, the BLAS
+    handles and the cached constants that the capture reads) with every
+    synchronising call an error (``torch.cuda.set_sync_debug_mode``), then
+    is captured. Returns (graph, the K10 launches one replay makes). Raises
+    if the step synchronises or the capture fails: nothing falls back to
+    eager steps."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    mode = torch.cuda.get_sync_debug_mode()
+    with torch.cuda.stream(side):
+        optimizer.zero_grad(set_to_none=True)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.current_stream().wait_stream(side)
+    before = dict(ring.launches)
+    graph = torch.cuda.CUDAGraph()
+    optimizer.zero_grad(set_to_none=True)  # the capture's backward makes the static .grad tensors
+    with torch.cuda.graph(graph):
+        step()
+    per_replay = {name: ring.launches[name] - before[name] for name in before}
+    ring.launches.update(before)  # a capture records its launches and runs none
+    return graph, per_replay
+
+
+def _load_lr(optimizer, lrs: torch.Tensor, host_lrs: list, k: torch.Tensor) -> None:
+    """The learning rate of step ``k`` (a [1] index) into every param
+    group: copied on the device from ``lrs`` for a tensor learning rate
+    (the card's, f32 as a filled one is), taken from ``host_lrs`` for a
+    float one (the CPU's, in double as the schedule gives it)."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].copy_(lrs.index_select(0, k).reshape(()))
+        else:
+            group["lr"] = host_lrs[int(k)]
+
+
+def make_train_scan_fast(fcfg: FieldConfig, fast_cfg, optimizer, ray_fn, eikonal_weight: float, bkg_mode: str,
+                         white_bkg: bool, splice, ss: int = 1, graph: bool | None = None):
+    """Several occupancy-guided train steps per call with the dataset on
+    the device (the JAX package's make_train_scan_fast, a ``lax.scan``):
+    scan(rest, shards, poses, images_flat, masks_flat, vis, pis, lrs, grid,
+    generator) -> the n steps' losses [n]. ``vis``, ``pis``: the [n, B]
+    (view, pixel) index blocks of n steps from the epoch's permutation;
+    ``lrs``: their n learning rates; ``images_flat`` [V, H*W, 3] and
+    ``masks_flat`` [V, H*W] (read in the ``composite*`` modes) on the
+    device. Each step gathers its ground truth there, composited with the
+    mask in the ``composite*`` modes on the white or black background, or on
+    one gray level a step for ``composite_random`` (``draw_backgrounds``
+    from ``generator``), renders through the gathered table (K10's
+    all-gather; the backward ends in its reduce-scatter), box-filters the
+    ss^2 sub-rays of a pixel (``make_batch_ray_fn_ss``) and takes Adam's
+    step in place.
+
+    On the card (``graph`` None or True) the first call runs its first
+    step eagerly, then captures one step into a CUDA graph
+    (``capture_step``), which every later step replays: the step reads its
+    index blocks, learning rate and background from static buffers through
+    a step counter on the device, and ``grid``, the parameters and the
+    dataset from the tensors of the capture. A refresh therefore writes the
+    grid in place, and a call with other tensors raises. Each replay adds
+    the graph's launches to ``ring.launches``. ``graph=False``, and every
+    call on the CPU, runs the same step eagerly (the plain version)."""
+    composite = bkg_mode.startswith("composite")
+    random_bg = bkg_mode == "composite_random"
+    bg_value = 1.0 if white_bkg else 0.0
+    st: dict = {}
+
+    def step():
+        k = st["k"]
+        vi, pi = st["vis"].index_select(0, k)[0], st["pis"].index_select(0, k)[0]
+        gt = st["images"][vi, pi]
+        bg = st["bgs"].index_select(0, k).reshape(()) if random_bg else bg_value
+        if composite:
+            m = st["masks"][vi, pi][:, None]
+            gt = gt * m + (1.0 - m) * bg
+        rays_o, rays_d = ray_fn(st["poses"], vi, pi)
+        params = splice(st["rest"], all_gather_table(st["shards"]))
+        packed = materialize_field_tables(params, fcfg)
+        field = network_field_fns(params, fcfg, fast_cfg.bound, packed)
+        out = render_rays_fast(params, rays_o, rays_d, fcfg, fast_cfg, st["grid"], bg, field)
+        rgb = out["rgb"]
+        if ss > 1:
+            rgb = rgb.reshape(-1, ss * ss, 3).mean(dim=1)
+        loss = smooth_l1(rgb, gt) + eikonal_weight * out["gradient_error"]
+        loss.backward()
+        _load_lr(optimizer, st["lrs"], st["host_lrs"], k)
+        optimizer.step()
+        st["losses"].index_copy_(0, k, loss.detach().reshape(1))
+        k.add_(1)
+
+    def scan(rest, shards, poses, images_flat, masks_flat, vis, pis, lrs, grid, generator=None):
+        held = [poses, images_flat, masks_flat, grid, *shards, *leaves(rest)]
+        n, device = len(vis), poses.device
+        if not st:
+            S, B = np.shape(vis)
+            st.update(
+                vis=torch.zeros((S, B), dtype=torch.int64, device=device),
+                pis=torch.zeros((S, B), dtype=torch.int64, device=device),
+                lrs=torch.zeros(S, dtype=torch.float32, device=device),
+                bgs=torch.zeros(S, dtype=torch.float32, device=device),
+                losses=torch.zeros(S, dtype=torch.float32, device=device),
+                k=torch.zeros(1, dtype=torch.int64, device=device),
+                rest=rest, shards=list(shards), poses=poses, images=images_flat, masks=masks_flat, grid=grid,
+                held=[t.data_ptr() for t in held],
+                graph=graphed(device) if graph is None else graph, replay=None,
+            )
+        elif [t.data_ptr() for t in held] != st["held"]:
+            raise ValueError("make_train_scan_fast: a scan runs on the tensors of its first call (a CUDA graph "
+                             "holds them); build a new scan for new parameters, grid or dataset")
+        if n > st["vis"].shape[0]:
+            raise ValueError(f"make_train_scan_fast: {n} steps in a call, at most {st['vis'].shape[0]}")
+        st["vis"][:n].copy_(torch.as_tensor(np.asarray(vis)))
+        st["pis"][:n].copy_(torch.as_tensor(np.asarray(pis)))
+        st["lrs"][:n].copy_(torch.as_tensor(np.asarray(lrs, np.float32)))
+        st["host_lrs"] = [float(v) for v in lrs]
+        if random_bg:
+            st["bgs"][:n].copy_(draw_backgrounds(generator, n, device))
+        st["k"].zero_()
+        first = 0
+        if st["graph"] and st["replay"] is None:
+            st["replay"] = capture_step(step, optimizer)
+            first = 1  # capture_step took the call's first step
+        for _ in range(first, n):
+            if st["graph"]:
+                cuda_graph, per_replay = st["replay"]
+                cuda_graph.replay()
+                ring.add_replayed(per_replay)
+            else:
+                optimizer.zero_grad(set_to_none=True)
+                step()
+        return st["losses"][:n].clone()
+
+    return scan
+
+
 def make_grid_update_fn(fcfg: FieldConfig, bound: float):
     """refresh(params, grid) -> the grid refreshed from the field's SDF
     (``update_density_grid``), in x-slabs of the largest height that
@@ -293,7 +488,7 @@ class ReconstructState:
 
     params: dict
     optimizer: torch.optim.Optimizer
-    scheduler: torch.optim.lr_scheduler.LambdaLR
+    scheduler: CosineSchedule
     step: int = 0
 
 
@@ -427,12 +622,22 @@ def train_fast(
     ``state_final.pt`` at the end. ``resume_from``: a train-state file to
     continue from (parameters, Adam's moments and count, grid, step); the
     epoch loop and the pixel order restart from the seed, as in the JAX
-    package. ``scan_steps`` > 0 (several steps per call) is refused."""
-    if scan_steps > 0:
-        raise NotImplementedError(
-            "scan_steps > 0 (several optimizer steps per call) is not ported yet: a CUDA graph of the step "
-            "(ROADMAP item 12)"
-        )
+    package.
+
+    ``scan_steps`` > 0 runs that many steps per call of
+    ``make_train_scan_fast`` (the JAX package's scan branch,
+    reconstruct.py:391-413, 480-546): the dataset lives on the device, the
+    epoch's permutation is cut into [scan_steps, B] index blocks, and a
+    last partial block runs when ``max_steps`` falls inside one. The grid
+    refresh, state saves, logging and ``on_step`` happen at the end of a
+    call, after the steps whose boundaries it crossed (pick divisors of
+    ``grid_update_every`` and ``save_state_every``); ``on_step`` then gets
+    the step count after the call, as the JAX package passes it; the
+    logged loss is a call's last; the rates are timed from the end of the
+    first call (it holds the capture of the card's CUDA graph). The
+    ``composite_random`` backgrounds come from a ``torch.Generator`` seeded
+    ``cfg.seed``, one a step, and the numpy pixel order draws nothing for
+    them (its per-step branch draws one ``rng.uniform()`` a step)."""
     saved = load_train_state(resume_from, device) if resume_from is not None else None
     if saved is not None:
         params = saved["params"]
@@ -442,7 +647,19 @@ def train_fast(
     del params
     opt, sched = make_optimizer(cfg, _steps_per_epoch(dataset, cfg), leaves(rest) + shards)
     ray_fn = make_batch_ray_fn(dataset.K, dataset.H, dataset.W)
-    step_fn = make_train_step_fast(fcfg, fast_cfg, opt, ray_fn, cfg.eikonal_weight, splice, sched)
+    if scan_steps > 0:
+        scan = make_train_scan_fast(fcfg, fast_cfg, opt, ray_fn, cfg.eikonal_weight, cfg.bkg_mode, cfg.white_bkg,
+                                    splice)
+        images_flat = torch.as_tensor(
+            np.asarray(dataset.images, np.float32).reshape(dataset.n_images, -1, 3), device=device)
+        if cfg.bkg_mode.startswith("composite"):
+            masks_flat = torch.as_tensor(np.asarray(dataset.masks, np.float32).reshape(dataset.n_images, -1),
+                                         device=device)
+        else:  # never read
+            masks_flat = torch.zeros((1, 1), device=device)
+        generator = torch.Generator(device).manual_seed(cfg.seed)
+    else:
+        step_fn = make_train_step_fast(fcfg, fast_cfg, opt, ray_fn, cfg.eikonal_weight, splice, sched)
     refresh = make_grid_update_fn(fcfg, fast_cfg.bound)
     grid = torch.full((grid_resolution,) * 3, 100.0, device=device)  # fully occupied at start
     poses = torch.as_tensor(np.asarray(dataset.poses, np.float32), device=device)
@@ -467,7 +684,8 @@ def train_fast(
                          grid)
 
     def maybe_refresh(prev_step: int) -> None:
-        nonlocal grid
+        """The grid refreshed in place (a captured step reads it) when the
+        steps (prev_step, step] crossed a refresh boundary."""
         if not grid_update_every or step // grid_update_every <= prev_step // grid_update_every or step <= 0:
             return
         if step < grid_warmup_steps:
@@ -475,14 +693,51 @@ def train_fast(
         if step < grid_warmup_steps + grid_update_every:
             # first real refresh: drop the saturated floor (an EMA-max from
             # 100 would take ~45 refreshes to fall below the threshold)
-            grid = refresh(gathered_params(rest, shards, splice), torch.zeros_like(grid))
+            grid.copy_(refresh(gathered_params(rest, shards, splice), torch.zeros_like(grid)))
         else:
-            grid = refresh(gathered_params(rest, shards, splice), grid)
+            grid.copy_(refresh(gathered_params(rest, shards, splice), grid))
 
     rng = np.random.default_rng(cfg.seed)
     n_pix = dataset.H * dataset.W
     logged, t_start, timed_from, done = [], None, 0, False
-    for _ in range(cfg.epochs):
+    buf: list[tuple[np.ndarray, np.ndarray]] = []
+
+    def flush() -> None:
+        nonlocal step, t_start, timed_from
+        if not buf:
+            return
+        vis, pis = np.stack([v for v, _ in buf]), np.stack([p for _, p in buf])
+        n_chunk = len(buf)
+        buf.clear()
+        lrs = sched.advance(n_chunk) if sched is not None else [float(opt.param_groups[0]["lr"])] * n_chunk
+        losses = scan(rest, shards, poses, images_flat, masks_flat, vis, pis, lrs, grid, generator)
+        prev = step
+        step += n_chunk
+        if t_start is None:  # time from the end of the first call (it holds the capture)
+            _sync(device)
+            t_start, timed_from = time.perf_counter(), step
+        if log_every:
+            logged.append((step, losses[-1]))  # read once, after the loop
+        maybe_refresh(prev)
+        if callbacks and "on_step" in callbacks:
+            callbacks["on_step"](step, lambda: gathered_params(rest, shards, splice), losses[-1], grid)
+        if state_dir and save_state_every and step // save_state_every > prev // save_state_every:
+            save_state("state_latest")
+
+    for _ in range(cfg.epochs if scan_steps > 0 else 0):
+        if done:
+            break
+        for view_idx, pix_idx in pixel_batches(dataset.n_images, n_pix, cfg.batch_size, rng, view_ids):
+            buf.append((view_idx, pix_idx))
+            if max_steps is not None and step + len(buf) >= max_steps:
+                flush()  # the partial tail
+                done = True
+                break
+            if len(buf) == scan_steps:
+                flush()
+    flush()
+
+    for _ in range(cfg.epochs if scan_steps == 0 else 0):
         if done:
             break
         for view_idx, pix_idx in pixel_batches(dataset.n_images, n_pix, cfg.batch_size, rng, view_ids):

@@ -17,14 +17,17 @@ Phases, each printed with its start, end and wall seconds:
               launched over an output of all-ones bytes), and reduce_scatter_rows
               against its plain version for m = 1/2/4 replicas x n =
               1/2/4/8 shards of that table in f32 and two ragged cases:
-              bitwise equal; the gather's wrapper puts no host-to-device
-              copy on the card (torch.profiler); times each kernel, its
+              bitwise equal; neither wrapper puts a host-to-device copy
+              on the card (torch.profiler; both pass their pointers by
+              value); times each kernel, its
               wrapper, plain version and library call with CUDA events
               (``kernel_ms``: the kernel alone, printed again as ``ms`` in
               the kernels line; ``wrapper_ms``: with the wrapper's
               allocation and pointer handling), in a warm loop and again
               with the L2 cache flushed before every call
-              (``kernel_cold_ms``, ``library_cold_ms``), as the main paths
+              (``kernel_cold_ms``, ``library_cold_ms``; the
+              reduce-scatter's ``wrapper_cold_ms`` too, also at the hash
+              table's shape), as the main paths
               find the table, and the profiler's device time of what each
               call launches in that cold loop (``kernel_cold_device_ms``,
               ``library_cold_device_ms``);
@@ -172,11 +175,29 @@ Phases, each printed with its start, end and wall seconds:
               numpy plain version (the same triangle count, the sorted
               vertices within 1e-4), both timed. Its dataset and the parity
               run's hash-grid checkpoint stay for the parity phases;
+19b. reconstruct_scan -- the fast reconstruct CLI on that set with
+              --scan_steps 5 --max_steps 43 (8 calls and a tail of 3) and
+              with --scan_steps 0, refreshes and state saves every 20 (5
+              divides 20: the same steps in both): one gather and one
+              reduce-scatter a step, the graph's replays counted, plus a
+              gather a refresh, state save and the final tree, exactly;
+              the per-call losses within 1e-4 of the per-step run's; the
+              first refresh after step 20 in both; steps/s of both. Then
+              make_train_scan_fast graphed against graph=False (the same
+              capturable step taken eagerly) from two equal fresh
+              trainers over calls of 5, 5 and 3 steps: losses,
+              parameters and Adam's moments bitwise equal, the launches
+              counted exactly, ms per step of each; the graphed first
+              step runs under sync debug mode "error";
 20. parity_render -- the canonical CLI (cli.render_canonical_cli.main) at
               its defaults, --sampler parity (64+64, no jitter, the
-              artifact's fd4, 4096-ray chunks), PARITY_ORBIT frames of each
-              orbit at 256x256: every PNG shows the body, one gather per
-              frame, counted exactly; ms per frame. Then a 32x32 frame with
+              artifact's fd4, 4096-ray chunks), with --log_extra true,
+              PARITY_ORBIT frames of each orbit at 256x256: every PNG
+              shows the body, every depth PNG is written (a body
+              frame's not all black),
+              each orbit's GIF parses (GIF89a, loop 0, as many frames as
+              PNGs, 6 hundredths each) and its camera pickles exist; one
+              gather per frame, counted exactly; ms per frame. Then a 32x32 frame with
               f32 tables on the card and the CPU: all but 5% of the values
               within 1e-4, every value within 1e-2;
 21. parity_warp -- the warp CLI (cli.render_warp_cli.main) at its defaults,
@@ -265,7 +286,7 @@ from avatarcraft_tpu_torch.parallel import ring
 from avatarcraft_tpu_torch.parallel.table_mp import TableMPTrainStep, trainable_shards
 from avatarcraft_tpu_torch.utils.checkpoint import artifact_normal_mode, leaves, load_params_with_config, map_leaves
 from avatarcraft_tpu_torch.tools import run_multi_stylize
-from avatarcraft_tpu_torch.utils import cuda_build, marching_cubes as mc, native, style_delta
+from avatarcraft_tpu_torch.utils import cuda_build, gif, marching_cubes as mc, native, style_delta
 from avatarcraft_tpu_torch.utils.metrics import integerify_img
 from avatarcraft_tpu_torch.utils.png import read_png, write_png
 from avatarcraft_tpu_torch.utils.device import card_line
@@ -364,6 +385,10 @@ RECON_VIEWS, RECON_RES, RECON_RENDER_CHUNK = 100, 512, 65536
 RECON_STEPS, RECON_RESUME_STEPS, RECON_MESH_RES = 40, 4, 128
 RECON_MESH_EXPORT_RES = 512  # the CLI's default --mesh_resolution, timed once
 RECON_FAST_REFRESH = 20  # the fast run's grid warmup, refresh period and state period
+# reconstruct_scan: the fast CLI with --scan_steps 5 for 43 steps (8 calls and
+# a tail of 3), against --scan_steps 0; the graphed scan against the eager
+# one over calls of 5, 5 and 3 steps
+RECON_SCAN_STEPS, RECON_SCAN_MAX, RECON_SCAN_TAIL = 5, 43, 3
 # one parity step of the hash grid, card against CPU, on a 32x32 block of
 # view 0: the loss as the fast step's (TRAIN_LOSS_RTOL); every gradient
 # leaf, the hash table's included, within 1e-2 x its max|g|. Both devices
@@ -512,18 +537,22 @@ def check_gather_kernel() -> dict:
             raise AssertionError("all_gather_rows != torch.cat for misaligned shards")
     print(f"all_gather_rows bitwise equal to torch.cat in {len(cases) + 1} cases", flush=True)
 
-    # the wrapper copies nothing to the card: over ten calls the profiler
-    # sees the kernel and no host-to-device copy (and does see the copies
-    # pointer_array makes)
+    # the wrappers copy nothing to the card: over ten calls the profiler
+    # sees each kernel and no host-to-device copy (and does see the copy of
+    # a control that makes one)
     shards = [torch.randn(GRID_ROWS // 4, GRID_COLS, generator=gen, device="cuda") for _ in range(4)]
-    control = device_names(lambda: ring.pointer_array(shards))
+    control = device_names(lambda: torch.ones(4, pin_memory=True).to("cuda", non_blocking=True))
     names = device_names(lambda: ring.all_gather_rows(shards))
+    rs_names = device_names(lambda: ring.reduce_scatter_rows([shards[0]], 4))
     print(f"all_gather_rows puts on the card: {sorted(set(names))} ({len(names)} events in ten calls); "
-          f"pointer_array: {sorted(set(control))}", flush=True)
+          f"reduce_scatter_rows: {sorted(set(rs_names))}; a pinned copy: {sorted(set(control))}", flush=True)
     if any("Memcpy HtoD" in name for name in names) or not any("gather_rows_kernel" in name for name in names):
         raise AssertionError(f"all_gather_rows wrapper: device events {names}")
+    if any("Memcpy HtoD" in name for name in rs_names) or not any("reduce_scatter_rows_kernel" in name
+                                                                  for name in rs_names):
+        raise AssertionError(f"reduce_scatter_rows wrapper: device events {rs_names}")
     if not any("Memcpy HtoD" in name for name in control):
-        raise AssertionError(f"the profiler did not show pointer_array's host-to-device copy: {control}")
+        raise AssertionError(f"the profiler did not show the control's host-to-device copy: {control}")
 
     timings = {}
     for n in (1, 4):
@@ -597,39 +626,33 @@ def check_reduce_scatter_kernel() -> dict:
     print(f"reduce_scatter_rows bitwise equal to its plain version in {n_cases} cases", flush=True)
 
     timings = {}
-    for m, n in ((1, 1), (1, 4), (4, 1)):
-        cts = [torch.randn(GRID_ROWS, GRID_COLS, generator=gen, device="cuda") for _ in range(m)]
-        outs = [torch.empty(GRID_ROWS // n, GRID_COLS, device="cuda") for _ in range(n)]
-        ptrs = ring.pointer_array(cts + outs)
-        nbytes = (m + 1) * GRID_ROWS * GRID_COLS * 4  # read m tables, write one table's worth
-        kernel = lambda: ring.launch_reduce_scatter(ptrs, GRID_ROWS // n, GRID_COLS, m, n)  # noqa: E731
+    for m, n, rows, cols in ((1, 1, GRID_ROWS, GRID_COLS), (1, 4, GRID_ROWS, GRID_COLS),
+                             (4, 1, GRID_ROWS, GRID_COLS), (1, 1, HASH_ROWS, HASH_COLS)):
+        cts = [torch.randn(rows, cols, generator=gen, device="cuda") for _ in range(m)]
+        outs = [torch.empty(rows // n, cols, device="cuda") for _ in range(n)]
+        ptrs = ring.shard_pointers(cts + outs)
+        nbytes = (m + 1) * rows * cols * 4  # read m tables, write one table's worth
+        kernel = lambda: ring.launch_reduce_scatter(ptrs, outs[0].device, rows // n, cols, m, n)  # noqa: E731
+        wrapper = lambda: ring.reduce_scatter_rows(cts, n)  # noqa: E731
         library = lambda: [c.contiguous() for c in torch.stack(cts).sum(0).chunk(n)]  # noqa: E731
         kernel_dev, _ = cold_device_ms(kernel)
         library_dev, _ = cold_device_ms(library)
         t = {
             "kernel_ms": cuda_ms(kernel),
-            "wrapper_ms": cuda_ms(lambda: ring.reduce_scatter_rows(cts, n)),
+            "wrapper_ms": cuda_ms(wrapper),
             "plain_ms": cuda_ms(lambda: ring.reduce_scatter_rows_plain(cts, n)),
             "library_ms": cuda_ms(library),
             "kernel_cold_ms": cuda_ms_cold(kernel),
+            "wrapper_cold_ms": cuda_ms_cold(wrapper),
             "library_cold_ms": cuda_ms_cold(library),
             "kernel_cold_device_ms": kernel_dev,
             "library_cold_device_ms": library_dev,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
         }
-        print(f"reduce_scatter_rows m={m} n={n} [{GRID_ROWS},{GRID_COLS}] f32: " + json.dumps(t), flush=True)
-        timings[(m, n)] = t
-    cts = [torch.randn(HASH_ROWS, HASH_COLS, generator=gen, device="cuda")]
-    ptrs = ring.pointer_array(cts + [torch.empty(HASH_ROWS, HASH_COLS, device="cuda")])
-    t = {
-        "kernel_ms": cuda_ms(lambda: ring.launch_reduce_scatter(ptrs, HASH_ROWS, HASH_COLS, 1, 1)),
-        "wrapper_ms": cuda_ms(lambda: ring.reduce_scatter_rows(cts, 1)),
-        "plain_ms": cuda_ms(lambda: ring.reduce_scatter_rows_plain(cts, 1)),
-        "library_ms": cuda_ms(lambda: [c.contiguous() for c in torch.stack(cts).sum(0).chunk(1)]),
-        "bound_ms": 2 * HASH_ROWS * HASH_COLS * 4 / HBM_BYTES_PER_S * 1e3,
-    }
-    print(f"reduce_scatter_rows m=1 n=1 [{HASH_ROWS},{HASH_COLS}] f32 (the hash table): " + json.dumps(t), flush=True)
-    return {"max_abs_err": max_err, **timings[(1, 1)]}
+        what = " (the hash table)" if rows == HASH_ROWS else ""
+        print(f"reduce_scatter_rows m={m} n={n} [{rows},{cols}] f32{what}: " + json.dumps(t), flush=True)
+        timings[(m, n, rows)] = t
+    return {"max_abs_err": max_err, **timings[(1, 1, GRID_ROWS)]}
 
 
 def _reset_launches() -> None:
@@ -1861,6 +1884,129 @@ def check_reconstruct(root: str) -> dict:
     return counts
 
 
+def _scan_state(ds, device: str = "cuda"):
+    """A fresh fast trainer at the CLI's defaults on ``ds``: (rest, shards,
+    splice, Adam, schedule, field config, fast config)."""
+    fcfg = instant_nsr.FieldConfig(encoder="tpu_pyramid")
+    fast_cfg = FastRenderConfig(normal_mode="fd4")
+    cfg = reconstruct.ReconstructConfig(white_bkg=False)
+    params = instant_nsr.init_field_params(torch.Generator(device).manual_seed(cfg.seed), fcfg)
+    rest, shards, splice = trainable_shards(params)
+    opt, sched = reconstruct.make_optimizer(cfg, ds.n_images * ds.H * ds.W // cfg.batch_size, leaves(rest) + shards)
+    return rest, shards, splice, opt, sched, fcfg, fast_cfg, cfg
+
+
+def check_scan_graph_vs_eager(ds) -> dict:
+    """make_train_scan_fast on the card, graphed and eager (``graph=False``,
+    the same capturable step taken step by step), from two equal fresh
+    trainers, over calls of RECON_SCAN_STEPS, RECON_SCAN_STEPS and a tail:
+    the losses, every parameter and Adam's moments bitwise equal; each
+    launches one gather and one reduce-scatter a step (the graph's replays
+    counted). The graphed run's first step ran under sync debug mode
+    "error" (``reconstruct.capture_step``). Returns the ms per step of each."""
+    rng = np.random.default_rng(0)
+    sizes = [RECON_SCAN_STEPS, RECON_SCAN_STEPS, RECON_SCAN_TAIL]
+    n_steps = sum(sizes)
+    batches = list(reconstruct.pixel_batches(ds.n_images, ds.H * ds.W, 1600, rng))[:n_steps]
+    images = torch.as_tensor(np.asarray(ds.images, np.float32).reshape(ds.n_images, -1, 3), device="cuda")
+    poses = torch.as_tensor(np.asarray(ds.poses, np.float32), device="cuda")
+    runs = {}
+    for graph in (True, False):
+        rest, shards, splice, opt, sched, fcfg, fast_cfg, cfg = _scan_state(ds)
+        scan = reconstruct.make_train_scan_fast(fcfg, fast_cfg, opt, reconstruct.make_batch_ray_fn(ds.K, ds.H, ds.W),
+                                                cfg.eikonal_weight, cfg.bkg_mode, cfg.white_bkg, splice, graph=graph)
+        grid, masks = torch.full((129,) * 3, 100.0, device="cuda"), torch.zeros((1, 1), device="cuda")
+        _reset_launches()
+        losses, secs, start = [], [], 0
+        for n in sizes:
+            chunk = batches[start : start + n]
+            start += n
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = scan(rest, shards, poses, images, masks, np.stack([v for v, _ in chunk]),
+                       np.stack([p for _, p in chunk]), sched.advance(n), grid)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(out)
+        _expect_launches(f"scan {'graphed' if graph else 'eager'}", dict(ring.launches),
+                         {ring.KERNEL: n_steps, ring.RS_KERNEL: n_steps})
+        tensors = leaves(rest) + shards
+        runs[graph] = {"losses": torch.cat(losses), "tensors": tensors,
+                       "moments": [opt.state[t][k] for t in tensors for k in ("exp_avg", "exp_avg_sq")],
+                       # the calls after the first (which holds the capture): ms per step
+                       "ms_per_step": 1e3 * sum(secs[1:]) / sum(sizes[1:])}
+    graphed, eager = runs[True], runs[False]
+    same = (torch.equal(graphed["losses"], eager["losses"])
+            and all(torch.equal(a, b) for a, b in zip(graphed["tensors"], eager["tensors"]))
+            and all(torch.equal(a, b) for a, b in zip(graphed["moments"], eager["moments"])))
+    print(f"scan graphed vs eager ({'+'.join(map(str, sizes))} steps, the CLI's defaults, batch 1600): losses, "
+          f"parameters and Adam's moments bitwise equal: {same}; ms per step graphed "
+          f"{graphed['ms_per_step']:.3f}, eager {eager['ms_per_step']:.3f} ({card_line()}); the graphed first step "
+          f"ran under sync debug mode 'error'", flush=True)
+    if not same:
+        worst = max(float((a - b).abs().max()) for a, b in zip(graphed["tensors"], eager["tensors"]))
+        raise AssertionError(f"scan: the graphed steps differ from the eager ones (worst parameter {worst})")
+    return {"graphed_ms_per_step": graphed["ms_per_step"], "eager_ms_per_step": eager["ms_per_step"]}
+
+
+def check_reconstruct_scan(root: str) -> dict:
+    """reconstruct_cli --sampler fast --scan_steps RECON_SCAN_STEPS for
+    RECON_SCAN_MAX steps on the reconstruct phase's set (calls of 5 and a
+    tail of 3; refreshes and state saves every RECON_FAST_REFRESH, which 5
+    divides, so they fall on the steps of a per-step run): one gather and
+    one reduce-scatter a step, the graph's replays counted, plus a gather a
+    refresh, state save and the final tree, exactly; the per-call losses
+    within TRAIN_LOSS_RTOL of the same run with --scan_steps 0; steps/s of
+    both; then the graphed scan against the eager one, bitwise."""
+    out = os.path.join(root, "out")
+    every = str(RECON_FAST_REFRESH)
+    argv = ["--data_path", root, "--out_dir", out, "--batch_size", "1600", "--white_bkg", "false", "--sampler",
+            "fast", "--grid_warmup_steps", every, "--save_state_every", every, "--max_steps", str(RECON_SCAN_MAX),
+            "--i_val", "100000", "--i_save", "100000", "--i_mesh", "100000"]
+    runs = {}
+    for name, scan_steps in (("fast_scan", RECON_SCAN_STEPS), ("fast_steps", 0)):
+        with _recorded_trainers({"grid_update_every": RECON_FAST_REFRESH}) as record:
+            _reset_launches()
+            t0 = time.perf_counter()
+            _, stats = reconstruct_cli.main(argv + ["--exp_name", name, "--scan_steps", str(scan_steps)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        runs[name] = {"stats": stats, "launches": dict(ring.launches), "record": record, "wall": wall}
+        per_call = np.median(np.diff([t for _, t, _ in record])) / max(scan_steps, 1)
+        print(f"reconstruct {name}: " + json.dumps({
+            "steps": stats["steps"], "steps_per_sec": stats.get("steps_per_sec"),
+            "ms_per_step_median": 1e3 * float(per_call), "cli_wall_s": wall, "launches": runs[name]["launches"],
+            "grid_max_by_callback": [(s, g[0]) for s, _, g in record]}) + f" ({card_line()})", flush=True)
+        shutil.rmtree(os.path.join(out, name), ignore_errors=True)  # its train-state files (about 0.9 GB each)
+    scan, steps = runs["fast_scan"], runs["fast_steps"]
+    refreshes = saves = RECON_SCAN_MAX // RECON_FAST_REFRESH
+    for name in runs:
+        _expect_launches(f"reconstruct {name}", runs[name]["launches"],
+                         {ring.KERNEL: RECON_SCAN_MAX + refreshes + saves + 1, ring.RS_KERNEL: RECON_SCAN_MAX})
+    ends = [s for s, _ in scan["stats"]["losses"]]
+    want_ends = list(range(RECON_SCAN_STEPS, RECON_SCAN_MAX, RECON_SCAN_STEPS)) + [RECON_SCAN_MAX]
+    if ends != want_ends:
+        raise AssertionError(f"reconstruct fast_scan: losses logged at {ends}, expected {want_ends}")
+    per_step = dict(steps["stats"]["losses"])
+    pairs = [(l, per_step[s - 1]) for s, l in scan["stats"]["losses"]]
+    rel = max(abs(a - b) / abs(b) for a, b in pairs)
+    print(f"reconstruct scan vs per-step losses at the call ends: worst relative difference {rel:.3g} (rtol "
+          f"{TRAIN_LOSS_RTOL}), bitwise {all(a == b for a, b in pairs)}: {json.dumps(pairs)}", flush=True)
+    if not (np.isfinite([a for a, _ in pairs]).all() and rel <= TRAIN_LOSS_RTOL):
+        raise AssertionError(f"reconstruct fast_scan: the losses differ from the per-step run's: {pairs}")
+    # the refreshes at the same steps: the grid below the saturated 100 from step RECON_FAST_REFRESH on
+    for name, record in (("fast_scan", scan["record"]), ("fast_steps", steps["record"])):
+        after = [s for s, _, g in record if g[0] < 100.0]
+        first = after[0] + (0 if name == "fast_scan" else 1)
+        if first != RECON_FAST_REFRESH:
+            raise AssertionError(f"reconstruct {name}: the first refresh after step {first}")
+    timing = check_scan_graph_vs_eager(SMPLMultiviewDataset(root))
+    print("reconstruct_scan: " + json.dumps({
+        "scan_steps_per_sec": scan["stats"].get("steps_per_sec"), "per_step_steps_per_sec":
+        steps["stats"].get("steps_per_sec"), **timing}) + f" ({card_line()})", flush=True)
+    return scan["launches"]
+
+
 def recon_parity_checkpoint(root: str) -> str:
     """The hash-grid checkpoint that check_reconstruct's parity CLI run wrote."""
     return os.path.join(root, "out", "parity", "parity_final.pth.tar")
@@ -1919,17 +2065,31 @@ def check_parity_render() -> dict:
         with _timed_renderer(render_canonical_cli, "make_parity_frame_renderer", []) as frame_s:
             render_canonical_cli.main(["--weights_path", bench.ARTIFACT_CKPT, "--render_h", str(PARITY_RES),
                                        "--render_w", str(PARITY_RES), "--trajectory_resolution", str(PARITY_ORBIT),
-                                       "--out_dir", out_dir, "--exp_name", "parity"])
+                                       "--out_dir", out_dir, "--exp_name", "parity", "--log_extra", "true"])
         torch.cuda.synchronize()
         launches = _read_launches("parity_render", [ring.KERNEL])
         n = 2 * PARITY_ORBIT
         _expect_launches("parity_render", launches, {ring.KERNEL: n, ring.RS_KERNEL: 0})
         exp = os.path.join(out_dir, "canonical_360", "parity")
-        for name in sorted(os.listdir(exp)):
-            # a head close-up may fill its frame
-            _body_png(os.path.join(exp, name), PARITY_RES, body="_body_" in name)
-            if _body_png(os.path.join(exp, name), PARITY_RES, body=False) < 0.01:
-                raise AssertionError(f"parity_render: {name} shows nothing")
+        for pose in ("body", "head"):
+            frames = [f"parity_{pose}_can_{i:04d}.png" for i in range(PARITY_ORBIT)]
+            for name in frames:
+                # a head close-up may fill its frame
+                _body_png(os.path.join(exp, name), PARITY_RES, body=pose == "body")
+                if _body_png(os.path.join(exp, name), PARITY_RES, body=False) < 0.01:
+                    raise AssertionError(f"parity_render: {name} shows nothing")
+                # JAX's recipe blacks out normalised depths under 0.4: all of a head close-up
+                depth = read_png(os.path.join(exp, name.replace(".png", "_depth.png")))
+                if depth.shape != (PARITY_RES, PARITY_RES, 3) or (pose == "body" and not depth.any()):
+                    raise AssertionError(f"parity_render: the depth PNG of {name}: {depth.shape}, empty")
+            info = gif.gif_info(os.path.join(exp, f"parity_{pose}_can.gif"))
+            print(f"parity_render: parity_{pose}_can.gif: {json.dumps(info)}", flush=True)
+            if (info["version"], info["loop"], info["frames"], info["width"], info["height"], info["delays"]) != (
+                    "GIF89a", 0, len(frames), PARITY_RES, PARITY_RES, [gif.gif_delay_cs(15)] * len(frames)):
+                raise AssertionError(f"parity_render: parity_{pose}_can.gif: {info}, {len(frames)} PNG frames")
+            for kind in ("intrinsic", "extrinsic"):
+                if not os.path.isfile(os.path.join(exp, f"parity_{pose}_{kind}.pkl")):
+                    raise AssertionError(f"parity_render: parity_{pose}_{kind}.pkl not written")
         if len(frame_s) != n:
             raise AssertionError(f"parity_render: {len(frame_s)} frames timed, {n} expected")
         print(f"parity_render: {n} frames at {PARITY_RES}x{PARITY_RES} (64+64, "
@@ -2374,6 +2534,8 @@ def main() -> int:
             check_sd_card_vs_cpu()
         with Phase("reconstruct"):
             paths["reconstruct_fast"] = check_reconstruct(recon_root)
+        with Phase("reconstruct_scan"):
+            paths["reconstruct_scan"] = check_reconstruct_scan(recon_root)
         with Phase("parity_render"):
             paths["parity_render"] = check_parity_render()
         with Phase("parity_warp"):

@@ -39,8 +39,9 @@ def test_renders_pngs_on_cpu(tmp_path):
         "--batch_size", "40", "--out_dir", str(tmp_path), "--exp_name", "t",
     ])
     out = tmp_path / "canonical_360" / "t"
-    names = sorted(os.listdir(out))
+    names = sorted(n for n in os.listdir(out) if n.endswith(".png"))
     assert names == [f"t_{p}_can_{i:04d}.png" for p in ("body", "head") for i in range(2)]
+    assert sorted(set(os.listdir(out)) - set(names)) == ["t_body_can.gif", "t_head_can.gif"]
     from test_torch_guards import _read_png
 
     img = _read_png(str(out / names[0]))
@@ -160,7 +161,7 @@ def test_warp_cli_renders_pngs_on_cpu(warp_inputs, tmp_path):
 
     render_warp_cli.main(warp_inputs + WARP_ROOT_ARGS + ["--exp_name", "w"])
     out = tmp_path / "test_views" / "w"
-    assert sorted(os.listdir(out)) == ["w_0000.png"]
+    assert sorted(os.listdir(out)) == ["w.gif", "w_0000.png"]
     img = _read_png(str(out / "w_0000.png"))
     assert img.shape == (128, 128, 3)
     assert (img < 250).any() and (img == 255).any()  # the body on a white background

@@ -1,6 +1,7 @@
 """Guards for what the card's machine needs of the PyTorch port: it imports
-without JAX, the JAX package, imageio, cv2, regex, transformers or
-diffusers (the modules of every slice reached); entry points default to the card; chip_smoke.py fails loudly
+without JAX, the JAX package, imageio, cv2, PIL, regex, transformers or
+diffusers (the modules of every slice reached); entry points default to the card; a scan of
+train steps on the card never runs its steps eagerly; chip_smoke.py fails loudly
 without a card or without the package; kernels build for sm_90a into a
 directory git ignores; the wrapper never falls back to the CPU."""
 
@@ -25,7 +26,7 @@ from avatarcraft_tpu_torch.utils.png import write_png
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(avatarcraft_tpu_torch.__file__))
-BLOCKED = ("jax", "jaxlib", "imageio", "cv2", "avatarcraft_tpu", "regex", "transformers", "diffusers")
+BLOCKED = ("jax", "jaxlib", "imageio", "cv2", "PIL", "avatarcraft_tpu", "regex", "transformers", "diffusers")
 KERNELS = (ring.KERNEL, ring.RS_KERNEL)
 # modules of the training slice, which the import guard must reach
 TRAIN_MODULES = (
@@ -73,6 +74,14 @@ MULTI_MODULES = (
     "avatarcraft_tpu_torch.tools.run_multi_stylize",
     "avatarcraft_tpu_torch.utils.native",
 )
+# modules of the scan trainer and the outputs slice
+OUTPUT_MODULES = (
+    "avatarcraft_tpu_torch.utils.gif",
+    "avatarcraft_tpu_torch.utils.profiling",
+    "avatarcraft_tpu_torch.utils.overlay",
+    "avatarcraft_tpu_torch.utils.misc",
+    "avatarcraft_tpu_torch.cli.render_canonical_cli",
+)
 
 
 def _env_without_repo():
@@ -91,7 +100,8 @@ import avatarcraft_tpu_torch
 for m in pkgutil.walk_packages(avatarcraft_tpu_torch.__path__, "avatarcraft_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-missing = [m for m in {TRAIN_MODULES + WARP_MODULES + STYLIZE_MODULES + SD_MODULES + RECON_MODULES + MULTI_MODULES!r}
+missing = [m for m in {TRAIN_MODULES + WARP_MODULES + STYLIZE_MODULES + SD_MODULES + RECON_MODULES + MULTI_MODULES
+                      + OUTPUT_MODULES!r}
            if m not in sys.modules]
 print("imports ok" if not missing else f"not imported: {{missing}}")
 """
@@ -276,6 +286,39 @@ def test_reconstruct_entry_points_default_to_cuda():
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
     opt = reconstruct_cli.build_parser().parse_args([])
     assert opt.use_cuda is True and opt.sampler == "parity" and opt.batch_size == 1600
+
+
+def test_scan_on_the_card_never_steps_eagerly(monkeypatch):
+    """train_fast(scan_steps > 0) on a CUDA device captures its step into a
+    CUDA graph (``reconstruct.graphed``); a capture that fails raises out
+    of train_fast, and no step runs eagerly in its place. Shown on the CPU
+    with the card's path chosen and a capture that raises."""
+    from avatarcraft_tpu_torch.models import instant_nsr as nsr
+    from avatarcraft_tpu_torch.workloads import reconstruct
+
+    assert reconstruct.graphed("cuda") and reconstruct.graphed(torch.device("cuda", 0))
+    assert not reconstruct.graphed("cpu")
+
+    def failed_capture(step, optimizer):
+        raise RuntimeError("capture failed")
+
+    eager_steps, called = [], []
+    monkeypatch.setattr(reconstruct, "graphed", lambda device: True)
+    monkeypatch.setattr(reconstruct, "capture_step", failed_capture)
+    monkeypatch.setattr(torch.optim.Adam, "step", lambda self, *a, **k: eager_steps.append(1))
+    fcfg = nsr.FieldConfig(encoder="tpu_pyramid", packed_dtype="float32",
+                           pyramid=nsr.PyramidSpec(grid_resolutions=(4,), grid_dim=2, plane_resolutions=(9,),
+                                                   plane_dim=2))
+    K = np.array([[8.0, 0, 4], [0, 8.0, 4], [0, 0, 1]], np.float32)
+    pose = np.eye(4, dtype=np.float32)
+    pose[2, 3] = 2.5
+    ds = reconstruct.ImageSet(K=K, poses=pose[None], images=np.zeros((1, 8, 8, 3), np.float32),
+                              masks=np.ones((1, 8, 8), np.float32))
+    with pytest.raises(RuntimeError, match="capture failed"):
+        reconstruct.train_fast(ds, fcfg, nsr.FastRenderConfig(n_probes=8, k_samples=4),
+                               reconstruct.ReconstructConfig(batch_size=16), scan_steps=2, max_steps=4,
+                               grid_resolution=9, callbacks={"on_step": lambda *a: called.append(a)}, device="cpu")
+    assert eager_steps == [] and called == []
 
 
 def test_multi_stylize_defaults_to_cuda():

@@ -257,7 +257,7 @@ def test_canonical_cli_parity_equals_render_rays_chunked(tmp_path):
                                "--render_w", "8", "--trajectory_resolution", "1", "--batch_size", "24",
                                "--out_dir", str(tmp_path), "--exp_name", "p"])
     out = tmp_path / "canonical_360" / "p"
-    assert sorted(os.listdir(out)) == ["p_body_can_0000.png", "p_head_can_0000.png"]
+    assert sorted(os.listdir(out)) == ["p_body_can.gif", "p_body_can_0000.png", "p_head_can.gif", "p_head_can_0000.png"]
     params, fcfg = load_params_with_config(bench.ARTIFACT_CKPT, "cpu")
     pose = default_360_path(np.zeros(3), np.array([0.0, 1.0, 0.0]), render_canonical_cli.CANONICAL_CAMERA_DIST_VAL,
                             1)[0][0]
@@ -354,7 +354,7 @@ def test_warp_cli_parity_renders_pngs_on_cpu(warp_inputs, tmp_path, monkeypatch)
     monkeypatch.setattr(render_warp_cli, "make_warp_frame_renderer", recording)
     render_warp_cli.main(warp_inputs + WARP_ARGS + ["--exp_name", "w"])
     out = tmp_path / "test_views" / "w"
-    assert sorted(os.listdir(out)) == ["w_0000.png"] and len(seen) == 1
+    assert sorted(os.listdir(out)) == ["w.gif", "w_0000.png"] and len(seen) == 1
     img = _read_png(str(out / "w_0000.png"))
     assert img.shape == (128, 128, 3)
     assert (img < 250).any() and (img == 255).any()  # the body on a white background

@@ -3,7 +3,7 @@ the CPU: the dataset's training samplers, the supersampled rays, the 64+64
 trainer (``setup``/``train``) on the hash grid, the fast trainer with
 ``view_ids``, callbacks and a save-and-resume, mesh extraction and export,
 and ``reconstruct_cli`` end to end on a tiny set for both samplers, with
-its refusals.
+its refusals (``--scan_steps`` runs: tests/test_torch_scan_train.py).
 
 Tolerances:
 * the samplers: exact where both sides compute in numpy (pixel draws,
@@ -293,12 +293,6 @@ def test_train_fast_view_ids_callbacks_and_resume_match_jax(disc_set, tmp_path, 
     assert [l for s, l in full["losses"] if s >= 4] != [l for _, l in pb["losses"]]
 
 
-def test_train_fast_refuses_scan_steps(disc_set):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        recon.train_fast(SMPLMultiviewDataset(disc_set), TINY_PYR, nsr.FastRenderConfig(), recon.ReconstructConfig(),
-                         scan_steps=4, device="cpu")
-
-
 def test_extract_geometry_and_save_ply_match_jax(tmp_path):
     jparams, params = hash_field()
     want_grid = jnsr.extract_sdf_grid(jparams, HASH_JAX_FCFG, 1.6, 20, block=7)
@@ -368,7 +362,6 @@ def test_cli_end_to_end(disc_set, tmp_path, monkeypatch, capsys, sampler):
 REFUSALS = [
     (["--data_format", "neuman"], "neuman"),
     (["--normal_mode", "analytic"], "render-time option"),
-    (["--scan_steps", "8"], "ROADMAP item 12"),
 ]
 
 

@@ -107,16 +107,28 @@ def test_shard_cap_matches_the_kernel():
     assert re.search(rf"constexpr int kMaxShards = {ring.MAX_SHARDS};", _source(ring.KERNEL))
 
 
-@pytest.mark.parametrize("wrapper,uses_pointer_array", [
-    (ring.all_gather_rows, False), (ring.reduce_scatter_rows, True),
-])
-def test_only_reduce_scatter_copies_pointers_to_the_card(wrapper, uses_pointer_array):
-    """By inspection: the gather passes its shard pointers by value in the
+@pytest.mark.parametrize("wrapper", [ring.all_gather_rows, ring.reduce_scatter_rows])
+def test_only_reduce_scatter_copies_pointers_to_the_card(wrapper):
+    """By inspection: both wrappers pass their pointers by value in the
     launch's parameters (no pinned buffer, no host-to-device copy); the
-    reduce-scatter still reads a device array that pointer_array copies."""
+    reduce-scatter's device array of pointers is gone, so neither copies
+    anything to the card and a CUDA graph can hold either launch."""
     src = inspect.getsource(wrapper)
-    assert ("pointer_array(" in src) == uses_pointer_array
-    assert ("shard_pointers(" in src) != uses_pointer_array
+    assert "shard_pointers(" in src
+    assert not hasattr(ring, "pointer_array") and "pin_memory" not in inspect.getsource(ring)
+
+
+def test_table_cap_matches_the_kernel():
+    assert re.search(rf"constexpr int kMaxTables = {ring.MAX_TABLES};", _source(ring.RS_KERNEL))
+
+
+def test_table_cap_is_checked_on_cpu_too():
+    """m + n pointers fill the reduce-scatter's by-value table; one more is
+    refused on every device, as the gather refuses a 129th shard."""
+    cts = [torch.zeros((ring.MAX_TABLES - 2) * (ring.MAX_TABLES - 1), 1) for _ in range(2)]
+    assert len(ring.reduce_scatter_rows(cts, ring.MAX_TABLES - 2)) == ring.MAX_TABLES - 2
+    with pytest.raises(ValueError, match=f"MAX_TABLES = {ring.MAX_TABLES}"):
+        ring.reduce_scatter_rows(cts, ring.MAX_TABLES - 1)
 
 
 def _c_params(name: str) -> list[str]:
