@@ -20,8 +20,14 @@ package writes it) and each orbit's intrinsics and camera-to-world poses as
 pickles. ``--encoder`` overrides the checkpoint's encoder. The flags are the
 JAX CLI's (its flag groups of the reference's options.py included), so its
 command lines parse; ``--implicit_model neus|nerf`` is refused (ROADMAP
-item 20) and ``--mesh_devices > 1`` (item 22). ``--use_cuda false``
-renders on the CPU.
+item 20). ``--use_cuda false`` renders on the CPU.
+
+``--mesh_devices N`` (N > 1) renders each frame data parallel over N ranks
+(``parallel.mesh.launch``; gloo, one process a rank): rank r renders rows
+[r hw/N, (r+1) hw/N) of the frame's rays through the same renderer as one
+process, on card r % (the card count), several ranks sharing a card when
+there are fewer cards, which the run prints; rank 0 gathers the frame and
+writes the same PNGs and GIFs. It refuses an h*w that N does not divide.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from avatarcraft_tpu_torch.cli import options
 from avatarcraft_tpu_torch.constants import CAN_HEAD_CAMERA_DIST, CAN_HEAD_OFFSET, NSR_BOUND
 from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig, RenderConfig
 from avatarcraft_tpu_torch.ops.occupancy import init_density_grid
+from avatarcraft_tpu_torch.parallel.mesh import all_gather_rows_of, data_sharding, launch, one_rank
 from avatarcraft_tpu_torch.utils.checkpoint import artifact_normal_mode, load_params_with_config
 from avatarcraft_tpu_torch.utils.gif import jet_colormap, write_gif
 from avatarcraft_tpu_torch.utils.metrics import integerify_img
@@ -78,7 +85,7 @@ def build_parser() -> argparse.ArgumentParser:
                              "PROVENANCE.json, else fd7 for parity, fd4 for fast; "
                              "analytic = exact forward-mode gradient)")
     parser.add_argument("--mesh_devices", default=0, type=int,
-                        help="ray-axis data parallelism; not ported yet")
+                        help="ray-axis data parallelism over this many ranks (processes); 0 or 1: one process")
     return parser
 
 
@@ -105,15 +112,26 @@ def main(argv=None):
     if opt.implicit_model != "instant_nsr":
         raise SystemExit(f"--implicit_model {opt.implicit_model} is not ported yet (ROADMAP item 20, legacy models); "
                          "use instant_nsr")
-    if opt.mesh_devices > 1:
-        raise SystemExit(
-            "--mesh_devices > 1 is not ported yet (ROADMAP item 22, parallel); "
-            "render on one device"
-        )
     device = "cuda" if opt.use_cuda else "cpu"
     if device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA card: pass --use_cuda false to render on the CPU")
+    if opt.mesh_devices > 1:
+        h, w = opt.render_h or 256, opt.render_w or 256
+        if (h * w) % opt.mesh_devices:
+            raise SystemExit(f"--mesh_devices {opt.mesh_devices} does not divide a frame's {h}x{w} = {h * w} rays "
+                             "into equal shards")
+        launch(render_orbits, opt.mesh_devices, opt, device=device)
+        return
+    render_orbits(one_rank(device), opt)
 
+
+def render_orbits(mesh, opt) -> None:
+    """Render and write both orbits on ``mesh.device``: each rank of
+    ``mesh`` renders its rows of every frame and rank 0 writes the gathered
+    frame."""
+    device = mesh.device
+    writer = mesh.rank == 0
+    say = print if writer else (lambda *a, **k: None)
     h = opt.render_h or 256
     w = opt.render_w or 256
     params, fcfg = load_params_with_config(opt.weights_path, device)
@@ -124,7 +142,7 @@ def main(argv=None):
     # against (PROVENANCE.json); it holds for both samplers, as in the JAX package
     normal_mode = (opt.normal_mode or artifact_normal_mode(opt.weights_path)
                    or ("fd7" if opt.sampler == "parity" else "fd4"))
-    print(f"[render] field: encoder={fcfg.encoder} sampler={opt.sampler} normal_mode={normal_mode} device={device}")
+    say(f"[render] field: encoder={fcfg.encoder} sampler={opt.sampler} normal_mode={normal_mode} device={device}")
     if opt.sampler == "parity":
         rcfg = RenderConfig(num_steps=64, upsample_steps=64, bound=NSR_BOUND, perturb=False, normal_mode=normal_mode)
         render = make_parity_frame_renderer(params, fcfg, rcfg, chunk=opt.batch_size, bg_color=bg)
@@ -132,7 +150,7 @@ def main(argv=None):
         if opt.grid_path:
             grid = torch.as_tensor(np.load(opt.grid_path), dtype=torch.float32).to(device)
         else:
-            print("[render] refreshing the density grid from the SDF ...")
+            say("[render] refreshing the density grid from the SDF ...")
             grid = make_grid_update_fn(fcfg, NSR_BOUND)(params, init_density_grid(129, device))
         cfg = FastRenderConfig(n_probes=192, k_samples=32, bound=NSR_BOUND, normal_mode=normal_mode)
         render = make_fast_frame_renderer(params, fcfg, cfg, grid, chunk=opt.batch_size * 4, bg_color=bg)
@@ -143,23 +161,32 @@ def main(argv=None):
         center + up * CAN_HEAD_OFFSET, up, CAN_HEAD_CAMERA_DIST, opt.trajectory_resolution
     )
     exp_dir = os.path.join(opt.out_dir, "canonical_360", opt.exp_name)
-    os.makedirs(exp_dir, exist_ok=True)
+    if writer:
+        os.makedirs(exp_dir, exist_ok=True)
+    if mesh.distributed:
+        say(f"[render] ray axis sharded over {mesh.size} ranks")
     for pose_name, poses in (("body", body_poses), ("head", head_poses)):
         imgs = []
         for i, c2w in enumerate(poses):
             rays_o, rays_d = pose2rays(h, w, c2w, device=device)
-            out = render(rays_o, rays_d)
+            rows = data_sharding(mesh, h * w)
+            part = render(rays_o[rows], rays_d[rows])
+            out = {k: all_gather_rows_of(part[k], mesh) for k in ("rgb", "depth")}
+            if not writer:
+                continue
             img = integerify_img(out["rgb"].reshape(h, w, 3).cpu().numpy())
             imgs.append(img)
             path = os.path.join(exp_dir, f"{opt.exp_name}_{pose_name}_can_{i:04d}.png")
             write_png(path, img)
-            print(f"image saved: {path}")
+            say(f"image saved: {path}")
             if opt.log_extra:
                 write_png(os.path.join(exp_dir, f"{opt.exp_name}_{pose_name}_can_{i:04d}_depth.png"),
                           depth_image(out["depth"].reshape(h, w, 1).cpu().numpy()))
+        if not writer:
+            continue
         gif = os.path.join(exp_dir, f"{opt.exp_name}_{pose_name}_can.gif")
         write_gif(gif, imgs, fps=15, loop=0)
-        print(f"gif saved: {gif}")
+        say(f"gif saved: {gif}")
         if opt.log_extra:
             with open(os.path.join(exp_dir, f"{opt.exp_name}_{pose_name}_intrinsic.pkl"), "wb") as f:
                 pickle.dump(canonical_camera(h, w).intrinsic, f)

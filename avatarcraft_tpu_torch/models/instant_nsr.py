@@ -570,7 +570,8 @@ def render_rays(
     pts_norm = torch.linalg.norm(flat_pts, dim=-1).reshape(N, T)
     relax_inside = (pts_norm < 1.2).float().detach()
     grad_err = (_safe_norm(gradient.reshape(N, T, 3), keepdim=False) - 1.0) ** 2
-    gradient_error = (relax_inside * grad_err).sum() / (relax_inside.sum() + 1e-5)
+    gradient_error_sum, relax_sum = (relax_inside * grad_err).sum(), relax_inside.sum()
+    gradient_error = gradient_error_sum / (relax_sum + 1e-5)
 
     curvature_error = torch.zeros((), device=rays_o.device)
     if rcfg.curvature_loss:
@@ -593,6 +594,9 @@ def render_rays(
         "weight_sum": weights_sum,
         "normal": normal_map,
         "gradient_error": gradient_error,
+        # its numerator and denominator, which a mesh of ranks sums before it divides
+        "gradient_error_sum": gradient_error_sum,
+        "gradient_relax_sum": relax_sum,
         "curvature_error": curvature_error,
         "pts_color": color,
         "pts_alpha": alpha,
@@ -803,7 +807,8 @@ def render_rays_fast(
         pts_norm = pts_norm_flat.reshape(N, K)
         relax = ((pts_norm < 1.2) & valid).float().detach()
         gerr = (_safe_norm(grad.reshape(N, K, 3), keepdim=False) - 1.0) ** 2
-        gradient_error = (relax * gerr).sum() / (relax.sum() + 1e-5)
+        gradient_error_sum, relax_sum = (relax * gerr).sum(), relax.sum()
+        gradient_error = gradient_error_sum / (relax_sum + 1e-5)
 
         return {
             "rgb": image,
@@ -812,6 +817,8 @@ def render_rays_fast(
             "weight_sum": weights_sum,
             "normal": normal_map,
             "gradient_error": gradient_error,
+            "gradient_error_sum": gradient_error_sum,
+            "gradient_relax_sum": relax_sum,
         }
 
 

@@ -25,8 +25,25 @@ CUDA graph holds all it reads (``workloads/reconstruct.py``'s graphed
 train step).
 
 ``all_gather_table`` is the ``torch.autograd.Function`` over the two. On one
-card there is one replica (m = 1). The ring over NVLink across cards is
-still to port (ROADMAP, K10).
+card there is one replica (m = 1).
+
+Across the ranks of a mesh (``parallel.mesh``: one process per rank), the
+table is row-sharded over processes and ``ring_all_gather`` /
+``ring_all_gather_grad`` / ``all_gather_table(shard, mesh)`` gather it, the
+port of ring.py:118-195 itself. Their kernels (``csrc/ring_peer.cu``) work on
+peer memory: a symmetric buffer per (group, kind, size) that each rank
+allocates, exports with a CUDA IPC handle and opens from every other rank,
+with flags in the buffers for the TPU kernel's entry barrier and acks:
+
+* ``peer_all_gather``, the forward: each rank stages its shard in its
+  buffer and copies the n buffers' shards into its table. Plain version:
+  ``dist.all_gather``, then ``torch.cat``.
+* ``peer_reduce_scatter``, the backward: each rank stages its [n*S, F]
+  cotangent and sums block ``rank`` of the n buffers in rank order. Plain
+  version: the n cotangents gathered (``dist.all_gather``), block ``rank``
+  of each summed in rank order, which gloo's all_reduce would not keep.
+
+A mesh of one rank takes the one-card kernels.
 """
 
 from __future__ import annotations
@@ -35,11 +52,15 @@ import ctypes
 import functools
 
 import torch
+import torch.distributed as dist
 
-from avatarcraft_tpu_torch.utils.cuda_build import load_library
+from avatarcraft_tpu_torch.utils.cuda_build import build, load_library
 
 KERNEL = "all_gather_rows"
 RS_KERNEL = "reduce_scatter_rows"
+PEER_LIB = "ring_peer"  # csrc/ring_peer.cu: both cross-rank kernels
+PEER_GATHER = "peer_all_gather"
+PEER_RS = "peer_reduce_scatter"
 # the kernels' by-value pointer tables (csrc/all_gather_rows.cu kMaxShards,
 # csrc/reduce_scatter_rows.cu kMaxTables)
 MAX_SHARDS = 128
@@ -47,7 +68,7 @@ MAX_TABLES = 128
 
 # launches of each CUDA kernel in this process; only the launch functions
 # add to them, and ``add_replayed`` for the launches a CUDA graph replays
-launches = {KERNEL: 0, RS_KERNEL: 0}
+launches = {KERNEL: 0, RS_KERNEL: 0, PEER_GATHER: 0, PEER_RS: 0}
 
 
 def all_gather_rows_plain(shards) -> torch.Tensor:
@@ -77,6 +98,8 @@ def _check_tables(tables, what: str) -> None:
 @functools.cache
 def _library(name: str) -> ctypes.CDLL:
     lib = load_library(name)
+    if name == PEER_LIB:
+        return _peer_library(lib)
     if name == KERNEL:
         lib.all_gather_rows.argtypes = [
             ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
@@ -193,8 +216,206 @@ class _AllGatherTable(torch.autograd.Function):
         return tuple(reduce_scatter_rows([ct.contiguous()], ctx.n))
 
 
-def all_gather_table(shards) -> torch.Tensor:
-    """Reassemble a row-sharded table (the list of shards from
-    ``table_mp.shard_grid_rows``) into the full [T, F] table. Differentiable:
-    each shard's gradient is its row block of the table's gradient."""
+def all_gather_table(shards, mesh=None) -> torch.Tensor:
+    """Reassemble a row-sharded table into the full [T, F] table.
+    Differentiable: each shard's gradient is its row block of the table's
+    gradient. ``shards``: the list of shards from
+    ``table_mp.shard_grid_rows``, all in this process; with a ``mesh`` of
+    several ranks, this rank's one shard (a tensor or a one-element list),
+    gathered across the ranks (``ring_all_gather_grad``: its gradient sums
+    the ranks' cotangents)."""
+    if mesh is not None and mesh.distributed:
+        shard = shards if isinstance(shards, torch.Tensor) else _one(shards)
+        return ring_all_gather_grad(shard, mesh)
+    if isinstance(shards, torch.Tensor):
+        shards = [shards]
     return _AllGatherTable.apply(*shards)
+
+
+def _one(shards) -> torch.Tensor:
+    shards = list(shards)
+    if len(shards) != 1:
+        raise ValueError(f"a rank of a mesh holds one shard of the table, got {len(shards)}")
+    return shards[0]
+
+
+# -- across the ranks of a mesh ------------------------------------------------
+
+
+def build_kernels() -> None:
+    """Build the cross-rank kernels' library (once, before ranks spawn)."""
+    build([PEER_LIB])
+
+
+def _peer_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    ptr, i64, u64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_int
+    sigs = {
+        "ring_peer_alloc": [i64, ctypes.POINTER(ptr)],
+        "ring_peer_free": [ptr],
+        "ring_peer_handle_size": [],
+        "ring_peer_handle": [ptr, ptr],
+        "ring_peer_open": [ptr, ctypes.POINTER(ptr)],
+        "ring_peer_close": [ptr],
+        "ring_peer_all_gather": [ctypes.POINTER(ptr), i32, i32, u64, ptr, ptr, i64, ptr],
+        "ring_peer_reduce_scatter": [ctypes.POINTER(ptr), i32, i32, u64, ptr, ptr, i64, ptr],
+    }
+    for fn, args in sigs.items():
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = i32
+    lib.ring_peer_error_string.argtypes = [i32]
+    lib.ring_peer_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _peer_checked(what: str, rc: int) -> None:
+    if rc != 0:
+        msg = _library(PEER_LIB).ring_peer_error_string(rc).decode()
+        raise RuntimeError(f"{what} failed: error {rc} ({msg})")
+
+
+class PeerBuffer:
+    """This rank's symmetric buffer of one (group, kind, size) and the n
+    ranks' buffers mapped here (``bases``, the kernels' by-value table);
+    ``seq`` counts the calls made on it, the same on every rank."""
+
+    def __init__(self, mesh, nbytes: int):
+        lib = _library(PEER_LIB)
+        own = ctypes.c_void_p()
+        _peer_checked("ring_peer_alloc", lib.ring_peer_alloc(nbytes, ctypes.byref(own)))
+        handle = ctypes.create_string_buffer(lib.ring_peer_handle_size())
+        _peer_checked("ring_peer_handle", lib.ring_peer_handle(own, handle))
+        handles = [None] * mesh.size
+        dist.all_gather_object(handles, handle.raw, group=mesh.group)
+        self.own, self.opened, bases = own.value, [], []
+        for p, h in enumerate(handles):
+            if p == mesh.rank:
+                bases.append(self.own)
+                continue
+            peer = ctypes.c_void_p()
+            _peer_checked("ring_peer_open", lib.ring_peer_open(ctypes.create_string_buffer(h, len(h)),
+                                                               ctypes.byref(peer)))
+            self.opened.append(peer.value)
+            bases.append(peer.value)
+        self.bases = (ctypes.c_void_p * mesh.size)(*bases)
+        self.nbytes, self.seq = nbytes, 0
+
+
+# (id of the group, kind, bytes, card) -> PeerBuffer
+_peer_buffers: dict = {}
+
+
+def peer_buffer(mesh, kind: str, nbytes: int) -> PeerBuffer:
+    """The rank's buffer for calls of ``kind`` moving ``nbytes`` per rank,
+    made on first use (a collective: every rank makes the same calls)."""
+    key = (id(mesh.group), kind, nbytes, mesh.device.index)
+    buf = _peer_buffers.get(key)
+    if buf is None:
+        buf = _peer_buffers[key] = PeerBuffer(mesh, nbytes)
+    return buf
+
+
+def release_peer_buffers(mesh) -> None:
+    """Unmap and free this rank's buffers once every rank is done with
+    them (a collective, at the end of a rank)."""
+    if not _peer_buffers:
+        return
+    lib = _library(PEER_LIB)
+    torch.cuda.synchronize(mesh.device)
+    dist.barrier(group=mesh.group)  # no rank still reads a peer's buffer
+    for buf in _peer_buffers.values():
+        for ptr in buf.opened:
+            _peer_checked("ring_peer_close", lib.ring_peer_close(ptr))
+    dist.barrier(group=mesh.group)  # every mapping of a buffer is gone before it is freed
+    for buf in _peer_buffers.values():
+        _peer_checked("ring_peer_free", lib.ring_peer_free(buf.own))
+    _peer_buffers.clear()
+
+
+def ring_all_gather_plain(shard: torch.Tensor, mesh) -> torch.Tensor:
+    """[S, F] on each rank -> [n*S, F] in rank order (``dist.all_gather``)."""
+    parts = [torch.empty_like(shard) for _ in range(mesh.size)]
+    dist.all_gather(parts, shard, group=mesh.group)
+    return torch.cat(parts)
+
+
+def ring_reduce_scatter_plain(ct: torch.Tensor, mesh) -> torch.Tensor:
+    """[n*S, F] on each rank -> this rank's block of their sum, added in
+    rank order in f32."""
+    parts = [torch.empty_like(ct) for _ in range(mesh.size)]
+    dist.all_gather(parts, ct, group=mesh.group)
+    blocks = [p.chunk(mesh.size)[mesh.rank] for p in parts]
+    total = blocks[0].clone()
+    for b in blocks[1:]:
+        total += b
+    return total
+
+
+def _check_mesh_table(t: torch.Tensor, what: str, mesh) -> None:
+    _check_tables([t], what)
+    if t.device.type == "cuda" and t.device != mesh.device:
+        raise ValueError(f"{what}: a tensor on {t.device}, but this rank runs on {mesh.device}")
+
+
+def ring_all_gather(shard: torch.Tensor, mesh) -> torch.Tensor:
+    """Gather every rank's [S, F] shard into [n*S, F] on every rank (the
+    JAX package's ring_all_gather). One rank: the one-card kernel."""
+    if not mesh.distributed:
+        return all_gather_rows([shard])
+    _check_mesh_table(shard, PEER_GATHER, mesh)
+    if shard.device.type == "cpu":
+        return ring_all_gather_plain(shard, mesh)
+    out = torch.empty((mesh.size * shard.shape[0], shard.shape[1]), dtype=shard.dtype, device=shard.device)
+    nbytes = shard.numel() * shard.element_size()
+    buf = peer_buffer(mesh, PEER_GATHER, nbytes)
+    buf.seq += 1
+    stream = torch.cuda.current_stream(shard.device).cuda_stream
+    rc = _library(PEER_LIB).ring_peer_all_gather(buf.bases, mesh.size, mesh.rank, buf.seq, shard.data_ptr(),
+                                                 out.data_ptr(), nbytes, stream)
+    _peer_checked(PEER_GATHER, rc)
+    launches[PEER_GATHER] += 1
+    return out
+
+
+def ring_reduce_scatter(ct: torch.Tensor, mesh) -> torch.Tensor:
+    """The gather's VJP (the JAX package's psum_scatter): every rank's
+    [n*S, F] f32 cotangent -> this rank's [S, F] block of their sum, added
+    in rank order. One rank: the one-card kernel."""
+    if not mesh.distributed:
+        return reduce_scatter_rows([ct], 1)[0]
+    _check_mesh_table(ct, PEER_RS, mesh)
+    if ct.dtype != torch.float32:
+        raise ValueError(f"{PEER_RS} adds in float32, got {ct.dtype}")
+    rows, cols = ct.shape
+    if rows % mesh.size:
+        raise ValueError(f"table rows {rows} not divisible into {mesh.size} shards")
+    if ct.device.type == "cpu":
+        return ring_reduce_scatter_plain(ct, mesh)
+    out = torch.empty((rows // mesh.size, cols), dtype=ct.dtype, device=ct.device)
+    buf = peer_buffer(mesh, PEER_RS, ct.numel() * 4)
+    buf.seq += 1
+    stream = torch.cuda.current_stream(ct.device).cuda_stream
+    rc = _library(PEER_LIB).ring_peer_reduce_scatter(buf.bases, mesh.size, mesh.rank, buf.seq, ct.data_ptr(),
+                                                     out.data_ptr(), out.numel(), stream)
+    _peer_checked(PEER_RS, rc)
+    launches[PEER_RS] += 1
+    return out
+
+
+class _RingAllGather(torch.autograd.Function):
+    """Forward ``ring_all_gather``; backward ``ring_reduce_scatter`` (the
+    JAX package's ring_all_gather_grad with its psum_scatter VJP)."""
+
+    @staticmethod
+    def forward(ctx, shard, mesh):
+        ctx.mesh = mesh
+        return ring_all_gather(shard, mesh)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ring_reduce_scatter(ct.contiguous(), ctx.mesh), None
+
+
+def ring_all_gather_grad(shard: torch.Tensor, mesh) -> torch.Tensor:
+    """Differentiable ``ring_all_gather``: each rank's shard gradient is its
+    block of the table's gradient summed over the ranks."""
+    return _RingAllGather.apply(shard, mesh)

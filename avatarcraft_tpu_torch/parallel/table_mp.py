@@ -1,7 +1,10 @@
 """Row-sharded pyramid grid table: port of the JAX package's
 parallel/table_mp.py (``shard_grid_rows`` at :24, ``make_table_mp_train_step``
 at :60-112, here the class ``TableMPTrainStep``). The JAX mesh becomes a
-shard count.
+shard count n, all n shards in this process, or a ``parallel.mesh.Mesh``
+of ranks: each rank then keeps only its own shard, renders its own rays,
+and the loss gathers the table across the ranks
+(``ring.ring_all_gather_grad``).
 
 The fast render keeps this layout: every frame gathers the shards
 (``parallel.ring.all_gather_table``) and splices the table back before it
@@ -17,11 +20,12 @@ import torch
 from torch.profiler import record_function
 
 from avatarcraft_tpu_torch.models.instant_nsr import render_rays
+from avatarcraft_tpu_torch.parallel.mesh import Mesh, all_reduce_grads, global_mean, global_ratio, one_rank
 from avatarcraft_tpu_torch.parallel.ring import all_gather_table
 from avatarcraft_tpu_torch.utils.checkpoint import leaves, map_leaves
 
 
-def shard_grid_rows(params: dict, n: int = 1, leaf: int = -1):
+def shard_grid_rows(params: dict, n: int | Mesh = 1, leaf: int = -1):
     """Split ``params["grids"][leaf]`` ([R,R,R,C]) into ``n`` equal row
     shards of its [R^3, C] table, on the grid's device; a hash-grid tree
     (no "grids") splits its table ``params["table"]`` instead. The default
@@ -33,8 +37,13 @@ def shard_grid_rows(params: dict, n: int = 1, leaf: int = -1):
     copy of ``params`` with None in place of the leaf, ``shards`` is the
     list of n [rows/n, C] tensors (views of the leaf when it is contiguous,
     so the table is not held twice), and ``splice(params_rest, table)``
-    rebuilds the full tree from a gathered [rows, C] table.
+    rebuilds the full tree from a gathered [rows, C] table. With a ``Mesh``
+    for n, the table splits into one shard a rank and ``shards`` holds this
+    rank's alone.
     """
+    if isinstance(n, Mesh):
+        rest, shards, splice = shard_grid_rows(params, n.size, leaf)
+        return rest, [shards[n.rank]], splice
     hashed = "grids" not in params
     leaf_tensor = params["table"] if hashed else params["grids"][leaf]
     shape = tuple(leaf_tensor.shape)
@@ -55,20 +64,20 @@ def shard_grid_rows(params: dict, n: int = 1, leaf: int = -1):
     return params_rest, shards, splice
 
 
-def trainable_shards(params: dict, n: int = 1):
+def trainable_shards(params: dict, n: int | Mesh = 1):
     """(rest, shards, splice) as ``shard_grid_rows`` gives them, but every
     tensor a fresh leaf of its own that requires grad: clones, which an
-    optimizer can own, of the rest of the tree and of the n table shards."""
+    optimizer can own, of the rest of the tree and of the table shards."""
     params_rest, shards, splice = shard_grid_rows(params, n)
     own = lambda t: t.detach().clone().requires_grad_()  # noqa: E731
     return map_leaves(params_rest, own), [own(s) for s in shards], splice
 
 
 @torch.no_grad()
-def gathered_params(rest: dict, shards, splice) -> dict:
+def gathered_params(rest: dict, shards, splice, mesh=None) -> dict:
     """The full parameter tree of (rest, shards), detached, the table
-    gathered."""
-    return map_leaves(splice(rest, all_gather_table(shards)), torch.Tensor.detach)
+    gathered (across the ranks of ``mesh``: a collective)."""
+    return map_leaves(splice(rest, all_gather_table(shards, mesh)), torch.Tensor.detach)
 
 
 W_EIKONAL = 0.1
@@ -85,20 +94,32 @@ class TableMPTrainStep:
     table's optimizer state lives per shard (the JAX package's
     parallel/table_mp.py:60-112).
 
-    ``optimizer``: a function from a list of tensors to a
+    ``shards``: n, the table split n ways in this process, or a ``Mesh``
+    of ranks. ``optimizer``: a function from a list of tensors to a
     ``torch.optim.Optimizer`` over them. The step owns its parameters: clones
-    of ``params``, which it never modifies."""
+    of ``params``, which it never modifies.
 
-    def __init__(self, params: dict, n_shards: int, fcfg, rcfg, optimizer):
-        self.rest, self.shards, self.splice = trainable_shards(params, n_shards)
+    Over a ``Mesh`` (the JAX step over a mesh: rays data parallel, table
+    rows model parallel) each rank holds its one shard and
+    its shard's optimizer state, and is called with its own rows of the
+    rays; the loss is the global batch's (the squared error's mean and the
+    eikonal term's weighted mean summed over the ranks before they divide),
+    the table's gradient arrives through the cross-rank reduce-scatter and
+    the rest's is summed over the ranks, so the replicas of the rest take
+    the same step."""
+
+    def __init__(self, params: dict, shards: int | Mesh, fcfg, rcfg, optimizer):
+        self.mesh = shards if isinstance(shards, Mesh) else one_rank()
+        self.rest, self.shards, self.splice = trainable_shards(params, shards)
         self.opt_rest = optimizer(leaves(self.rest))
         self.opt_table = optimizer(self.shards)
         self.fcfg, self.rcfg = fcfg, rcfg
 
     def loss(self, rays_o, rays_d, gt, generator=None) -> torch.Tensor:
-        params = self.splice(self.rest, all_gather_table(self.shards))
+        params = self.splice(self.rest, all_gather_table(self.shards, self.mesh))
         out = render_rays(params, rays_o, rays_d, self.fcfg, self.rcfg, BG_VALUE, generator)
-        return torch.mean((out["rgb"] - gt) ** 2) + W_EIKONAL * out["gradient_error"]
+        mse = global_mean(torch.sum((out["rgb"] - gt) ** 2), gt.numel(), self.mesh)
+        return mse + W_EIKONAL * global_ratio(out["gradient_error_sum"], out["gradient_relax_sum"], self.mesh)
 
     def __call__(self, rays_o, rays_d, gt, generator=None) -> torch.Tensor:
         """One step on rays [N,3] against gt [N,3]; returns the loss
@@ -109,6 +130,7 @@ class TableMPTrainStep:
             loss = self.loss(rays_o, rays_d, gt, generator)
         with record_function("train.backward"):
             loss.backward()
+            all_reduce_grads(leaves(self.rest), self.mesh)
         with record_function("train.optimizer"):
             self.opt_rest.step()
             self.opt_table.step()
@@ -116,4 +138,4 @@ class TableMPTrainStep:
 
     def params(self) -> dict:
         """The current full parameter tree (detached, the table gathered)."""
-        return gathered_params(self.rest, self.shards, self.splice)
+        return gathered_params(self.rest, self.shards, self.splice, self.mesh)

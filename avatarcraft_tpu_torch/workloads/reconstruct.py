@@ -9,13 +9,10 @@ reconstruct.py:29-165).
 
 Loss and optimizer follow the reference: smooth-L1 photometric + 0.1 x
 eikonal, Adam(5e-4, betas (0.9, 0.99), eps 1e-15) on a cosine decay to 0
-(reconstruct.py:48-50,105-106). The fast step is table-sharded by design,
-where the JAX package's replicates its parameters: it keeps the finest
-grid as row shards, one per card in use (so one shard on the one card the
-port drives), and gathers them inside its loss through the all-gather
+(reconstruct.py:48-50,105-106). The fast step keeps the finest grid as
+one row shard and gathers it inside its loss through the all-gather
 kernel, whose backward is the reduce-scatter kernel (``parallel.ring``),
-as the table-parallel step does. A trainer across cards then shards the
-table and its Adam state instead of holding a copy on every card.
+as the table-parallel step does with n shards.
 
 The 64+64 trainer replicates nothing and gathers nothing: as in the JAX
 package, its step runs no table kernel.
@@ -33,6 +30,21 @@ over on-device batches; ``make_train_scan_fast``): on the card one train
 step, from the batch's gathers to Adam's update, is captured into a CUDA
 graph and replayed once a step; both table kernels run inside it. On the
 CPU the same step runs eagerly.
+
+Data parallel over a mesh of ranks (``parallel.mesh``; the JAX package's
+``setup(mesh=...)``, ``_shard_batch_arrays`` and the sharded batches of
+``train``/``train_fast``): each rank renders its rows of the global batch
+(``_shard_batch_arrays``) and draws its rows of the global jitter; the
+loss is the global batch's (smooth-L1's mean a sum over the global count,
+the eikonal term's weighted mean from numerator and denominator summed
+over the ranks); the gradients of the replicated parameters are summed
+over the ranks and every replica takes the same Adam step. The fast step
+replicates its table too, as the JAX package does, and gathers it with
+the one-card kernel; the table row-sharded across ranks is
+``table_mp.TableMPTrainStep``'s. One process is the mesh of one rank
+(``parallel.mesh.one_rank``), over which the same code runs. A graphed
+scan over a mesh raises (a CUDA graph cannot hold gloo's host-staged
+all-reduce; ROADMAP item 25).
 """
 
 from __future__ import annotations
@@ -59,6 +71,16 @@ from avatarcraft_tpu_torch.models.instant_nsr import (
 from avatarcraft_tpu_torch.ops.occupancy import update_density_grid
 from avatarcraft_tpu_torch.ops.sampling import device_constant, recip
 from avatarcraft_tpu_torch.parallel import ring
+from avatarcraft_tpu_torch.parallel.mesh import (
+    all_reduce_grads,
+    data_sharding,
+    global_mean,
+    global_ratio,
+    one_rank,
+    replicate,
+    shard_batch,
+    shard_draw,
+)
 from avatarcraft_tpu_torch.parallel.ring import all_gather_table
 from avatarcraft_tpu_torch.parallel.table_mp import gathered_params, shard_grid_rows, trainable_shards
 from avatarcraft_tpu_torch.utils.checkpoint import (
@@ -171,6 +193,20 @@ def smooth_l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.where(ad < 1.0, 0.5 * d * d, ad - 0.5))
 
 
+def smooth_l1_sum(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """The sum of the terms whose mean ``smooth_l1`` takes."""
+    d = pred - target
+    ad = d.abs()
+    return torch.sum(torch.where(ad < 1.0, 0.5 * d * d, ad - 0.5))
+
+
+def mesh_losses(out: dict, rgb: torch.Tensor, gt_rgb: torch.Tensor, mesh):
+    """(photo, eikonal) of a rank's share of a global batch: smooth-L1's
+    mean and the eikonal term's weighted mean over every rank's rays."""
+    photo = global_mean(smooth_l1_sum(rgb, gt_rgb), gt_rgb.numel(), mesh)
+    return photo, global_ratio(out["gradient_error_sum"], out["gradient_relax_sum"], mesh)
+
+
 def cosine_decay(decay_steps: int):
     """optax.cosine_decay_schedule's factor with alpha 0: step -> 0.5 (1 +
     cos(pi min(step, decay_steps) / decay_steps))."""
@@ -233,60 +269,72 @@ def _update(optimizer, scheduler) -> None:
 
 
 def make_train_step(fcfg: FieldConfig, rcfg: RenderConfig, optimizer, ray_fn, eikonal_weight: float,
-                    bg_value: float, scheduler=None):
+                    bg_value: float, scheduler=None, mesh=None):
     """The importance-sampled train step: step(params, poses, view_idx,
     pix_idx, gt_rgb, generator=None) -> (loss, (photo, eikonal)), detached.
     ``params`` is the tree of the leaves ``optimizer`` owns; the step
-    updates them in place."""
+    updates them in place. With a ``mesh`` of ranks the batch is this
+    rank's rows of the global one, the jitter its rows of one global draw
+    from ``generator``, the loss the global batch's and the gradients
+    summed over the ranks."""
+    mesh = mesh if mesh is not None else one_rank()
 
     def train_step(params, poses, view_idx, pix_idx, gt_rgb, generator=None):
         optimizer.zero_grad(set_to_none=True)
         with record_function("train.forward"):
             rays_o, rays_d = ray_fn(poses, view_idx, pix_idx)
-            out = render_rays(params, rays_o, rays_d, fcfg, rcfg, bg_value, generator)
-            photo = smooth_l1(out["rgb"], gt_rgb)
-            loss = photo + eikonal_weight * out["gradient_error"]
+            jitter = (shard_draw(mesh, rays_o.shape[0], rcfg.num_steps, generator, rays_o.device)
+                      if rcfg.perturb else None)
+            out = render_rays(params, rays_o, rays_d, fcfg, rcfg, bg_value, generator, jitter=jitter)
+            photo, eikonal = mesh_losses(out, out["rgb"], gt_rgb, mesh)
+            loss = photo + eikonal_weight * eikonal
         with record_function("train.backward"):
             loss.backward()
+            all_reduce_grads(leaves(params), mesh)
         _update(optimizer, scheduler)
-        return loss.detach(), (photo.detach(), out["gradient_error"].detach())
+        return loss.detach(), (photo.detach(), eikonal.detach())
 
     return train_step
 
 
 def fast_loss(params: dict, rays_o, rays_d, gt_rgb, fcfg: FieldConfig, fast_cfg, grid, bg,
-              eikonal_weight: float, packed: dict):
+              eikonal_weight: float, packed: dict, mesh=None):
     """(loss, photo, eikonal) of the fast render: smooth-L1 photometric +
-    eikonal_weight x eikonal. ``packed``: materialize_field_tables of
-    ``params``, built by the caller."""
+    eikonal_weight x eikonal, over the global batch of a ``mesh``'s ranks.
+    ``packed``: materialize_field_tables of ``params``, built by the
+    caller."""
     field = network_field_fns(params, fcfg, fast_cfg.bound, packed)
     out = render_rays_fast(params, rays_o, rays_d, fcfg, fast_cfg, grid, bg, field)
-    photo = smooth_l1(out["rgb"], gt_rgb)
-    return photo + eikonal_weight * out["gradient_error"], photo, out["gradient_error"]
+    photo, eikonal = mesh_losses(out, out["rgb"], gt_rgb, mesh if mesh is not None else one_rank())
+    return photo + eikonal_weight * eikonal, photo, eikonal
 
 
 def make_train_step_fast(fcfg: FieldConfig, fast_cfg, optimizer, ray_fn, eikonal_weight: float, splice,
-                         scheduler=None):
+                         scheduler=None, mesh=None):
     """The occupancy-guided train step: step(rest, shards, poses, view_idx,
     pix_idx, gt_rgb, grid, bg) -> (loss, (photo, eikonal)), detached.
     ``rest`` and ``shards`` come from ``trainable_shards`` (their leaves
     are what ``optimizer`` owns); the loss gathers the shards and splices
     the table in with ``splice``, and the step updates the leaves in
-    place."""
+    place. With a ``mesh`` of ranks the batch is this rank's rows, the
+    parameters (the table too) are replicated, as in the JAX package, and
+    their gradients summed over the ranks."""
+    mesh = mesh if mesh is not None else one_rank()
 
     def train_step(rest, shards, poses, view_idx, pix_idx, gt_rgb, grid, bg):
         optimizer.zero_grad(set_to_none=True)
         rays_o, rays_d = ray_fn(poses, view_idx, pix_idx)
-        with record_function("train.gather"):  # all_gather_rows
+        with record_function("train.gather"):
             params = splice(rest, all_gather_table(shards))
         with record_function("train.materialize"):
             packed = materialize_field_tables(params, fcfg)
         with record_function("train.forward"):
             loss, photo, gerr = fast_loss(
-                params, rays_o, rays_d, gt_rgb, fcfg, fast_cfg, grid, bg, eikonal_weight, packed
+                params, rays_o, rays_d, gt_rgb, fcfg, fast_cfg, grid, bg, eikonal_weight, packed, mesh
             )
         with record_function("train.backward"):  # ends in reduce_scatter_rows
             loss.backward()
+            all_reduce_grads(leaves(rest) + list(shards), mesh)
         _update(optimizer, scheduler)
         return loss.detach(), (photo.detach(), gerr.detach())
 
@@ -348,8 +396,20 @@ def _load_lr(optimizer, lrs: torch.Tensor, host_lrs: list, k: torch.Tensor) -> N
             group["lr"] = host_lrs[int(k)]
 
 
+GRAPHED_MESH_ITEM = "ROADMAP item 25"
+
+
+def refuse_graphed_mesh(mesh, device) -> None:
+    """A mesh of several ranks cannot run the graphed scan on the card: a
+    CUDA graph cannot hold gloo's host-staged all-reduce of the gradients."""
+    if mesh.distributed and torch.device(device).type == "cuda":
+        raise NotImplementedError(
+            f"scan_steps > 0 over a mesh of {mesh.size} ranks on the card: a CUDA graph cannot hold gloo's "
+            f"host-staged all-reduce ({GRAPHED_MESH_ITEM}, a graphed scan over a mesh); use scan_steps 0")
+
+
 def make_train_scan_fast(fcfg: FieldConfig, fast_cfg, optimizer, ray_fn, eikonal_weight: float, bkg_mode: str,
-                         white_bkg: bool, splice, ss: int = 1, graph: bool | None = None):
+                         white_bkg: bool, splice, ss: int = 1, graph: bool | None = None, mesh=None):
     """Several occupancy-guided train steps per call with the dataset on
     the device (the JAX package's make_train_scan_fast, a ``lax.scan``):
     scan(rest, shards, poses, images_flat, masks_flat, vis, pis, lrs, grid,
@@ -373,7 +433,14 @@ def make_train_scan_fast(fcfg: FieldConfig, fast_cfg, optimizer, ray_fn, eikonal
     dataset from the tensors of the capture. A refresh therefore writes the
     grid in place, and a call with other tensors raises. Each replay adds
     the graph's launches to ``ring.launches``. ``graph=False``, and every
-    call on the CPU, runs the same step eagerly (the plain version)."""
+    call on the CPU, runs the same step eagerly (the plain version).
+
+    With a ``mesh`` of ranks each rank takes its columns of the [n, B]
+    index blocks and the step is ``make_train_step_fast``'s over the mesh;
+    on the card only ``graph=False`` runs (``refuse_graphed_mesh``)."""
+    mesh = mesh if mesh is not None else one_rank()
+    if graph is not False:
+        refuse_graphed_mesh(mesh, mesh.device)
     composite = bkg_mode.startswith("composite")
     random_bg = bkg_mode == "composite_random"
     bg_value = 1.0 if white_bkg else 0.0
@@ -395,8 +462,10 @@ def make_train_scan_fast(fcfg: FieldConfig, fast_cfg, optimizer, ray_fn, eikonal
         rgb = out["rgb"]
         if ss > 1:
             rgb = rgb.reshape(-1, ss * ss, 3).mean(dim=1)
-        loss = smooth_l1(rgb, gt) + eikonal_weight * out["gradient_error"]
+        photo, eikonal = mesh_losses(out, rgb, gt, mesh)
+        loss = photo + eikonal_weight * eikonal
         loss.backward()
+        all_reduce_grads(leaves(st["rest"]) + list(st["shards"]), mesh)
         _load_lr(optimizer, st["lrs"], st["host_lrs"], k)
         optimizer.step()
         st["losses"].index_copy_(0, k, loss.detach().reshape(1))
@@ -405,6 +474,8 @@ def make_train_scan_fast(fcfg: FieldConfig, fast_cfg, optimizer, ray_fn, eikonal
     def scan(rest, shards, poses, images_flat, masks_flat, vis, pis, lrs, grid, generator=None):
         held = [poses, images_flat, masks_flat, grid, *shards, *leaves(rest)]
         n, device = len(vis), poses.device
+        cols = data_sharding(mesh, np.shape(vis)[1])  # this rank's columns of the [n, B] blocks
+        vis, pis = np.asarray(vis)[:, cols], np.asarray(pis)[:, cols]
         if not st:
             S, B = np.shape(vis)
             st.update(
@@ -501,25 +572,34 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _batch_to(device, view_idx, pix_idx, gt):
-    return (torch.as_tensor(view_idx, dtype=torch.int64, device=device),
-            torch.as_tensor(pix_idx, dtype=torch.int64, device=device),
-            torch.as_tensor(np.asarray(gt, np.float32), device=device))
+def _shard_batch_arrays(mesh, *arrays):
+    """This rank's rows of each [B, ...] host array, on its device: integer
+    arrays as int64 indices, the others as f32 (the JAX package's
+    _shard_batch_arrays, a device_put of each with data_sharding)."""
+    out = []
+    for a in arrays:
+        a = np.asarray(a)
+        a = a.astype(np.int64) if np.issubdtype(a.dtype, np.integer) else a.astype(np.float32)
+        out.append(shard_batch(mesh, a))
+    return tuple(out)
 
 
-def setup(dataset, fcfg: FieldConfig, rcfg: RenderConfig, cfg: ReconstructConfig, device="cuda"):
-    """What the 64+64 loop needs, on ``device``: (state, step_fn, poses,
-    steps_per_epoch). The field starts from ``init_field_params`` seeded
-    ``cfg.seed``; Adam on the cosine over the epochs; the step renders on a
-    white (``cfg.white_bkg``) or black background against the raw images,
-    as the JAX package's step does."""
-    params = map_leaves(init_field_params(torch.Generator(device).manual_seed(cfg.seed), fcfg),
-                        lambda t: t.requires_grad_())
+def setup(dataset, fcfg: FieldConfig, rcfg: RenderConfig, cfg: ReconstructConfig, device="cuda", mesh=None):
+    """What the 64+64 loop needs, on ``device`` (``mesh.device`` with a
+    mesh): (state, step_fn, poses, steps_per_epoch). The field starts from
+    ``init_field_params`` seeded ``cfg.seed`` (broadcast from rank 0 over a
+    mesh); Adam on the cosine over the epochs; the step renders on a white
+    (``cfg.white_bkg``) or black background against the raw images, as the
+    JAX package's step does, over ``mesh``'s ranks when given."""
+    mesh = mesh if mesh is not None else one_rank(device)
+    params = init_field_params(torch.Generator(mesh.device).manual_seed(cfg.seed), fcfg)
+    params = map_leaves(replicate(mesh, params), lambda t: t.requires_grad_())
     steps_per_epoch = _steps_per_epoch(dataset, cfg)
     opt, sched = make_optimizer(cfg, steps_per_epoch, leaves(params))
     ray_fn = make_batch_ray_fn(dataset.K, dataset.H, dataset.W)
-    step_fn = make_train_step(fcfg, rcfg, opt, ray_fn, cfg.eikonal_weight, 1.0 if cfg.white_bkg else 0.0, sched)
-    poses = torch.as_tensor(np.asarray(dataset.poses, np.float32), device=device)
+    step_fn = make_train_step(fcfg, rcfg, opt, ray_fn, cfg.eikonal_weight, 1.0 if cfg.white_bkg else 0.0, sched,
+                              mesh)
+    poses = torch.as_tensor(np.asarray(dataset.poses, np.float32), device=mesh.device)
     return ReconstructState(params, opt, sched), step_fn, poses, steps_per_epoch
 
 
@@ -534,6 +614,7 @@ def train(
     callbacks: dict | None = None,
     resume_from: str | None = None,
     device="cuda",
+    mesh=None,
 ) -> tuple[dict, dict]:
     """The 64+64 reconstruction loop on ``device``. Returns (params, stats):
     the logged (step, loss) pairs, rays/s and steps/s (timed from the end
@@ -546,8 +627,11 @@ def train(
     the initial ones; the step count and the pixel order start again from
     0, as in the JAX package. The perturbed depths come from a
     ``torch.Generator`` seeded ``cfg.seed``, where the JAX package splits
-    keys."""
-    state, step_fn, poses, _ = setup(dataset, fcfg, rcfg, cfg, device)
+    keys. ``mesh``: the ranks of a data-parallel run (each renders its rows
+    of every batch; ``device`` is then the rank's)."""
+    mesh = mesh if mesh is not None else one_rank(device)
+    device = mesh.device
+    state, step_fn, poses, _ = setup(dataset, fcfg, rcfg, cfg, device, mesh)
     params = state.params
     if resume_from is not None:
         saved = load_train_state(resume_from, device)
@@ -567,7 +651,8 @@ def train(
             break
         for view_idx, pix_idx in pixel_batches(dataset.n_images, n_pix, cfg.batch_size, rng):
             gt = dataset.gather_rgb(view_idx, pix_idx)
-            loss, _ = step_fn(params, poses, *_batch_to(device, view_idx, pix_idx, gt), generator)
+            batch = _shard_batch_arrays(mesh, view_idx, pix_idx, gt)
+            loss, _ = step_fn(params, poses, *batch, generator)
             if step == 0:  # time from the end of the first step
                 _sync(device)
                 t_start = time.perf_counter()
@@ -606,6 +691,7 @@ def train_fast(
     resume_from: str | None = None,
     scan_steps: int = 0,
     device="cuda",
+    mesh=None,
 ) -> tuple[dict, torch.Tensor, dict]:
     """Occupancy-guided reconstruction on ``device``: the density grid
     starts fully occupied (uniform sampling) and sparsifies through periodic
@@ -637,19 +723,30 @@ def train_fast(
     first call (it holds the capture of the card's CUDA graph). The
     ``composite_random`` backgrounds come from a ``torch.Generator`` seeded
     ``cfg.seed``, one a step, and the numpy pixel order draws nothing for
-    them (its per-step branch draws one ``rng.uniform()`` a step)."""
+    them (its per-step branch draws one ``rng.uniform()`` a step).
+
+    ``mesh``: the ranks of a data-parallel run (``device`` is then the
+    rank's): each rank renders its rows of every batch and holds a replica
+    of every parameter (the table too) and of Adam's state, as the JAX
+    package's train_fast does; rank 0 alone writes the state files.
+    ``scan_steps`` > 0 over a mesh runs only on the CPU
+    (``refuse_graphed_mesh``)."""
+    mesh = mesh if mesh is not None else one_rank(device)
+    device = mesh.device
+    if scan_steps > 0:
+        refuse_graphed_mesh(mesh, device)
     saved = load_train_state(resume_from, device) if resume_from is not None else None
     if saved is not None:
         params = saved["params"]
     else:
         params = init_field_params(torch.Generator(device).manual_seed(cfg.seed), fcfg)
-    rest, shards, splice = trainable_shards(params)
+    rest, shards, splice = trainable_shards(replicate(mesh, params))
     del params
     opt, sched = make_optimizer(cfg, _steps_per_epoch(dataset, cfg), leaves(rest) + shards)
     ray_fn = make_batch_ray_fn(dataset.K, dataset.H, dataset.W)
     if scan_steps > 0:
         scan = make_train_scan_fast(fcfg, fast_cfg, opt, ray_fn, cfg.eikonal_weight, cfg.bkg_mode, cfg.white_bkg,
-                                    splice)
+                                    splice, mesh=mesh)
         images_flat = torch.as_tensor(
             np.asarray(dataset.images, np.float32).reshape(dataset.n_images, -1, 3), device=device)
         if cfg.bkg_mode.startswith("composite"):
@@ -659,7 +756,7 @@ def train_fast(
             masks_flat = torch.zeros((1, 1), device=device)
         generator = torch.Generator(device).manual_seed(cfg.seed)
     else:
-        step_fn = make_train_step_fast(fcfg, fast_cfg, opt, ray_fn, cfg.eikonal_weight, splice, sched)
+        step_fn = make_train_step_fast(fcfg, fast_cfg, opt, ray_fn, cfg.eikonal_weight, splice, sched, mesh)
     refresh = make_grid_update_fn(fcfg, fast_cfg.bound)
     grid = torch.full((grid_resolution,) * 3, 100.0, device=device)  # fully occupied at start
     poses = torch.as_tensor(np.asarray(dataset.poses, np.float32), device=device)
@@ -667,7 +764,7 @@ def train_fast(
     if saved is not None:
         moments = {}
         for key in ("mu", "nu"):
-            m_rest, m_shards, _ = shard_grid_rows(saved[key], len(shards))
+            m_rest, m_shards, _ = shard_grid_rows(saved[key])
             moments[key] = sorted_leaves(m_rest) + m_shards
         adam_state_from_optax(opt, sorted_leaves(rest) + shards, moments["mu"], moments["nu"], saved["count"], sched)
         grid, step = saved["grid"], int(saved["step"])
@@ -675,13 +772,16 @@ def train_fast(
     def save_state(name: str, params: dict | None = None) -> None:
         def moments(key):  # Adam's moments in the parameters' layout (zeros before a step)
             m = lambda p: opt.state[p][key] if p in opt.state else torch.zeros_like(p)  # noqa: E731
-            return splice(map_leaves(rest, m), torch.cat([m(s) for s in shards]))
+            with torch.no_grad():
+                table = torch.cat([m(s) for s in shards])
+            return splice(map_leaves(rest, m), table)
 
         count = int(opt.state[shards[0]]["step"]) if shards[0] in opt.state else 0
         if params is None:
             params = gathered_params(rest, shards, splice)
-        save_train_state(f"{state_dir}/{name}.pt", params, moments("exp_avg"), moments("exp_avg_sq"), count, step,
-                         grid)
+        mu, nu = moments("exp_avg"), moments("exp_avg_sq")
+        if mesh.rank == 0:
+            save_train_state(f"{state_dir}/{name}.pt", params, mu, nu, count, step, grid)
 
     def maybe_refresh(prev_step: int) -> None:
         """The grid refreshed in place (a captured step reads it) when the
@@ -748,7 +848,8 @@ def train_fast(
                     bg = float(rng.uniform())
                 m = dataset.gather_mask(view_idx, pix_idx)[:, None]
                 gt = gt * m + (1.0 - m) * bg
-            loss, _ = step_fn(rest, shards, poses, *_batch_to(device, view_idx, pix_idx, gt), grid, bg)
+            batch = _shard_batch_arrays(mesh, view_idx, pix_idx, gt)
+            loss, _ = step_fn(rest, shards, poses, *batch, grid, bg)
             if t_start is None:  # time from the end of the first step
                 _sync(device)
                 t_start, timed_from = time.perf_counter(), step + 1

@@ -77,11 +77,12 @@ from avatarcraft_tpu_torch.models.instant_nsr import (
     table_dtype,
 )
 from avatarcraft_tpu_torch.ops.occupancy import prune_grid_floaters
+from avatarcraft_tpu_torch.parallel.mesh import data_sharding, global_mean, global_ratio, one_rank, psum
 from avatarcraft_tpu_torch.parallel.ring import all_gather_table
 from avatarcraft_tpu_torch.parallel.table_mp import gathered_params, shard_grid_rows, trainable_shards
 from avatarcraft_tpu_torch.utils.background import select_background
 from avatarcraft_tpu_torch.utils.checkpoint import leaves, map_leaves
-from avatarcraft_tpu_torch.workloads.reconstruct import make_grid_update_fn, smooth_l1
+from avatarcraft_tpu_torch.workloads.reconstruct import make_grid_update_fn, smooth_l1, smooth_l1_sum
 
 SAMPLERS = ("parity", "fast")
 
@@ -200,8 +201,19 @@ def _accumulate_patches(patch_loss, chunk: int):
     return step
 
 
+def shard_patches(mesh, x, chunk: int):
+    """This rank's rows of each ``chunk``-row patch of ``x`` [N, ...],
+    concatenated: the rays of a patch sharded over the ranks of ``mesh``
+    as the JAX package's data sharding spreads them."""
+    n = x.shape[0]
+    if n % chunk:
+        raise ValueError(f"{n} rays are not a whole number of {chunk}-ray patches")
+    per = data_sharding(mesh, chunk)
+    return torch.cat([x[i : i + chunk][per] for i in range(0, n, chunk)])
+
+
 def make_phaseB_step(fcfg: FieldConfig, rcfg: RenderConfig, w_eikonal: float, use_opacity: bool, chunk: int,
-                     w_opacity: float = 1e5, generator: torch.Generator | None = None):
+                     w_opacity: float = 1e5, generator: torch.Generator | None = None, mesh=None):
     """step(params, tables, gt, rays_o, rays_d, g_rgb, bg) -> the
     summed patch loss (detached), the 64+64 render through ``rcfg`` in
     ``chunk``-ray patches (the JAX package's make_phaseB_step): for each,
@@ -211,21 +223,33 @@ def make_phaseB_step(fcfg: FieldConfig, rcfg: RenderConfig, w_eikonal: float, us
     ``tables`` (f32 leaves, cast to the field's table dtype per patch).
     ``gt``: (params, FieldFns) of the frozen ground truth, rendered with the
     patch's own jitter (one draw from ``generator`` per patch). reg_scale =
-    chunk/4096 (make_phaseB_step_fast)."""
+    chunk/4096 (make_phaseB_step_fast).
+
+    With a ``mesh`` of ranks each rank is given its rows of every patch
+    (``shard_patches``) and draws its rows of the patch's jitter; a
+    patch's terms are over all its rays (sums and the eikonal term's
+    weighted mean summed over the ranks), and the caller sums the
+    parameters' gradients over the ranks."""
     reg_scale = chunk / 4096.0
+    mesh = mesh if mesh is not None else one_rank()
+    local = chunk // mesh.size
 
     def patch_loss(params, tables, gt, ro, rd, g, bg):
-        jitter = draw_jitter(ro.shape[0], rcfg, generator, ro.device)
+        jitter = draw_jitter(ro.shape[0] * mesh.size, rcfg, generator, ro.device)  # the patch's, all ranks'
+        if jitter is not None:
+            jitter = jitter[data_sharding(mesh, jitter.shape[0])]
         params, field = table_field(params, tables, fcfg, rcfg.bound)
         out = render_rays(params, ro, rd, fcfg, rcfg, bg, field=field, jitter=jitter)
-        loss = torch.sum(out["rgb"] * g) + reg_scale * w_eikonal * out["gradient_error"]
+        loss = psum(torch.sum(out["rgb"] * g), mesh) + reg_scale * w_eikonal * global_ratio(
+            out["gradient_error_sum"], out["gradient_relax_sum"], mesh)
         if use_opacity:
             with torch.no_grad():
                 out_gt = render_rays(gt[0], ro, rd, fcfg, rcfg, bg, field=gt[1], jitter=jitter)
-            loss = loss + reg_scale * w_opacity * _opacity_term(out, out_gt)
+            opacity = smooth_l1_sum(clip01(out["weight_sum"]), clip01(out_gt["weight_sum"]))
+            loss = loss + reg_scale * w_opacity * global_mean(opacity, ro.shape[0], mesh)
         return loss
 
-    return _accumulate_patches(patch_loss, chunk)
+    return _accumulate_patches(patch_loss, local)
 
 
 def make_phaseA_render_fast(fcfg: FieldConfig, fast_cfg: FastRenderConfig, chunk: int):

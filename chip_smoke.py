@@ -233,7 +233,24 @@ Phases, each printed with its start, end and wall seconds:
               P = 2, t and the noise injected, stage by stage at
               stylize_card_vs_cpu's bounds, the variance's gradient at
               1e-1 x max|g| (it moves by 3.5e-2 when the parameters move
-              by one ulp).
+              by one ulp);
+25. multirank -- several ranks (processes, gloo) on the one card, time-
+              slicing it: K10's cross-rank kernels (csrc/ring_peer.cu,
+              peer_all_gather and peer_reduce_scatter) at 2 and 4 ranks,
+              at the 128^3 x 4 grid table and the hash table (padded to a
+              multiple of the ranks), over MULTIRANK_CALLS back-to-back
+              calls whose inputs change every call, bitwise against their
+              plain versions; their times warm and with the L2 flushed,
+              beside the plain versions and gloo's all_gather_into_tensor
+              and all_reduce on the same tensors. In 2 ranks the dryrun
+              twin's paths (parallel/dryrun.py; the scan over a mesh must
+              refuse on the card), train_fast at batch 1600 (800 a rank)
+              for 3 steps against one process, and in 2 and 4 ranks the
+              table-parallel step on the artifact with the grid rows
+              sharded across the ranks against one process; the canonical
+              CLI at --mesh_devices 2 under both samplers against one
+              process. Each rank's launches, per path, equal on every rank,
+              summed here.
 
 Before the last line it prints one JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -242,6 +259,7 @@ card's name and power limit; the last line is
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -282,7 +300,8 @@ from avatarcraft_tpu_torch.models.toy_guidance import (
     make_toy_train_step,
     style_map,
 )
-from avatarcraft_tpu_torch.parallel import ring
+from avatarcraft_tpu_torch.parallel import dryrun, ring
+from avatarcraft_tpu_torch.parallel import mesh as mesh_lib
 from avatarcraft_tpu_torch.parallel.table_mp import TableMPTrainStep, trainable_shards
 from avatarcraft_tpu_torch.utils.checkpoint import artifact_normal_mode, leaves, load_params_with_config, map_leaves
 from avatarcraft_tpu_torch.tools import run_multi_stylize
@@ -445,6 +464,16 @@ KERNELS = {
         "source": "avatarcraft_tpu_torch/csrc/reduce_scatter_rows.cu",
         "replaces": "avatarcraft_tpu/parallel/ring.py:27 (its VJP, ring.py:168-169)",
     },
+    ring.PEER_GATHER: {
+        "route": "cuda",
+        "source": "avatarcraft_tpu_torch/csrc/ring_peer.cu",
+        "replaces": "avatarcraft_tpu/parallel/ring.py:27 (across devices, ring_all_gather at ring.py:133)",
+    },
+    ring.PEER_RS: {
+        "route": "cuda",
+        "source": "avatarcraft_tpu_torch/csrc/ring_peer.cu",
+        "replaces": "avatarcraft_tpu/parallel/ring.py:27 (its VJP across devices, ring.py:168-169)",
+    },
 }
 
 
@@ -477,7 +506,8 @@ def check_device() -> dict:
 def build_kernels() -> None:
     """nvcc builds the kernels and g++ the native mesh extractor, all
     started together."""
-    seconds = cuda_build.build(list(KERNELS) + [native.LIB])
+    sources = {os.path.splitext(os.path.basename(meta["source"]))[0] for meta in KERNELS.values()}
+    seconds = cuda_build.build(sorted(sources) + [native.LIB])
     for name, s in seconds.items():
         print(f"built {name} in {s:.2f} s -> {cuda_build.library_path(name)}", flush=True)
 
@@ -2482,6 +2512,286 @@ def check_parity_card_vs_cpu(root: str) -> None:
         _hold_step_card_vs_cpu(what, card, cpu)
 
 
+# -- multirank: K10 across ranks, the dryrun twin, full-width runs over a mesh --
+
+# the table shapes of the cross-rank kernels: the 128^3 x 4 grid table and the
+# hash table padded to a multiple of the rank count (6,119,857 rows is odd)
+MULTIRANK_SIZES = (2, 4)
+MULTIRANK_CALLS = 200  # back-to-back calls whose shards change every call
+MULTIRANK_TRAIN_BATCH, MULTIRANK_TRAIN_STEPS = 1600, 3
+MULTIRANK_TABLE_MP_RES = 32  # 1024 rays of bench camera 0, as check_table_mp
+# a fast train step, 2 ranks against 1 process, 3 steps at full width: the
+# losses; a table-MP step, n ranks against 1: the loss and the table
+# gradient per max|g|, its rows' cotangents summed per rank, then over the
+# ranks in rank order, where one process sums them in one pass (measured
+# on an H100: the losses bitwise, the table gradient within 1.67e-4 and
+# 2.09e-4 x max|g| at 2 and 4 ranks)
+MULTIRANK_LOSS_RTOL = 1e-4
+MULTIRANK_GRAD_REL = 1e-3
+# the canonical CLI over 2 ranks against 1: the PNGs' 8-bit levels
+MULTIRANK_CLI_LEVELS = 1
+MULTIRANK_CLI_RES, MULTIRANK_CLI_ORBIT = 256, 1
+
+
+def _table_shapes(n: int):
+    hash_rows = -(-HASH_ROWS // n) * n
+    return ((GRID_ROWS, GRID_COLS), (hash_rows, HASH_COLS))
+
+
+def _seeded(shape, seed: int) -> torch.Tensor:
+    return torch.randn(shape, generator=torch.Generator("cuda").manual_seed(seed), device="cuda")
+
+
+def _peer_kernel_checks(mesh) -> dict:
+    """Both cross-rank kernels over MULTIRANK_CALLS back-to-back calls at
+    both shapes, each call's inputs new, bitwise against their plain
+    versions computed here from every rank's seeded inputs (a rank can draw
+    its peers' shards: no collective in the check): the differing elements
+    and the largest |kernel - plain| are summed and kept on the card over
+    the calls and read once a shape. Then the times."""
+    import torch.distributed as dist
+
+    n, r = mesh.size, mesh.rank
+    out = {}
+    for rows, cols in _table_shapes(n):
+        S = rows // n
+        t0 = time.perf_counter()
+        differ = {ring.PEER_GATHER: torch.zeros((), dtype=torch.int64, device="cuda"),
+                  ring.PEER_RS: torch.zeros((), dtype=torch.int64, device="cuda")}
+        err = {ring.PEER_GATHER: torch.zeros((), device="cuda"), ring.PEER_RS: torch.zeros((), device="cuda")}
+
+        def hold(name, got, want):
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)}, plain {want.dtype} {tuple(want.shape)}")
+            differ[name] += (got.view(torch.int32) != want.view(torch.int32)).sum()
+            torch.maximum(err[name], (got - want).abs().max(), out=err[name])
+
+        for k in range(MULTIRANK_CALLS):
+            seed = (rows * 7 + k) * 64
+            hold(ring.PEER_GATHER, ring.ring_all_gather(_seeded((S, cols), seed + r), mesh),
+                 torch.cat([_seeded((S, cols), seed + p) for p in range(n)]))
+            got = ring.ring_reduce_scatter(_seeded((rows, cols), seed + 32 + r), mesh)
+            blocks = [_seeded((rows, cols), seed + 32 + p).chunk(n)[r] for p in range(n)]
+            want = blocks[0].clone()
+            for b in blocks[1:]:
+                want += b
+            hold(ring.PEER_RS, got, want)
+        for name in differ:
+            if int(differ[name]):
+                raise AssertionError(f"{name} != its plain version: n={n} [{rows},{cols}], {int(differ[name])} "
+                                     f"elements over {MULTIRANK_CALLS} calls differ, max |diff| {float(err[name])}")
+        checked_s = time.perf_counter() - t0
+        shard, ct = _seeded((S, cols), 11 + r), _seeded((rows, cols), 13 + r)
+        gathered = torch.empty((rows, cols), device="cuda")
+        reduced = ct.clone()
+        gather = lambda: ring.ring_all_gather(shard, mesh)  # noqa: E731
+        scatter = lambda: ring.ring_reduce_scatter(ct, mesh)  # noqa: E731
+        library_gather = lambda: dist.all_gather_into_tensor(gathered, shard, group=mesh.group)  # noqa: E731
+        library_reduce = lambda: dist.all_reduce(reduced, group=mesh.group)  # noqa: E731
+        # the bytes each function needs, over all n ranks through the one HBM:
+        # the gather reads the n shards and writes them (n 2nS F 4); the
+        # reduce-scatter reads rank r's block of each of the n cotangents and
+        # writes one block (n (nS + S) F 4). The design also stages each input
+        # in its IPC buffer (a read and a write): design_bytes
+        need = {ring.PEER_GATHER: n * 2 * n * S * cols * 4, ring.PEER_RS: n * (n * S + S) * cols * 4}
+        design = {ring.PEER_GATHER: n * (2 * S + 2 * n * S) * cols * 4,
+                  ring.PEER_RS: n * (2 * n * S + n * S + S) * cols * 4}
+        t = {}
+        for name, fn, plain, library in (
+                (ring.PEER_GATHER, gather, lambda: ring.ring_all_gather_plain(shard, mesh), library_gather),
+                (ring.PEER_RS, scatter, lambda: ring.ring_reduce_scatter_plain(ct, mesh), library_reduce)):
+            t[name] = {
+                "max_abs_err": float(err[name]),
+                "kernel_ms": cuda_ms(fn, iters=20, warmup=2),
+                "kernel_cold_ms": cuda_ms_cold(fn, iters=10, warmup=1),
+                "plain_ms": cuda_ms(plain, iters=5, warmup=1),
+                "library_ms": cuda_ms(library, iters=5, warmup=1),
+                "bound_ms": need[name] / HBM_BYTES_PER_S * 1e3,
+                "design_bound_ms": design[name] / HBM_BYTES_PER_S * 1e3,
+            }
+        out[f"{rows}x{cols}"] = t
+        if r == 0:
+            print(f"multirank n={n} [{rows},{cols}]: both kernels bitwise over {MULTIRANK_CALLS} calls "
+                  f"({checked_s:.1f} s), timed in {time.perf_counter() - t0 - checked_s:.1f} s; "
+                  + json.dumps(t), flush=True)
+    return out
+
+
+def _train_losses(ds, fcfg, fast_cfg, mesh=None) -> tuple:
+    """The fast trainer's losses and its steps/s (timed from the end of the
+    first step)."""
+    cfg = reconstruct.ReconstructConfig(batch_size=MULTIRANK_TRAIN_BATCH)
+    _, _, stats = reconstruct.train_fast(ds, fcfg, fast_cfg, cfg, max_steps=MULTIRANK_TRAIN_STEPS, log_every=1,
+                                         grid_update_every=0, device="cuda", mesh=mesh)
+    return [loss for _, loss in stats["losses"]], stats["steps_per_sec"]
+
+
+def _table_mp_run(mesh):
+    """One table-parallel SGD step on the artifact, the table row-sharded
+    over ``mesh`` (one shard in one process): the loss and the table's
+    gradient."""
+    params, fcfg, grid, fast_cfg = bench.load_artifact("cuda")
+    res = MULTIRANK_TABLE_MP_RES
+    ro, rd = pose2rays(res, res, bench.bench_poses()[0], device="cuda")
+    gt = make_fast_frame_renderer(params, fcfg, fast_cfg, grid, chunk=res * res)(ro, rd)["rgb"]
+    sgd = lambda ps: torch.optim.SGD(ps, lr=0.5)  # noqa: E731
+    step = TableMPTrainStep(params, mesh, fcfg, RenderConfig(perturb=False), sgd)
+    rows = mesh_lib.data_sharding(mesh, res * res)
+    loss = step(ro[rows], rd[rows], gt[rows])
+    return float(loss), mesh_lib.all_gather_rows_of(step.shards[0].grad, mesh).cpu()
+
+
+def _multirank_rank(mesh, ds, fcfg, fast_cfg, with_dryrun: bool) -> dict:
+    """One rank of a multirank launch: the kernel checks and times (their
+    launches not counted), then the paths, each counted from 0; the wall
+    seconds of each part."""
+    seconds, t0 = {"entered": time.time()}, time.perf_counter()
+    out = {"kernels": _peer_kernel_checks(mesh)}
+    seconds["kernels"] = time.perf_counter() - t0
+    counts = {}
+    if with_dryrun:
+        t0 = time.perf_counter()
+        dry = dryrun.run_paths(mesh, dryrun.default_inputs(mesh.size))
+        counts.update({f"dryrun.{p}": c for p, c in dry["launches"].items()})
+        seconds["dryrun"], t0 = time.perf_counter() - t0, time.perf_counter()
+        _reset_launches()
+        out["train_losses"] = _train_losses(ds, fcfg, fast_cfg, mesh)
+        counts["train_fast"] = dict(ring.launches)
+        seconds["train_fast"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _reset_launches()
+    out["table_mp"] = _table_mp_run(mesh)
+    counts["table_mp"] = dict(ring.launches)
+    seconds["table_mp"] = time.perf_counter() - t0
+    seconds["left"] = time.time()
+    out["launches"], out["seconds"] = counts, seconds
+    return out
+
+
+def _cli_frames(sampler: str, n: int, out_dir: str) -> dict:
+    argv = ["--weights_path", bench.ARTIFACT_CKPT, "--sampler", sampler, "--render_h", str(MULTIRANK_CLI_RES),
+            "--render_w", str(MULTIRANK_CLI_RES), "--trajectory_resolution", str(MULTIRANK_CLI_ORBIT),
+            "--out_dir", out_dir, "--exp_name", f"{sampler}{n}", "--mesh_devices", str(n)]
+    if sampler == "fast":
+        argv += ["--grid_path", bench.ARTIFACT_GRID]
+    t0 = time.perf_counter()
+    render_canonical_cli.main(argv)
+    seconds = time.perf_counter() - t0
+    exp = os.path.join(out_dir, "canonical_360", f"{sampler}{n}")
+    pngs = sorted(f for f in os.listdir(exp) if f.endswith(".png"))
+    if len(pngs) != 2 * MULTIRANK_CLI_ORBIT or len([f for f in os.listdir(exp) if f.endswith(".gif")]) != 2:
+        raise AssertionError(f"the canonical CLI at --mesh_devices {n} wrote {sorted(os.listdir(exp))}")
+    return {"seconds": seconds, "frames": [read_png(os.path.join(exp, f)) for f in pngs]}
+
+
+def check_multirank() -> tuple:
+    """K10 across ranks on the one card (2 and 4 ranks, time-sliced), the
+    dryrun twin's 8 paths over 2 ranks, the canonical CLI at --mesh_devices
+    2 under both samplers, the fast trainer at batch 1600 over 2 ranks and
+    the table-parallel step row-sharded 2 and 4 ways, each against one
+    process. Returns (the kernels' records, the path's launches)."""
+    ds, fcfg, normal_mode = profile_train.artifact_image_set("cuda")
+    fast_cfg = FastRenderConfig(normal_mode=normal_mode)
+    runs = {}
+    for n in MULTIRANK_SIZES:
+        t0 = time.time()
+        runs[n] = mesh_lib.launch(_multirank_rank, n, ds, fcfg, fast_cfg, n == 2, device="cuda", timeout_s=600)
+        t1, sec = time.time(), dict(runs[n][0]["seconds"])
+        entered, left = sec.pop("entered"), sec.pop("left")
+        parts = ", ".join(f"{k} {v:.1f} s" for k, v in sec.items())
+        print(f"multirank: the {n}-rank launch took {t1 - t0:.1f} s: rank 0 entered its function after "
+              f"{entered - t0:.1f} s ({parts}); {t1 - left:.1f} s from its return to the launch's end", flush=True)
+    # the kernels: bitwise in every call (raised inside otherwise); times of rank 0
+    for n, ranks in runs.items():
+        for shape, t in ranks[0]["kernels"].items():
+            print(f"multirank n={n} [{shape}] f32 ({card_line()}, {n} ranks time-slicing one card): "
+                  + json.dumps(t), flush=True)
+    print(f"multirank: both cross-rank kernels bitwise equal to their plain versions over "
+          f"{MULTIRANK_CALLS} changing calls at n = {list(MULTIRANK_SIZES)}, both shapes", flush=True)
+
+    # the dryrun's paths ran inside (each check raises); path 4 refused, as it must
+    two = runs[2]
+    # every rank made the same calls; the sums are the path's launches
+    total = {name: 0 for name in ring.launches}
+    for n, ranks in runs.items():
+        for r, rank in enumerate(ranks):
+            if rank["launches"] != ranks[0]["launches"]:
+                raise AssertionError(f"n={n}: rank {r}'s launches {rank['launches']} differ from rank 0's")
+            print(f"multirank n={n} rank {r} launches: {json.dumps(rank['launches'])}", flush=True)
+            for counts in rank["launches"].values():
+                for name, c in counts.items():
+                    total[name] += c
+    for n, ranks in runs.items():
+        per_rank = ranks[0]["launches"]["table_mp"]
+        if per_rank[ring.PEER_GATHER] != 1 or per_rank[ring.PEER_RS] != 1:
+            raise AssertionError(f"table_mp n={n}: a step makes 1 gather and 1 reduce-scatter a rank, counted "
+                                 f"{per_rank}")
+    # train_fast replicates its parameters over the mesh: the one-card kernels
+    steps = two[0]["launches"]["train_fast"]
+    want = {ring.KERNEL: MULTIRANK_TRAIN_STEPS + 1, ring.RS_KERNEL: MULTIRANK_TRAIN_STEPS, ring.PEER_GATHER: 0,
+            ring.PEER_RS: 0}
+    if steps != want:
+        raise AssertionError(f"train_fast over 2 ranks: {MULTIRANK_TRAIN_STEPS} steps and the final tree make "
+                             f"{want} a rank, counted {steps}")
+
+    # the fast trainer at full width: 2 ranks against one process
+    t0 = time.perf_counter()
+    losses1, rate1 = _train_losses(ds, fcfg, fast_cfg)
+    losses2, rate2 = two[0]["train_losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses2, losses1))
+    print(f"train_fast batch {MULTIRANK_TRAIN_BATCH}: 2 ranks {losses2}, one process {losses1}, max relative "
+          f"{rel:.3g} (bound {MULTIRANK_LOSS_RTOL}); {rate2:.3f} steps/s over 2 ranks sharing the card, "
+          f"{rate1:.3f} in one process", flush=True)
+    if len(losses2) != MULTIRANK_TRAIN_STEPS or not rel <= MULTIRANK_LOSS_RTOL:
+        raise AssertionError("train_fast over 2 ranks differs from one process")
+
+    # table-MP at full width: n ranks against one process
+    loss1, grad1 = _table_mp_run(mesh_lib.one_rank("cuda"))
+    scale = float(grad1.abs().max())
+    for n, ranks in runs.items():
+        loss, grad = ranks[0]["table_mp"]
+        lrel, grel = abs(loss - loss1) / abs(loss1), float(np.max(np.abs(grad - grad1.numpy()))) / scale
+        print(f"table_mp over {n} ranks: loss {loss:.9g} against {loss1:.9g} (relative {lrel:.3g}), table "
+              f"gradient within {grel:.3g} x max|g| (bounds {MULTIRANK_LOSS_RTOL}, {MULTIRANK_GRAD_REL})", flush=True)
+        if not (lrel <= MULTIRANK_LOSS_RTOL and grel <= MULTIRANK_GRAD_REL):
+            raise AssertionError(f"table_mp over {n} ranks differs from one process")
+
+    print(f"multirank: the one-process train_fast and table-MP runs took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # the canonical CLI over 2 ranks against one process, both samplers; the
+    # two 2-rank runs at once, so that their ranks start together (4
+    # processes sharing the card: their seconds are not one run's)
+    t0 = time.perf_counter()
+    samplers = ("parity", "fast")
+    with tempfile.TemporaryDirectory(prefix="multirank_cli_") as out_dir:
+        one = {sampler: _cli_frames(sampler, 1, out_dir) for sampler in samplers}
+        with concurrent.futures.ThreadPoolExecutor(len(samplers)) as pool:
+            pending = {sampler: pool.submit(_cli_frames, sampler, 2, out_dir) for sampler in samplers}
+            two_cli = {sampler: f.result() for sampler, f in pending.items()}
+    for sampler in samplers:
+        pairs = list(zip(one[sampler]["frames"], two_cli[sampler]["frames"]))
+        diffs = [int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max()) for a, b in pairs]
+        same = sum(np.array_equal(a, b) for a, b in pairs)
+        print(f"canonical CLI --sampler {sampler} at {MULTIRANK_CLI_RES}^2: --mesh_devices 2 "
+              f"{two_cli[sampler]['seconds']:.2f} s (both samplers' runs at once), one process "
+              f"{one[sampler]['seconds']:.2f} s; {same} of {len(diffs)} PNGs bitwise equal, max level difference "
+              f"{max(diffs)} (bound {MULTIRANK_CLI_LEVELS})", flush=True)
+        if max(diffs) > MULTIRANK_CLI_LEVELS:
+            raise AssertionError(f"the {sampler} frames over 2 ranks differ from one process's")
+    print(f"multirank: the CLI runs took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the kernels line: the times at n = 2 on the grid table; the largest
+    # |kernel - plain| over every call, shape, rank and rank count
+    kernels = {}
+    for key in (ring.PEER_GATHER, ring.PEER_RS):
+        t = dict(two[0]["kernels"][f"{GRID_ROWS}x{GRID_COLS}"][key])
+        t["max_abs_err"] = max(rank["kernels"][shape][key]["max_abs_err"]
+                               for ranks in runs.values() for rank in ranks for shape in rank["kernels"])
+        kernels[key] = t
+    return kernels, total
+
+
 def main() -> int:
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2547,6 +2857,9 @@ def main() -> int:
             paths["parity_multi"] = check_parity_multi()
         with Phase("parity_card_vs_cpu"):
             check_parity_card_vs_cpu(recon_root)
+        with Phase("multirank"):
+            peer, paths["multirank"] = check_multirank()
+            measured.update(peer)
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         print("chip_smoke: FAILED", flush=True)
@@ -2564,17 +2877,13 @@ def main() -> int:
             "launches_by_path": by_path,
             "max_abs_err": m["max_abs_err"],
             "ms": m["kernel_ms"],  # the same number as kernel_ms
-            "kernel_ms": m["kernel_ms"],
-            "wrapper_ms": m["wrapper_ms"],
             "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"],
             "bound_by": "bytes",
             "library_ms": m["library_ms"],
-            "kernel_cold_ms": m["kernel_cold_ms"],  # L2 flushed before each call
-            "library_cold_ms": m["library_cold_ms"],
-            # the profiler's device time of what one call launches, in the same cold loop
-            "kernel_cold_device_ms": m["kernel_cold_device_ms"],
-            "library_cold_device_ms": m["library_cold_device_ms"],
+            # kernel_ms, wrapper_ms; kernel_cold_ms, library_cold_ms (L2 flushed before
+            # each call); the profiler's device time of one call in that cold loop
+            **{k: v for k, v in m.items() if k not in ("max_abs_err", "plain_ms", "bound_ms", "library_ms")},
         })
     print(f"chip_smoke: all phases ok in {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,8 +4,8 @@ render_canonical_cli's fast sampler renders
 the committed artifact to PNG on the CPU; render_warp_cli's fast sampler
 renders a small field that the port saved, animated on the synthetic body,
 from a camera of a tiny dataset written here, equal within one 8-bit level
-to the JAX package's CLI; what is not ported yet refuses with a message
-that names its ROADMAP item."""
+to the JAX package's CLI (its --mesh_devices is held in
+tests/test_torch_mesh.py)."""
 
 import os
 
@@ -18,10 +18,13 @@ from avatarcraft_tpu_torch.cli import render_canonical_cli as cli
 ARGS = ["--weights_path", bench.ARTIFACT_CKPT, "--grid_path", bench.ARTIFACT_GRID, "--sampler", "fast"]
 
 
-@pytest.mark.parametrize("extra,msg", [(["--mesh_devices", "2"], "mesh_devices > 1 is not ported")])
-def test_unported_options_refuse(extra, msg, tmp_path):
-    with pytest.raises(SystemExit, match=msg):
-        cli.main(ARGS + extra + ["--out_dir", str(tmp_path), "--use_cuda", "false"])
+@pytest.mark.skipif(not os.path.exists(bench.ARTIFACT_CKPT), reason="artifact not present")
+def test_fast_sampler_over_two_ranks_writes_the_one_process_files(tmp_path):
+    """--mesh_devices 2 --sampler fast on the CPU (gloo ranks): the files of
+    one process (the parity sampler's case: tests/test_torch_mesh.py)."""
+    from torch_mesh_ranks import cli_files_over_ranks
+
+    cli_files_over_ranks(tmp_path, "fast")
 
 
 def test_grid_path_is_required():

@@ -74,6 +74,11 @@ MULTI_MODULES = (
     "avatarcraft_tpu_torch.tools.run_multi_stylize",
     "avatarcraft_tpu_torch.utils.native",
 )
+# modules of the mesh slice (several ranks)
+MESH_MODULES = (
+    "avatarcraft_tpu_torch.parallel.mesh",
+    "avatarcraft_tpu_torch.parallel.dryrun",
+)
 # modules of the scan trainer and the outputs slice
 OUTPUT_MODULES = (
     "avatarcraft_tpu_torch.utils.gif",
@@ -101,7 +106,7 @@ for m in pkgutil.walk_packages(avatarcraft_tpu_torch.__path__, "avatarcraft_tpu_
     importlib.import_module(m.name)
 import chip_smoke
 missing = [m for m in {TRAIN_MODULES + WARP_MODULES + STYLIZE_MODULES + SD_MODULES + RECON_MODULES + MULTI_MODULES
-                      + OUTPUT_MODULES!r}
+                      + OUTPUT_MODULES + MESH_MODULES!r}
            if m not in sys.modules]
 print("imports ok" if not missing else f"not imported: {{missing}}")
 """
@@ -223,6 +228,60 @@ def test_wrapper_takes_plain_version_only_on_cpu(wrapper, plain):
     assert any("launch" in ln for ln in lines[calls[0] + 1 :])
     with pytest.raises(ValueError, match="cpu or cuda"):
         wrapper([torch.zeros(4, 2, device="meta")], *([2] if plain.startswith("reduce") else []))
+
+
+@pytest.mark.parametrize("wrapper,plain,arg", [
+    (ring.ring_all_gather, "ring_all_gather_plain", "shard"), (ring.ring_reduce_scatter, "ring_reduce_scatter_plain", "ct"),
+])
+def test_cross_rank_wrappers_take_plain_version_only_on_cpu(wrapper, plain, arg):
+    """The cross-rank wrappers, by inspection of the dispatch: past the
+    one-rank branch (the one-card kernels) and the checks, the plain
+    version is called once, as the body of the ``device.type == "cpu"``
+    branch; a CUDA tensor goes on to the peer kernel's launch. A tensor on
+    another device is refused."""
+    import inspect
+
+    from avatarcraft_tpu_torch.parallel.mesh import Mesh
+
+    lines = [ln.strip() for ln in inspect.getsource(wrapper).splitlines()]
+    calls = [i for i, ln in enumerate(lines) if f"{plain}(" in ln]
+    assert len(calls) == 1
+    assert lines[calls[0] - 1] == f'if {arg}.device.type == "cpu":'
+    assert lines[calls[0]].startswith("return ")
+    assert any("ring_peer_" in ln for ln in lines[calls[0] + 1 :])
+    assert any(f"launches[{'PEER_GATHER' if 'gather' in plain else 'PEER_RS'}] += 1" in ln
+               for ln in lines[calls[0] + 1 :])
+    mesh = Mesh(2, 0, torch.device("cpu"), None)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        wrapper(torch.zeros(4, 2, device="meta"), mesh)
+
+
+def test_cross_rank_kernel_source_names_what_it_replaces():
+    with open(cuda_build.source_path(ring.PEER_LIB)) as fp:
+        src = fp.read()
+    assert "parallel/ring.py:27" in src and "_ring_all_gather_kernel" in src and "psum_scatter" in src
+    assert 'extern "C"' in src and "cudaGetLastError" in src and "ring_peer_error_string" in src
+    assert "ld.acquire.sys" in src and "st.release.sys" in src and "%globaltimer" in src
+    assert "#include <torch" not in src and "#include <ATen" not in src
+    assert "arch=compute_90a,code=sm_90a" in cuda_build.nvcc_command(ring.PEER_LIB, "/x/lib.so")
+
+
+def test_mesh_on_the_card_refuses_the_graphed_scan():
+    """A mesh of several ranks on the card refuses scan_steps > 0 (a CUDA
+    graph cannot hold gloo's host-staged all-reduce) and names its ROADMAP
+    item, before any work: in train_fast and in make_train_scan_fast."""
+    from avatarcraft_tpu_torch.parallel.mesh import Mesh
+    from avatarcraft_tpu_torch.workloads import reconstruct
+
+    card_mesh = Mesh(2, 0, torch.device("cuda", 0), None)
+    with pytest.raises(NotImplementedError, match=reconstruct.GRAPHED_MESH_ITEM):
+        reconstruct.train_fast(None, None, None, reconstruct.ReconstructConfig(), scan_steps=2, mesh=card_mesh)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 25"):
+        reconstruct.make_train_scan_fast(None, None, None, None, 0.1, "raw", True, None, mesh=card_mesh)
+    # graph=False is the eager step, which a mesh runs; one rank is no mesh
+    reconstruct.make_train_scan_fast(None, None, None, None, 0.1, "raw", True, None, graph=False, mesh=card_mesh)
+    reconstruct.refuse_graphed_mesh(Mesh(1, 0, torch.device("cuda", 0), None), "cuda")
+    reconstruct.refuse_graphed_mesh(Mesh(2, 0, torch.device("cpu"), None), "cpu")
 
 
 def test_build_dir_is_ignored_by_git():
