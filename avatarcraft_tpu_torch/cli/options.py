@@ -66,3 +66,12 @@ def print_opt(opt, out_dir: str | None = None) -> None:
         os.makedirs(d, exist_ok=True)
         with open(os.path.join(d, f"{exp}_args.txt"), "w") as fh:
             fh.write("\n".join(sorted(lines, key=lambda x: x.lstrip())) + "\n")
+
+
+def note_unread_implicit_model(opt, cli: str) -> None:
+    """Print one line where ``--implicit_model`` names another field than
+    instant_nsr: the JAX package's ``cli`` parses the flag and never reads
+    it (it always runs instant-NSR), and the port does the same."""
+    if opt.implicit_model != "instant_nsr":
+        print(f"[{cli}] --implicit_model {opt.implicit_model} has no effect here: {cli} runs the "
+              "instant-NSR field, as the JAX package's does")

@@ -20,9 +20,13 @@ false``.
 the device: on the card one step captured into a CUDA graph and replayed
 (``workloads.reconstruct.make_train_scan_fast``).
 
+``--resume_from`` takes a port train-state file or the JAX package's orbax
+train-state directory (read without orbax, ``utils/checkpoint.py``).
+``--implicit_model`` is parsed and not read, as in the JAX package (one
+line says so).
+
 Refused as the JAX package refuses them: ``--data_format neuman`` and
-``--normal_mode analytic`` for training. Refused by the port: a
-``--resume_from`` naming an orbax directory.
+``--normal_mode analytic`` for training.
 """
 
 from __future__ import annotations
@@ -66,7 +70,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--encoder", default=None, choices=["hashgrid", "tpu_pyramid"],
                         help="spatial encoder (default: hashgrid for parity, tpu_pyramid for fast)")
     parser.add_argument("--resume_from", default=None, type=str,
-                        help="train-state file (params + optimizer moments) to continue from")
+                        help="train-state file (params + optimizer moments), or the JAX package's orbax "
+                             "train-state directory, to continue from")
     parser.add_argument("--holdout_views", default="", type=str,
                         help="comma-separated view indices excluded from training (fast sampler)")
     parser.add_argument("--save_state_every", default=0, type=int,
@@ -100,9 +105,6 @@ def refusal(opt) -> str | None:
         # 31 -> 1 dB in 1k steps)
         return ("--normal_mode analytic is a render-time option; training under the analytic eikonal "
                 "destroys the field. Use fd7/fd4 for training and 'analytic' only in render/eval CLIs.")
-    if opt.resume_from and os.path.isdir(opt.resume_from):
-        return (f"--resume_from {opt.resume_from} is a directory (an orbax train state of the JAX package); "
-                "reading orbax checkpoints is not ported yet (ROADMAP item 24)")
     if opt.use_cuda and not torch.cuda.is_available():
         return "no CUDA card: pass --use_cuda false to run on the CPU"
     return None
@@ -114,6 +116,7 @@ def main(argv=None):
     why = refusal(opt)
     if why:
         raise SystemExit(why)
+    options.note_unread_implicit_model(opt, "reconstruct")
     options.print_opt(opt, os.path.join(opt.out_dir, opt.exp_name))
 
     from avatarcraft_tpu_torch.data import SMPLMultiviewDataset

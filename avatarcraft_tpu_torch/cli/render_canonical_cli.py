@@ -19,8 +19,20 @@ frame, the empty pixels black, cv2's BGR output written as RGB, as the JAX
 package writes it) and each orbit's intrinsics and camera-to-world poses as
 pickles. ``--encoder`` overrides the checkpoint's encoder. The flags are the
 JAX CLI's (its flag groups of the reference's options.py included), so its
-command lines parse; ``--implicit_model neus|nerf`` is refused (ROADMAP
-item 20). ``--use_cuda false`` renders on the CPU.
+command lines parse. ``--use_cuda false`` renders on the CPU.
+
+``--implicit_model neus|nerf`` renders a legacy field as the JAX CLI does
+(cli/render_canonical_cli.py:79-127): its weights from the orbax directory
+``--weights_path`` (read without orbax), else the model's init from a
+seeded generator with the JAX CLI's warning line. NeuS (``NeuSConfig()``)
+renders through ``render_rays_chunked`` with ``field=build_neus(...)``, the
+64+64 samples and ``--normal_mode`` (fd7 by default); NeRF
+(``NeRFConfig(mapping=--can_posenc)``, "rotate" by default) through
+``render_nerf_rays``, 128 samples in [1, 4], in chunks of ``--batch_size``
+rays (the JAX CLI renders the frame in one call: the same numbers). Like
+the JAX CLI's NeRF branch, the port reads neither ``--nerf_depth``,
+``--nerf_width`` nor ``--use_viewdirs``: the NeRF has the config's
+defaults.
 
 ``--mesh_devices N`` (N > 1) renders each frame data parallel over N ranks
 (``parallel.mesh.launch``; gloo, one process a rank): rank r renders rows
@@ -43,10 +55,18 @@ import torch
 from avatarcraft_tpu_torch.cameras import canonical_camera, default_360_path, pose2rays
 from avatarcraft_tpu_torch.cli import options
 from avatarcraft_tpu_torch.constants import CAN_HEAD_CAMERA_DIST, CAN_HEAD_OFFSET, NSR_BOUND
-from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig, RenderConfig
+from avatarcraft_tpu_torch.models.instant_nsr import FastRenderConfig, FieldConfig, RenderConfig, render_rays_chunked
+from avatarcraft_tpu_torch.models.nerf import NeRFConfig, init_nerf_params, render_nerf_rays
+from avatarcraft_tpu_torch.models.neus import NeuSConfig, build_neus, init_neus_params
 from avatarcraft_tpu_torch.ops.occupancy import init_density_grid
 from avatarcraft_tpu_torch.parallel.mesh import all_gather_rows_of, data_sharding, launch, one_rank
-from avatarcraft_tpu_torch.utils.checkpoint import artifact_normal_mode, load_params_with_config
+from avatarcraft_tpu_torch.utils.checkpoint import (
+    artifact_normal_mode,
+    load_checkpoint,
+    load_params_with_config,
+    nerf_params_from_jax,
+    neus_params_from_jax,
+)
 from avatarcraft_tpu_torch.utils.gif import jet_colormap, write_gif
 from avatarcraft_tpu_torch.utils.metrics import integerify_img
 from avatarcraft_tpu_torch.utils.png import write_png
@@ -67,7 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
     options.set_trajectory_option(parser)
     parser.add_argument("--exp_name", default="exp", type=str)
     parser.add_argument("--implicit_model", default="instant_nsr", choices=["neus", "nerf", "instant_nsr"],
-                        help="instant_nsr; the legacy neus and nerf fields are not ported yet")
+                        help="instant_nsr, or a legacy field (its weights an orbax directory of the JAX package)")
     parser.add_argument("--log_extra", default=False, type=options.str2bool,
                         help="also write each frame's JET depth PNG and each orbit's camera pickles")
     parser.add_argument("--batch_size", type=int, default=4096)
@@ -107,11 +127,8 @@ def depth_image(depth: np.ndarray) -> np.ndarray:
 def main(argv=None):
     parser = build_parser()
     opt = parser.parse_args(argv)
-    if opt.weights_path is None:
+    if opt.weights_path is None and opt.implicit_model == "instant_nsr":
         parser.error("--weights_path is required")
-    if opt.implicit_model != "instant_nsr":
-        raise SystemExit(f"--implicit_model {opt.implicit_model} is not ported yet (ROADMAP item 20, legacy models); "
-                         "use instant_nsr")
     device = "cuda" if opt.use_cuda else "cpu"
     if device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA card: pass --use_cuda false to render on the CPU")
@@ -125,15 +142,9 @@ def main(argv=None):
     render_orbits(one_rank(device), opt)
 
 
-def render_orbits(mesh, opt) -> None:
-    """Render and write both orbits on ``mesh.device``: each rank of
-    ``mesh`` renders its rows of every frame and rank 0 writes the gathered
-    frame."""
-    device = mesh.device
-    writer = mesh.rank == 0
-    say = print if writer else (lambda *a, **k: None)
-    h = opt.render_h or 256
-    w = opt.render_w or 256
+def make_field_frame_renderer(opt, device, say):
+    """render(rays_o, rays_d) -> {"rgb", "depth"} of the instant-NSR field
+    of ``--weights_path`` under ``--sampler``."""
     params, fcfg = load_params_with_config(opt.weights_path, device)
     if opt.encoder and opt.encoder != fcfg.encoder:
         fcfg = dataclasses.replace(fcfg, encoder=opt.encoder)
@@ -145,15 +156,71 @@ def render_orbits(mesh, opt) -> None:
     say(f"[render] field: encoder={fcfg.encoder} sampler={opt.sampler} normal_mode={normal_mode} device={device}")
     if opt.sampler == "parity":
         rcfg = RenderConfig(num_steps=64, upsample_steps=64, bound=NSR_BOUND, perturb=False, normal_mode=normal_mode)
-        render = make_parity_frame_renderer(params, fcfg, rcfg, chunk=opt.batch_size, bg_color=bg)
+        return make_parity_frame_renderer(params, fcfg, rcfg, chunk=opt.batch_size, bg_color=bg)
+    if opt.grid_path:
+        grid = torch.as_tensor(np.load(opt.grid_path), dtype=torch.float32).to(device)
     else:
-        if opt.grid_path:
-            grid = torch.as_tensor(np.load(opt.grid_path), dtype=torch.float32).to(device)
+        say("[render] refreshing the density grid from the SDF ...")
+        grid = make_grid_update_fn(fcfg, NSR_BOUND)(params, init_density_grid(129, device))
+    cfg = FastRenderConfig(n_probes=192, k_samples=32, bound=NSR_BOUND, normal_mode=normal_mode)
+    return make_fast_frame_renderer(params, fcfg, cfg, grid, chunk=opt.batch_size * 4, bg_color=bg)
+
+
+def make_legacy_frame_renderer(opt, device, say):
+    """render(rays_o, rays_d) -> {"rgb", "depth"} of the legacy field of
+    ``--implicit_model`` (neus or nerf), as the JAX CLI renders it: the
+    weights of the orbax directory ``--weights_path``, else the init from a
+    generator seeded 0."""
+    orbax_dir = opt.weights_path and os.path.isdir(opt.weights_path)
+    generator = torch.Generator(device).manual_seed(0)
+    if opt.implicit_model == "nerf":
+        ncfg = NeRFConfig(mapping=opt.can_posenc)  # --nerf_depth/--nerf_width/--use_viewdirs unread, as in JAX
+        if orbax_dir:
+            params = nerf_params_from_jax(load_checkpoint(opt.weights_path), device)
         else:
-            say("[render] refreshing the density grid from the SDF ...")
-            grid = make_grid_update_fn(fcfg, NSR_BOUND)(params, init_density_grid(129, device))
-        cfg = FastRenderConfig(n_probes=192, k_samples=32, bound=NSR_BOUND, normal_mode=normal_mode)
-        render = make_fast_frame_renderer(params, fcfg, cfg, grid, chunk=opt.batch_size * 4, bg_color=bg)
+            say("[render] WARNING: no orbax NeRF checkpoint; random init")
+            params = init_nerf_params(generator, ncfg)
+
+        @torch.no_grad()
+        def render(rays_o, rays_d):
+            outs = [render_nerf_rays(params, rays_o[i:i + opt.batch_size], rays_d[i:i + opt.batch_size], ncfg,
+                                     white_bkg=opt.white_bkg) for i in range(0, rays_o.shape[0], opt.batch_size)]
+            return {k: torch.cat([o[k] for o in outs]) for k in ("rgb", "depth")}
+
+        return render
+    ncfg = NeuSConfig()
+    if orbax_dir:
+        params = neus_params_from_jax(load_checkpoint(opt.weights_path), device)
+    else:
+        say("[render] WARNING: no orbax NeuS checkpoint; SAL sphere init")
+        params = init_neus_params(generator, ncfg)
+    rcfg = RenderConfig(num_steps=64, upsample_steps=64, bound=NSR_BOUND, perturb=False,
+                        normal_mode=opt.normal_mode or "fd7")
+    field = build_neus(params, ncfg)
+    bg = 1.0 if opt.white_bkg else 0.0
+
+    @torch.no_grad()
+    def render(rays_o, rays_d):
+        # FieldConfig() is not read: the field is injected, as in the JAX CLI
+        out = render_rays_chunked({}, rays_o, rays_d, FieldConfig(), rcfg, bg, chunk=opt.batch_size, field=field)
+        return {"rgb": out["rgb"], "depth": out["depth"]}
+
+    return render
+
+
+def render_orbits(mesh, opt) -> None:
+    """Render and write both orbits on ``mesh.device``: each rank of
+    ``mesh`` renders its rows of every frame and rank 0 writes the gathered
+    frame."""
+    device = mesh.device
+    writer = mesh.rank == 0
+    say = print if writer else (lambda *a, **k: None)
+    h = opt.render_h or 256
+    w = opt.render_w or 256
+    if opt.implicit_model == "instant_nsr":
+        render = make_field_frame_renderer(opt, device, say)
+    else:
+        render = make_legacy_frame_renderer(opt, device, say)
 
     center, up = np.zeros(3), np.array([0.0, 1.0, 0.0])
     body_poses, _ = default_360_path(center, up, CANONICAL_CAMERA_DIST_VAL, opt.trajectory_resolution)

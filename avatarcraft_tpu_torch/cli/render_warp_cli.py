@@ -18,8 +18,9 @@ normal estimator, fd4 by default, as the JAX package renders. Writes one
 PNG per frame and ``<exp_name>.gif`` at 10 fps (for ``interp_shape`` the
 frames forward, then back) under ``<out_dir>/test_views/<exp_name>/``. The
 flags are the JAX CLI's (its flag groups of the reference's options.py
-included), so its command lines parse. ``--use_cuda false`` renders on the
-CPU.
+included), so its command lines parse; ``--implicit_model`` is parsed and
+not read, as in the JAX package (one line says so). ``--use_cuda false``
+renders on the CPU.
 """
 
 from __future__ import annotations
@@ -102,9 +103,7 @@ def main(argv=None):
     opt = parser.parse_args(argv)
     if opt.weights_path is None:
         parser.error("--weights_path is required")
-    if opt.implicit_model != "instant_nsr":
-        raise SystemExit(f"--implicit_model {opt.implicit_model} is not ported yet (ROADMAP item 20, "
-                         "legacy models); use instant_nsr")
+    options.note_unread_implicit_model(opt, "render_warp")
     device = "cuda" if opt.use_cuda else "cpu"
     if device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA card: pass --use_cuda false to render on the CPU")

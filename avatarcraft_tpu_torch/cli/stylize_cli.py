@@ -23,8 +23,9 @@ with their field-config sidecar, and every ``--i_mesh`` steps a mesh
 device, the native extractor on the host). ``--use_cuda false`` runs on
 the CPU.
 
-Refused before anything is written: ``--implicit_model neus`` (ROADMAP
-item 20), and ``--guidance_type clip`` as the JAX package refuses it.
+``--implicit_model`` is parsed and not read, as in the JAX package (one
+line says so). Refused before anything is written: ``--guidance_type
+clip``, as the JAX package refuses it.
 """
 
 from __future__ import annotations
@@ -143,11 +144,9 @@ def views_per_epoch(cfg: StylizeConfig, epoch: int) -> int:
 
 
 def refusal(opt) -> str | None:
-    """Why this command line cannot run in the port yet (None if it can)."""
+    """Why this command line cannot run (None if it can)."""
     if opt.guidance_type == "clip":
         return "--guidance_type clip: CLIP guidance is dead in the reference too (the JAX package refuses it)"
-    if opt.implicit_model != "instant_nsr":
-        return f"--implicit_model {opt.implicit_model} is not ported yet (ROADMAP item 20, legacy models)"
     if opt.guidance_type == "toy" and style_index(opt.tgt_text) < 0:
         return f"--tgt_text must name a trained toy style ({', '.join(STYLES)})"
     if not opt.weights_path:
@@ -277,6 +276,7 @@ def main(argv=None) -> StylizeTrainer:
     why = refusal(opt)
     if why:
         raise SystemExit(why)
+    options.note_unread_implicit_model(opt, "stylize")
     trainer, fcfg = setup(opt)
     cfg, device = trainer.cfg, trainer.device
     options.print_opt(opt, os.path.join(opt.out_dir, opt.exp_name))

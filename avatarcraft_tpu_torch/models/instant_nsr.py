@@ -59,6 +59,7 @@ from avatarcraft_tpu_torch.ops.sampling import (
     sample_pdf,
     stratified_z_vals,
 )
+from avatarcraft_tpu_torch.ops.sh_encoder import sh_encode
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
 
@@ -98,6 +99,7 @@ class FieldConfig:
 
     @property
     def color_in_dim(self) -> int:
+        # [x, (sh(d)), normal, geo_feat] (reference: models/instant_nsr.py:564-569)
         d = self.geo_feat_dim + 6
         if self.use_viewdirs:
             d += self.sh_degree**2
@@ -124,14 +126,9 @@ class RenderConfig:
         return self.num_steps + self.upsample_steps
 
 
-def _require_ported(cfg: FieldConfig) -> None:
+def _check_encoder(cfg: FieldConfig) -> None:
     if cfg.encoder not in ("hashgrid", "tpu_pyramid"):
         raise ValueError(f"unknown encoder: {cfg.encoder!r}")
-    if cfg.use_viewdirs:
-        raise NotImplementedError(
-            "use_viewdirs needs the SH encoder, ported with the legacy models "
-            "(ROADMAP item 20)"
-        )
 
 
 def _weight_norm_apply(layer: dict) -> torch.Tensor:
@@ -152,7 +149,7 @@ def init_field_params(generator: torch.Generator, cfg: FieldConfig) -> dict:
     ("table") or the pyramid's grids and planes, after ``cfg.encoder``. The
     tree, shapes and dtypes are the JAX package's; the random values are
     torch's."""
-    _require_ported(cfg)
+    _check_encoder(cfg)
     dev = generator.device
 
     def normal(shape):
@@ -240,7 +237,7 @@ def materialize_field_tables(params: dict, cfg: FieldConfig) -> dict:
     ``cfg.packed_dtype`` (bf16 for the artifact), or for the hash grid the
     cell-packed tables of its dense levels (``{"dense_cells": ...}``, in
     the table's f32; ``packed_dtype`` does not apply)."""
-    _require_ported(cfg)
+    _check_encoder(cfg)
     if cfg.encoder == "hashgrid":
         return {"dense_cells": pack_dense_cells(params["table"], cfg.grid)}
     return materialize_packed(params, cfg.pyramid, _DTYPES[cfg.packed_dtype])
@@ -273,10 +270,13 @@ def forward_sdf(params: dict, x: torch.Tensor, cfg: FieldConfig, bound: float, p
 
 
 def forward_color(params: dict, x, d, normal, geo_feat, cfg: FieldConfig) -> torch.Tensor:
-    """[x, n, geo_feat] -> rgb in [0,1], bias-free relu MLP
+    """[x, (sh(d)), n, geo_feat] -> rgb in [0,1], bias-free relu MLP; the
+    SH encoding of the directions ``d`` when ``cfg.use_viewdirs``
     (reference: models/instant_nsr.py:644-663)."""
-    _require_ported(cfg)
-    h = torch.cat([x, normal, geo_feat], dim=-1)
+    if cfg.use_viewdirs:
+        h = torch.cat([x, sh_encode(d, cfg.sh_degree), normal, geo_feat], dim=-1)
+    else:
+        h = torch.cat([x, normal, geo_feat], dim=-1)
     n = len(params["color"])
     mdt = _DTYPES[cfg.mlp_dtype]
     for l, layer in enumerate(params["color"]):

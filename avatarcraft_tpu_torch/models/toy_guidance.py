@@ -10,14 +10,17 @@ embedding per style keyword, the last row the null embedding of the empty
 prompt (the classifier-free pair). View-augmented prompts ("front view of
 the body of the lava") resolve to the style keyword they contain.
 
-Weights: ``artifacts/toy_guidance/params_torch.npz`` beside the JAX
-package's orbax checkpoint. It holds that checkpoint's leaves under
-``params/<path>`` (the JAX tree's keys joined by "/", HWIO convolutions)
-and the ``style_embeddings`` array, which the JAX package draws from
-``jax.random.PRNGKey(seed)`` and which the port cannot draw itself. Run
-``python tests/test_torch_toy_guidance.py`` to regenerate it (it needs the
-JAX package and orbax); ``save_toy_guidance`` writes the same format from
-the port's trees.
+Weights: the JAX package's orbax checkpoint ``artifacts/toy_guidance/
+params/``, read without orbax (``utils/checkpoint.py::load_checkpoint``),
+as the JAX package's ``load_toy_guidance`` reads it. Beside it,
+``params_torch.npz`` holds the ``style_embeddings`` array, which the JAX
+package draws from ``jax.random.PRNGKey(seed)`` and which the port cannot
+draw itself, and the same leaves under ``params/<path>`` (the JAX tree's
+keys joined by "/", HWIO convolutions), which the tests hold bitwise
+against the orbax directory. Run ``python tests/test_torch_toy_guidance.py``
+to regenerate it (it needs the JAX package and orbax).
+``save_toy_guidance`` writes a directory without ``params/``: the npz
+alone, which ``load_toy_guidance`` then reads the leaves from.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 
 from avatarcraft_tpu_torch.models.diffusion import DiffusionSchedule, GuidanceModules
 from avatarcraft_tpu_torch.models.sd import UNetConfig, full_f32, params_from_jax, unet_apply
+from avatarcraft_tpu_torch.utils.checkpoint import load_checkpoint
 
 # luminance -> color control points (evenly spaced in [0, 1])
 STYLE_PALETTES: dict[str, tuple] = {
@@ -166,18 +170,24 @@ def _unflatten(flat: dict) -> dict:
 
 def load_toy_guidance(path: str, device="cuda"):
     """(params, ToyGuidanceConfig, style embeddings) of a toy-guidance
-    checkpoint directory: config.json and params_torch.npz, the tensors on
-    ``device``. Blocks without attention or without a resampling conv get
-    the JAX tree's empty list and None back (they hold no leaves)."""
+    checkpoint directory, the tensors on ``device``: config.json, the
+    leaves of the orbax directory ``params/`` as the JAX package's
+    load_toy_guidance reads them (or, where there is none, those of
+    params_torch.npz, which ``save_toy_guidance`` writes), and the style
+    embeddings of params_torch.npz. Blocks without attention or without a
+    resampling conv hold the JAX tree's empty list and None."""
     cfg = read_config(path)
+    orbax_dir = os.path.join(path, "params")
     with np.load(os.path.join(path, WEIGHTS_FILE)) as z:
-        flat = {k[len("params/"):]: z[k] for k in z.files if k.startswith("params/")}
         embeddings = torch.from_numpy(np.array(z["style_embeddings"], np.float32)).to(device)
-    tree = _unflatten(flat)
-    for side, conv in (("down", "down"), ("up", "up")):
-        for block in tree[side]:
-            block.setdefault("attns", [])
-            block.setdefault(conv, None)
+        if os.path.isdir(orbax_dir):
+            tree = load_checkpoint(orbax_dir)["params"]
+        else:
+            tree = _unflatten({k[len("params/"):]: z[k] for k in z.files if k.startswith("params/")})
+            for side, conv in (("down", "down"), ("up", "up")):
+                for block in tree[side]:
+                    block.setdefault("attns", [])
+                    block.setdefault(conv, None)
     return params_from_jax(tree, device), cfg, embeddings
 
 

@@ -1,7 +1,9 @@
 """Save and load ``.pth.tar`` checkpoints and their ``.fieldcfg.json``
-sidecars (port of the ``.pth.tar`` side of the JAX package's
-utils/checkpoint.py), and the trainers' train state. Orbax directories are
-not read (ROADMAP item 24).
+sidecars, and read the JAX package's orbax checkpoint directories
+(``load_checkpoint``, through ``utils/orbax.py``; port of the JAX
+package's utils/checkpoint.py), and the trainers' train state. Orbax
+checkpoints are read, not written: the port writes ``.pth.tar`` files and
+its own train-state files.
 
 The parameter tree has the JAX package's layout, with float32 tensors for
 leaves:
@@ -27,6 +29,7 @@ import torch
 
 from avatarcraft_tpu_torch.models.instant_nsr import FieldConfig, HashGridSpec
 from avatarcraft_tpu_torch.ops.grid_encoder import PyramidSpec
+from avatarcraft_tpu_torch.utils import orbax
 
 
 def map_leaves(tree, fn):
@@ -133,13 +136,51 @@ def params_from_torch_state_dict(state: dict, device="cuda") -> dict:
     return out
 
 
+def _f32(a, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):  # a bfloat16 leaf of an orbax checkpoint
+        return a.detach().to(device=device, dtype=torch.float32)
+    return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+
 def params_from_jax(tree, device="cuda") -> dict:
     """Carry a JAX package parameter tree, with its leaves already converted
-    to numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``), across
-    to the port: the same tree with float32 tensors on ``device``."""
-    return map_leaves(
-        tree, lambda a: torch.from_numpy(np.array(a, np.float32)).to(device)
-    )
+    to numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``) or as
+    ``load_checkpoint`` returns them, across to the port: the same tree with
+    float32 tensors on ``device``."""
+    return map_leaves(tree, lambda a: _f32(a, device))
+
+
+def _legacy_from_jax(tree, device, what: str, need: set, allowed: set) -> dict:
+    keys = set(tree) if isinstance(tree, dict) else set()
+    if not need <= keys <= need | allowed:
+        raise ValueError(f"not a {what} parameter tree: keys {sorted(keys)}")
+    return params_from_jax(tree, device)
+
+
+def neus_params_from_jax(tree, device="cuda") -> dict:
+    """A JAX package NeuS tree (models/neus.py: "sdf" and "color" layers of
+    "w" and "b", "variance"), numpy leaves or ``load_checkpoint``'s, as f32
+    tensors on ``device``."""
+    return _legacy_from_jax(tree, device, "NeuS", {"sdf", "color", "variance"}, set())
+
+
+def nerf_params_from_jax(tree, device="cuda") -> dict:
+    """A JAX package NeRF tree (models/nerf.py: "trunk", "sigma", "rgb"
+    and, with view directions, "feature" and "view"), numpy leaves or
+    ``load_checkpoint``'s, as f32 tensors on ``device``."""
+    return _legacy_from_jax(tree, device, "NeRF", {"trunk", "sigma", "rgb"}, {"feature", "view"})
+
+
+def load_checkpoint(path: str, like=None):
+    """The tree of the JAX package's orbax checkpoint directory ``path``,
+    as its ``load_checkpoint`` returns it (``StandardCheckpointer.restore``),
+    read without orbax (``utils/orbax.py``): without ``like`` the saved tree
+    (dicts, lists, None and the empty containers; array leaves as numpy
+    arrays, bfloat16 ones as CPU torch tensors; scalars such as a train
+    state's ``step`` as Python numbers); with ``like`` its structure, the
+    leaves looked up by key path."""
+    tree = orbax.restore(os.path.abspath(path))
+    return tree if like is None else orbax.restore_like(tree, like)
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
@@ -180,14 +221,6 @@ def adam_state_from_optax(optimizer: torch.optim.Optimizer, params, mu, nu, coun
         set_lr(optimizer, scheduler.lr_at(count))
 
 
-def _refuse_orbax(path: str) -> None:
-    if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a directory (an orbax checkpoint of the JAX package); reading orbax checkpoints is "
-            "not ported yet (ROADMAP item 24)"
-        )
-
-
 def save_train_state(path: str, params: dict, mu, nu, count: int, step: int, grid=None) -> None:
     """A trainer's resumable state as one ``torch.save`` file: the parameter
     tree, Adam's first and second moments (``mu``, ``nu``: trees of the
@@ -202,10 +235,36 @@ def save_train_state(path: str, params: dict, mu, nu, count: int, step: int, gri
     }, path)
 
 
+def _optax_adam(opt_state) -> dict:
+    """The ScaleByAdamState of an optax state restored without a target (a
+    dict with "count", "mu" and "nu", in a list for a chain)."""
+    if isinstance(opt_state, dict) and {"mu", "nu", "count"} <= set(opt_state):
+        return opt_state
+    for part in opt_state if isinstance(opt_state, list) else ():
+        if isinstance(part, dict) and {"mu", "nu", "count"} <= set(part):
+            return part
+    raise ValueError("the optimizer state holds no Adam moments")
+
+
+def load_jax_train_state(path: str, device="cuda") -> dict:
+    """The JAX package's orbax train state directory ``path``
+    ({"params", "opt_state", "step"} and, from train_fast, "grid";
+    workloads/reconstruct.py:430-456, 583-594) as ``load_train_state``
+    returns a port file: the parameters, optax Adam's moments and count,
+    the step and the grid, their tensors on ``device``."""
+    state = load_checkpoint(path)
+    adam = _optax_adam(state["opt_state"])
+    to = lambda tree: params_from_jax(tree, device)  # noqa: E731
+    return {"params": to(state["params"]), "mu": to(adam["mu"]), "nu": to(adam["nu"]),
+            "count": int(adam["count"]), "step": int(state["step"]),
+            "grid": None if state.get("grid") is None else _f32(state["grid"], device)}
+
+
 def load_train_state(path: str, device="cuda") -> dict:
-    """A ``save_train_state`` file, its tensors on ``device``. A directory
-    is the JAX package's orbax train state, which the port does not read."""
-    _refuse_orbax(path)
+    """A ``save_train_state`` file, its tensors on ``device``; a directory
+    is the JAX package's orbax train state (``load_jax_train_state``)."""
+    if os.path.isdir(path):
+        return load_jax_train_state(path, device)
     state = torch.load(path, map_location="cpu", weights_only=True)
     to = lambda t: t.to(device)  # noqa: E731
     return {**state, "params": map_leaves(state["params"], to), "mu": map_leaves(state["mu"], to),
@@ -271,10 +330,11 @@ def save_torch_checkpoint(params: dict, path: str, table_dtype=None) -> None:
 
 
 def safe_load_params(path: str, device="cuda") -> dict:
-    """The parameter tree of a ``.pth.tar`` file (reference:
-    utils/utils.py:284-315 safe_load_weights). A directory is an orbax
-    checkpoint of the JAX package, which the port does not read yet."""
-    _refuse_orbax(path)
+    """The parameter tree of a ``.pth.tar`` file or of an orbax checkpoint
+    directory of the JAX package, f32 tensors on ``device`` (reference:
+    utils/utils.py:284-315 safe_load_weights)."""
+    if os.path.isdir(path):
+        return params_from_jax(load_checkpoint(path), device)
     return load_torch_checkpoint(path, device)
 
 
@@ -349,8 +409,9 @@ def save_params_with_config(params: dict, path: str, fcfg: FieldConfig | None = 
 
 
 def load_params_with_config(path: str, device="cuda"):
-    """(params, FieldConfig) of a ``.pth.tar``. The config comes from the
-    ``<path>.fieldcfg.json`` sidecar when present, else from the shapes."""
+    """(params, FieldConfig) of a ``.pth.tar`` or an orbax directory. The
+    config comes from the ``<path>.fieldcfg.json`` sidecar when present,
+    else from the shapes."""
     params = safe_load_params(path, device)
     sidecar = _sidecar_path(path)
     if os.path.isfile(sidecar):

@@ -251,6 +251,27 @@ Phases, each printed with its start, end and wall seconds:
               CLI at --mesh_devices 2 under both samplers against one
               process. Each rank's launches, per path, equal on every rank,
               summed here.
+26. legacy -- the legacy models at the reference's widths from their
+              inits (no weights): render_canonical_cli --implicit_model
+              neus (NeuS 8 x 256, skip at 4, multires 6 and 4, d_feature
+              256; 64+64, fd7) and --implicit_model nerf (NeRF 8 x 256,
+              multires 10, "rotate", the view branch, 128 samples),
+              LEGACY_ORBIT frames of each orbit at LEGACY_RES^2: every
+              frame finite and written, ms per frame; the NeuS init's SDF
+              negative inside the radius-0.5 sphere, positive and growing
+              outside it; a LEGACY_CPU_RES^2 crop of each on the card and
+              the CPU from one set of parameters (NeuS: all but 1% within
+              1e-4, every value within 1e-2; NeRF: every value within
+              1e-4). The hybrid render (workloads/hybrid.py): the artifact
+              warped onto the demo body in pose HYBRID_POSES[0] over a
+              NeRF background, and HYBRID_POSES as two avatars, at
+              HYBRID_RES^2 from the warp bench's camera: finite, the avatar
+              on part of the frame, ms per frame; a HYBRID_CPU_RES^2 crop
+              card vs CPU at parity_warp's bounds. The orbax reader on this
+              machine (no orbax): the toy guidance's params/ every leaf
+              bitwise params_torch.npz, its seconds and the zstd route;
+              no kernel of the port launched (the avatar's parameters are
+              taken whole).
 
 Before the last line it prints one JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -275,7 +296,7 @@ import torch
 
 import avatarcraft_tpu_torch
 from avatarcraft_tpu_torch import bench, profile_train
-from avatarcraft_tpu_torch.cameras import dataset_rays, pose2rays, pose_spherical
+from avatarcraft_tpu_torch.cameras import dataset_rays, default_360_path, pose2rays, pose_spherical
 from avatarcraft_tpu_torch.cli import reconstruct_cli, render_canonical_cli, render_warp_cli, stylize_cli
 from avatarcraft_tpu_torch.constants import CANONICAL_CAMERA_DIST_TRAIN, CANONICAL_ZOOM_FACTOR, NSR_BOUND
 from avatarcraft_tpu_torch.data import SMPLMultiviewDataset
@@ -289,7 +310,10 @@ from avatarcraft_tpu_torch.models.instant_nsr import (
     count_fast_samples,
     extract_sdf_grid,
     render_rays,
+    render_rays_chunked,
 )
+from avatarcraft_tpu_torch.models.nerf import NeRFConfig, init_nerf_params, render_nerf_rays
+from avatarcraft_tpu_torch.models.neus import NeuSConfig, build_neus, init_neus_params, neus_sdf
 from avatarcraft_tpu_torch.models.sd import unet_apply
 from avatarcraft_tpu_torch.ops.grid_encoder import scatter_rows
 from avatarcraft_tpu_torch.ops.hash_encoder import HashGridSpec
@@ -303,15 +327,21 @@ from avatarcraft_tpu_torch.models.toy_guidance import (
 from avatarcraft_tpu_torch.parallel import dryrun, ring
 from avatarcraft_tpu_torch.parallel import mesh as mesh_lib
 from avatarcraft_tpu_torch.parallel.table_mp import TableMPTrainStep, trainable_shards
-from avatarcraft_tpu_torch.utils.checkpoint import artifact_normal_mode, leaves, load_params_with_config, map_leaves
+from avatarcraft_tpu_torch.utils.checkpoint import (
+    artifact_normal_mode,
+    leaves,
+    load_checkpoint,
+    load_params_with_config,
+    map_leaves,
+)
 from avatarcraft_tpu_torch.tools import run_multi_stylize
-from avatarcraft_tpu_torch.utils import cuda_build, gif, marching_cubes as mc, native, style_delta
+from avatarcraft_tpu_torch.utils import cuda_build, gif, marching_cubes as mc, native, orbax, style_delta
 from avatarcraft_tpu_torch.utils.metrics import integerify_img
 from avatarcraft_tpu_torch.utils.png import read_png, write_png
 from avatarcraft_tpu_torch.utils.device import card_line
 from avatarcraft_tpu_torch.utils.timing import cold_device_ms, cuda_ms, cuda_ms_cold, device_names
 from avatarcraft_tpu_torch.warp import WarpData
-from avatarcraft_tpu_torch.workloads import reconstruct
+from avatarcraft_tpu_torch.workloads import hybrid, reconstruct
 from avatarcraft_tpu_torch.workloads import stylize as stylize_workload
 from avatarcraft_tpu_torch.workloads import warp_render
 from avatarcraft_tpu_torch.workloads.canonical_render import make_fast_frame_renderer, make_parity_frame_renderer
@@ -2046,10 +2076,11 @@ def recon_parity_checkpoint(root: str) -> str:
 
 
 @contextlib.contextmanager
-def _timed_renderer(module, name: str, record: list):
+def _timed_renderer(module, name: str, record: list, finite: list | None = None):
     """Replaces ``module.<name>`` (a renderer factory) so that every call
     of the renderers it makes appends its host seconds, ending in a
-    synchronize, to ``record``."""
+    synchronize, to ``record`` (and to ``finite`` whether every tensor it
+    returned is finite)."""
     real = getattr(module, name)
 
     def factory(*args, **kw):
@@ -2061,6 +2092,8 @@ def _timed_renderer(module, name: str, record: list):
             out = render(*a)
             torch.cuda.synchronize()
             record.append(time.perf_counter() - t0)
+            if finite is not None:
+                finite.append(all(bool(torch.isfinite(t).all()) for t in out.values()))
             return out
 
         return call
@@ -2792,6 +2825,196 @@ def check_multirank() -> tuple:
     return kernels, total
 
 
+# -- the legacy models, the hybrid render and the orbax reader ---------------
+
+LEGACY_RES, LEGACY_ORBIT, LEGACY_CPU_RES = 128, 2, 8
+LEGACY_NERF_ATOL = 1e-4  # NeRF frame, card vs CPU: f32 MLP sums in other orders, no CDF inversion
+HYBRID_RES, HYBRID_POSES = 64, (10, 25)  # demo_poses.npy frames: the first alone, both as two avatars
+HYBRID_CPU_RES = 12
+
+
+def _legacy_cli_frames(model: str, out_dir: str) -> list:
+    """render_canonical_cli --implicit_model ``model`` at its defaults (the
+    model's init, no weights) for LEGACY_ORBIT frames of each orbit at
+    LEGACY_RES^2: the frames' host seconds; every frame finite and written."""
+    frame_s, finite = [], []
+    with _timed_renderer(render_canonical_cli, "make_legacy_frame_renderer", frame_s, finite):
+        render_canonical_cli.main(["--implicit_model", model, "--render_h", str(LEGACY_RES), "--render_w",
+                                   str(LEGACY_RES), "--trajectory_resolution", str(LEGACY_ORBIT), "--out_dir",
+                                   out_dir, "--exp_name", model])
+    n = 2 * LEGACY_ORBIT
+    if len(frame_s) != n or not all(finite):
+        raise AssertionError(f"legacy {model}: {len(frame_s)} frames of {n}, finite {finite}")
+    exp = os.path.join(out_dir, "canonical_360", model)
+    for pose in ("body", "head"):
+        for i in range(LEGACY_ORBIT):
+            img = read_png(os.path.join(exp, f"{model}_{pose}_can_{i:04d}.png"))
+            if img.shape != (LEGACY_RES, LEGACY_RES, 3) or img.std() == 0:
+                raise AssertionError(f"legacy {model}: frame {pose} {i}: {img.shape}, flat")
+    return frame_s
+
+
+def _center_rows(res: int, crop: int, device) -> torch.Tensor:
+    """The ray indices of the center crop^2 of a res^2 frame, row-major."""
+    lo = (res - crop) // 2
+    idx = torch.arange(lo, lo + crop, device=device)
+    return (idx[:, None] * res + idx[None, :]).reshape(-1)
+
+
+def _legacy_card_vs_cpu(render, params_cpu: dict, what: str, atol: float, max_share: float) -> None:
+    """``render(params, rays_o, rays_d)`` of one LEGACY_CPU_RES^2 crop of
+    the body orbit's first view on the card and the CPU, the same
+    parameters on both."""
+    pose = default_360_path(np.zeros(3), np.array([0.0, 1.0, 0.0]), render_canonical_cli.CANONICAL_CAMERA_DIST_VAL,
+                            LEGACY_ORBIT)[0][0]
+    full = LEGACY_CPU_RES * 4
+    frames = {}
+    for device in ("cpu", "cuda"):
+        ro, rd = pose2rays(full, full, pose, device=device)
+        rows = _center_rows(full, LEGACY_CPU_RES, device)
+        params = map_leaves(params_cpu, lambda t: t.to(device))
+        with torch.no_grad():
+            frames[device] = render(params, ro[rows], rd[rows]).cpu()
+    check_parity_frame_close(frames["cuda"], frames["cpu"], atol, max_share, what)
+
+
+def _hybrid_avatar(params: dict, fcfg, pose_index: int, device: str) -> dict:
+    model, world_verts, Ts = bench.demo_frames(1, first=pose_index)
+    rcfg = RenderConfig(num_steps=32, upsample_steps=32, bound=NSR_BOUND, perturb=False,
+                        normal_mode=artifact_normal_mode(bench.ARTIFACT_CKPT) or "fd7")
+    return {"params": params, "fcfg": fcfg, "rcfg": rcfg,
+            "warp_data": WarpData.create(world_verts[0], model.faces, Ts[0], device)}
+
+
+def _hybrid_frames(res: int, device: str, crop: int | None = None) -> dict:
+    """The baked artifact on the demo body in pose HYBRID_POSES[0] over the
+    NeRF background (its init from a CPU generator seeded 0, the same
+    numbers on every device) through render_hybrid_avatar, and HYBRID_POSES
+    as two avatars through render_hybrid_multi_persons, res^2 from the warp
+    bench's camera (the center crop^2 of it with ``crop``): {"one": rgb,
+    "two": rgb, "one_s": seconds, "two_s": seconds}."""
+    params, fcfg = load_params_with_config(bench.ARTIFACT_CKPT, device)
+    bcfg = NeRFConfig(mapping="rotate")
+    bkg = map_leaves(init_nerf_params(torch.Generator().manual_seed(0), bcfg), lambda t: t.to(device))
+    ro, rd = pose2rays(res, res, bench.warp_view(), device=device)
+    if crop is not None:
+        rows = _center_rows(res, crop, device)
+        ro, rd = ro[rows], rd[rows]
+    avatars = [_hybrid_avatar(params, fcfg, i, device) for i in HYBRID_POSES]
+    out = {}
+    with torch.no_grad():
+        for name, fn in (("one", lambda: hybrid.render_hybrid_avatar(
+                params, fcfg, avatars[0]["rcfg"], bkg, bcfg, ro, rd, warp_data=avatars[0]["warp_data"])),
+                         ("two", lambda: hybrid.render_hybrid_multi_persons(avatars, bkg, bcfg, ro, rd, seed=0))):
+            _sync(device)
+            t0 = time.perf_counter()
+            res_out = fn()
+            _sync(device)
+            out[f"{name}_s"] = time.perf_counter() - t0
+            out[name] = res_out["rgb"].cpu()
+            if not torch.isfinite(out[name]).all():  # the depths are +inf where nothing is hit
+                raise AssertionError(f"hybrid {name}: a non-finite frame")
+            if name == "one":
+                out["avatar_share"] = float(res_out["avatar_mask"].float().mean())
+    return out
+
+
+def _sync(device: str) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def check_orbax_reader() -> None:
+    """The committed toy guidance's orbax directory read on this machine,
+    which has no orbax: every leaf bitwise params_torch.npz; then the toy
+    guidance through its loader."""
+    t0 = time.perf_counter()
+    tree = load_checkpoint(os.path.join(TOY_DIR, "params"))["params"]
+    read_s = time.perf_counter() - t0
+    flat = {}
+
+    def walk(node, key):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{key}/{k}")
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{key}/{i}")
+        elif node is not None:
+            flat[key] = node
+
+    walk(tree, "params")
+    with np.load(os.path.join(TOY_DIR, "params_torch.npz")) as z:
+        names = sorted(k for k in z.files if k.startswith("params/"))
+        if sorted(flat) != names:
+            raise AssertionError(f"orbax reader: {len(flat)} leaves, the npz {len(names)}")
+        for k in names:
+            if flat[k].dtype != z[k].dtype or flat[k].shape != z[k].shape or flat[k].tobytes() != z[k].tobytes():
+                raise AssertionError(f"orbax reader: {k} differs from the npz")
+    t0 = time.perf_counter()
+    toy, _, _ = load_toy_guidance(TOY_DIR, "cuda")
+    load_s = time.perf_counter() - t0
+    print(f"legacy: the toy guidance's orbax directory read in {read_s:.3f} s ({len(names)} leaves, bitwise "
+          f"params_torch.npz; zstd: {orbax.zstd_route()}); load_toy_guidance onto the card {load_s:.3f} s "
+          f"({len(leaves(toy))} tensors) ({card_line()})", flush=True)
+
+
+def check_legacy() -> dict:
+    """NeuS and NeRF at the reference's widths through render_canonical_cli
+    --implicit_model neus|nerf (their inits), the init's SDF, a crop card vs
+    CPU for each; the hybrid render of the artifact on the demo body over a
+    NeRF background, one avatar and two, card vs CPU on a crop; the orbax
+    reader. No kernel of the port runs on these paths (the avatar's
+    parameters are taken whole): both counts must stay 0."""
+    t_phase = time.perf_counter()
+    _reset_launches()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_legacy_")
+    try:
+        frame_s = {m: _legacy_cli_frames(m, out_dir) for m in ("neus", "nerf")}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    ncfg = NeuSConfig()
+    init = init_neus_params(torch.Generator("cuda").manual_seed(0), ncfg)  # the CLI's init
+    xs = torch.tensor([[0.0, 0.0, 0.0], [0.2, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.5]], device="cuda")
+    with torch.no_grad():
+        sdf = neus_sdf(init, xs, ncfg)[:, 0].cpu()
+    print(f"legacy: NeuS init SDF at r = 0, 0.2, 1, 1.5: {json.dumps([round(float(v), 5) for v in sdf])}", flush=True)
+    if not (sdf[0] < 0 and sdf[1] < 0 and 0 < sdf[2] < sdf[3]):
+        raise AssertionError(f"legacy: the NeuS init is not the r = 0.5 sphere: {sdf.tolist()}")
+    for m, secs in frame_s.items():
+        print(f"legacy: {m} {len(secs)} frames at {LEGACY_RES}x{LEGACY_RES}: "
+              f"{json.dumps([round(1e3 * t, 2) for t in secs])} ms (the first a warm-up); "
+              f"{1e3 * float(np.mean(secs[1:])):.2f} ms per frame ({card_line()})", flush=True)
+
+    neus_cpu = init_neus_params(torch.Generator().manual_seed(0), ncfg)
+    rcfg = RenderConfig(num_steps=64, upsample_steps=64, bound=NSR_BOUND, perturb=False, normal_mode="fd7")
+    _legacy_card_vs_cpu(lambda p, ro, rd: render_rays_chunked({}, ro, rd, instant_nsr.FieldConfig(), rcfg, 1.0,
+                                                              chunk=ro.shape[0], field=build_neus(p, ncfg))["rgb"],
+                        neus_cpu, f"NeuS {LEGACY_CPU_RES}x{LEGACY_CPU_RES} crop", PARITY_CPU_ATOL,
+                        PARITY_CPU_OUTLIER_SHARE)
+    bcfg = NeRFConfig(mapping="rotate")
+    nerf_cpu = init_nerf_params(torch.Generator().manual_seed(0), bcfg)
+    _legacy_card_vs_cpu(lambda p, ro, rd: render_nerf_rays(p, ro, rd, bcfg)["rgb"], nerf_cpu,
+                        f"NeRF {LEGACY_CPU_RES}x{LEGACY_CPU_RES} crop", LEGACY_NERF_ATOL, 0.0)
+
+    hybrid_out = _hybrid_frames(HYBRID_RES, "cuda")  # the first call: warm-up
+    hybrid_out = _hybrid_frames(HYBRID_RES, "cuda")
+    print(f"legacy: hybrid at {HYBRID_RES}x{HYBRID_RES}: one avatar {1e3 * hybrid_out['one_s']:.2f} ms per frame "
+          f"(the avatar on {hybrid_out['avatar_share']:.3f} of the pixels), two avatars "
+          f"{1e3 * hybrid_out['two_s']:.2f} ms per frame ({card_line()})", flush=True)
+    if not 0.01 < hybrid_out["avatar_share"] < 0.99:
+        raise AssertionError(f"hybrid: the avatar covers {hybrid_out['avatar_share']} of the frame")
+    crop = {d: _hybrid_frames(HYBRID_RES, d, HYBRID_CPU_RES) for d in ("cpu", "cuda")}
+    for name in ("one", "two"):
+        check_parity_frame_close(crop["cuda"][name], crop["cpu"][name], PARITY_FRAME_ATOL,
+                                 PARITY_WARP_OUTLIER_SHARE, f"hybrid {name} {HYBRID_CPU_RES}x{HYBRID_CPU_RES} crop")
+    check_orbax_reader()
+    launches = dict(ring.launches)
+    _expect_launches("legacy", launches, {ring.KERNEL: 0, ring.RS_KERNEL: 0})
+    print(f"legacy: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2860,6 +3083,8 @@ def main() -> int:
         with Phase("multirank"):
             peer, paths["multirank"] = check_multirank()
             measured.update(peer)
+        with Phase("legacy"):
+            paths["legacy"] = check_legacy()
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         print("chip_smoke: FAILED", flush=True)

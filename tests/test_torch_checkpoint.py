@@ -180,12 +180,22 @@ def test_sidecar_round_trip(tmp_path):
 
 
 def test_safe_load_params_refuses_orbax_dir(tmp_path):
+    """safe_load_params reads a .pth.tar file and, since the orbax reader
+    (utils/orbax.py), no longer refuses an orbax directory: the JAX
+    package's checkpoint of the same tree loads as the JAX package's
+    safe_load_params returns it (its leaves f32 tensors, exactly), and so
+    does load_params_with_config, its config inferred from the shapes."""
     params, _ = _small_port_params()
     path = str(tmp_path / "p.pth.tar")
     ckpt.save_torch_checkpoint(params, path)
     _assert_same_tree(ckpt.safe_load_params(path, device="cpu"), params)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 24"):
-        ckpt.safe_load_params(str(tmp_path), device="cpu")
+    orbax_dir = str(tmp_path / "orbax")
+    jckpt.save_checkpoint(orbax_dir, jax.tree_util.tree_map(lambda t: t.numpy(), params))
+    want = jckpt.safe_load_params(orbax_dir)
+    _assert_same_tree(ckpt.safe_load_params(orbax_dir, device="cpu"), want)
+    loaded, fcfg = ckpt.load_params_with_config(orbax_dir, device="cpu")
+    _assert_same_tree(loaded, want)
+    assert _same_config(fcfg, jckpt.infer_field_config(want))
 
 
 def test_sorted_leaves_follow_jax_flatten_order():

@@ -143,14 +143,44 @@ def warp_inputs(tmp_path):
 
 
 @pytest.mark.parametrize("extra,msg", [
-    (["--implicit_model", "neus"], "neus is not ported yet \\(ROADMAP item 20"),
-    (["--implicit_model", "nerf"], "nerf is not ported yet \\(ROADMAP item 20"),
+    (["--implicit_model", "neus"], "--implicit_model neus has no effect here"),
+    (["--implicit_model", "nerf"], "--implicit_model nerf has no effect here"),
 ])
-def test_warp_cli_unported_options_refuse(extra, msg, tmp_path):
-    from avatarcraft_tpu_torch.cli import render_warp_cli
+def test_warp_cli_unported_options_refuse(extra, msg, warp_inputs, monkeypatch, capsys):
+    """--implicit_model neus|nerf, refused before the legacy models were
+    ported: the JAX package's warp CLI parses the flag and never reads it
+    (cli/render_warp_cli.py:22-23; its main names it nowhere, it always
+    renders instant-NSR), and the port does the same and says so in one
+    line: with the flag it builds its renderer from the same field,
+    settings and budget as without (the render stopped there; the frame
+    itself is test_warp_cli_renders_pngs_on_cpu's)."""
+    import inspect
 
-    with pytest.raises(SystemExit, match=msg):
-        render_warp_cli.main(["--weights_path", "w", "--use_cuda", "false", "--out_dir", str(tmp_path)] + extra)
+    import torch
+
+    from avatarcraft_tpu.cli import render_warp_cli as jax_cli
+    from avatarcraft_tpu_torch.cli import render_warp_cli
+    from avatarcraft_tpu_torch.utils.checkpoint import leaves
+
+    assert "implicit_model" not in inspect.getsource(jax_cli.main)
+    assert jax_cli.build_parser().parse_args(warp_inputs + WARP_ROOT_ARGS + extra).implicit_model == extra[1]
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def renderer(params, fcfg, settings, budget, bg):
+        seen.append((params, fcfg, settings, budget, bg))
+        raise Stop
+
+    monkeypatch.setattr(render_warp_cli, "make_warp_frame_renderer_fast", renderer)
+    for flag in ([], extra):
+        with pytest.raises(Stop):
+            render_warp_cli.main(warp_inputs + WARP_ROOT_ARGS + flag)
+    assert msg in capsys.readouterr().out
+    (p0, *rest0), (p1, *rest1) = seen
+    assert rest0 == rest1
+    assert len(leaves(p0)) == len(leaves(p1)) and all(torch.equal(a, b) for a, b in zip(leaves(p0), leaves(p1)))
 
 
 def test_warp_cli_renders_pngs_on_cpu(warp_inputs, tmp_path):

@@ -1,6 +1,7 @@
 """Guards for what the card's machine needs of the PyTorch port: it imports
-without JAX, the JAX package, imageio, cv2, PIL, regex, transformers or
-diffusers (the modules of every slice reached); entry points default to the card; a scan of
+without JAX, the JAX package, imageio, cv2, PIL, regex, transformers,
+diffusers, orbax, tensorstore or zstandard (the modules of every slice
+reached); entry points default to the card; a scan of
 train steps on the card never runs its steps eagerly; chip_smoke.py fails loudly
 without a card or without the package; kernels build for sm_90a into a
 directory git ignores; the wrapper never falls back to the CPU."""
@@ -26,7 +27,8 @@ from avatarcraft_tpu_torch.utils.png import write_png
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(avatarcraft_tpu_torch.__file__))
-BLOCKED = ("jax", "jaxlib", "imageio", "cv2", "PIL", "avatarcraft_tpu", "regex", "transformers", "diffusers")
+BLOCKED = ("jax", "jaxlib", "imageio", "cv2", "PIL", "avatarcraft_tpu", "regex", "transformers", "diffusers",
+           "orbax", "tensorstore", "zstandard")
 KERNELS = (ring.KERNEL, ring.RS_KERNEL)
 # modules of the training slice, which the import guard must reach
 TRAIN_MODULES = (
@@ -87,6 +89,15 @@ OUTPUT_MODULES = (
     "avatarcraft_tpu_torch.utils.misc",
     "avatarcraft_tpu_torch.cli.render_canonical_cli",
 )
+# modules of the legacy-model and orbax-reader slice
+LEGACY_MODULES = (
+    "avatarcraft_tpu_torch.ops.freq_encoder",
+    "avatarcraft_tpu_torch.ops.sh_encoder",
+    "avatarcraft_tpu_torch.models.neus",
+    "avatarcraft_tpu_torch.models.nerf",
+    "avatarcraft_tpu_torch.workloads.hybrid",
+    "avatarcraft_tpu_torch.utils.orbax",
+)
 
 
 def _env_without_repo():
@@ -106,7 +117,7 @@ for m in pkgutil.walk_packages(avatarcraft_tpu_torch.__path__, "avatarcraft_tpu_
     importlib.import_module(m.name)
 import chip_smoke
 missing = [m for m in {TRAIN_MODULES + WARP_MODULES + STYLIZE_MODULES + SD_MODULES + RECON_MODULES + MULTI_MODULES
-                      + OUTPUT_MODULES + MESH_MODULES!r}
+                      + OUTPUT_MODULES + MESH_MODULES + LEGACY_MODULES!r}
            if m not in sys.modules]
 print("imports ok" if not missing else f"not imported: {{missing}}")
 """
@@ -171,7 +182,8 @@ def test_port_never_names_the_jax_package():
         with open(path) as fp:
             text = fp.read()
         assert not re.search(r"avatarcraft_tpu(?!_torch)", text), path
-        assert not re.search(r"^\s*(import|from)\s+(jax|imageio|cv2|regex|transformers|diffusers)\b", text, re.M), path
+        assert not re.search(r"^\s*(import|from)\s+(jax|imageio|cv2|regex|transformers|diffusers|orbax|tensorstore"
+                             r"|zstandard)\b", text, re.M), path
 
 
 def test_chip_smoke_without_card_fails():

@@ -256,10 +256,42 @@ def test_canonical_cli_encoder_overrides_the_checkpoint(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("model", ["neus", "nerf"])
-def test_canonical_cli_refuses_legacy_models(tmp_path, model):
-    with pytest.raises(SystemExit, match=f"{model} is not ported yet \\(ROADMAP item 20"):
-        render_canonical_cli.main(CANONICAL_ARGS + ["--out_dir", str(tmp_path), "--implicit_model", model])
-    assert not (tmp_path / "canonical_360").exists()
+def test_canonical_cli_refuses_legacy_models(tmp_path, monkeypatch, model):
+    """--implicit_model neus|nerf, refused before the legacy models were
+    ported, now renders as the JAX CLI does (cli/render_canonical_cli.py:
+    79-127): both CLIs read one orbax checkpoint the JAX package wrote (the
+    port through its own reader) and write PNGs within one level of each
+    other. The models run at narrow widths, each CLI's config patched
+    (NeuS 4 x 32, NeRF 3 x 32 with the default "rotate" mapping)."""
+    from avatarcraft_tpu.models import nerf as jnerf
+    from avatarcraft_tpu.models import neus as jneus
+    from avatarcraft_tpu.utils.checkpoint import save_checkpoint
+    from avatarcraft_tpu_torch.models import nerf, neus
+
+    neus_kw = dict(d_hidden=32, n_layers=4, skip_layer=2, d_feature=32)
+    nerf_kw = dict(depth=3, width=32, skip_layer=1, multires=6)
+    jneus_cls, jnerf_cls = jneus.NeuSConfig, jnerf.NeRFConfig
+    monkeypatch.setattr(render_canonical_cli, "NeuSConfig", lambda: neus.NeuSConfig(**neus_kw))
+    monkeypatch.setattr(render_canonical_cli, "NeRFConfig", lambda mapping: nerf.NeRFConfig(mapping=mapping, **nerf_kw))
+    monkeypatch.setattr(jneus, "NeuSConfig", lambda: jneus_cls(**neus_kw))
+    monkeypatch.setattr(jnerf, "NeRFConfig", lambda mapping: jnerf_cls(mapping=mapping, **nerf_kw))
+    if model == "neus":
+        tree = jneus.init_neus_params(jax.random.PRNGKey(0), jneus_cls(**neus_kw))
+    else:
+        tree = jnerf.init_nerf_params(jax.random.PRNGKey(0), jnerf_cls(mapping="rotate", **nerf_kw))
+    weights = str(tmp_path / "weights")
+    save_checkpoint(weights, jax.device_get(tree))
+    argv = ["--weights_path", weights, "--implicit_model", model, "--use_cuda", "false", "--render_h", "8",
+            "--render_w", "10", "--trajectory_resolution", "2", "--batch_size", "40", "--out_dir", str(tmp_path)]
+    render_canonical_cli.main(argv + ["--exp_name", "t"])
+    jax_canonical_cli.main(argv + ["--exp_name", "j"])
+    for orbit in ("body", "head"):
+        for i in range(2):
+            got = read_png(str(tmp_path / "canonical_360" / "t" / f"t_{orbit}_can_{i:04d}.png")).astype(int)
+            want = read_png(str(tmp_path / "canonical_360" / "j" / f"j_{orbit}_can_{i:04d}.png")).astype(int)
+            assert got.shape == want.shape == (8, 10, 3)
+            assert np.abs(got - want).max() <= 1, (orbit, i)
+            assert got.std() > 0  # the field shows in the frame
 
 
 @pytest.mark.parametrize("port,jax_cli", [(render_canonical_cli, jax_canonical_cli),

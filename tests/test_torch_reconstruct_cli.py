@@ -3,7 +3,8 @@ the CPU: the dataset's training samplers, the supersampled rays, the 64+64
 trainer (``setup``/``train``) on the hash grid, the fast trainer with
 ``view_ids``, callbacks and a save-and-resume, mesh extraction and export,
 and ``reconstruct_cli`` end to end on a tiny set for both samplers, with
-its refusals (``--scan_steps`` runs: tests/test_torch_scan_train.py).
+its refusals and a resume from the JAX package's orbax train state
+(``--scan_steps`` runs: tests/test_torch_scan_train.py).
 
 Tolerances:
 * the samplers: exact where both sides compute in numpy (pixel draws,
@@ -365,15 +366,42 @@ REFUSALS = [
 ]
 
 
-@pytest.mark.parametrize("argv,msg", REFUSALS + [(None, "ROADMAP item 24")])
+@pytest.mark.parametrize("argv,msg", REFUSALS)
 def test_cli_refusals_write_nothing(tmp_path, argv, msg):
     out = tmp_path / "out"
-    if argv is None:  # an orbax train state of the JAX package is a directory
-        (tmp_path / "state_latest").mkdir()
-        argv = ["--resume_from", str(tmp_path / "state_latest")]
     with pytest.raises(SystemExit, match=msg):
         reconstruct_cli.main(["--data_path", str(tmp_path), "--use_cuda", "false", "--out_dir", str(out)] + argv)
     assert not out.exists()
+
+
+def test_cli_resume_from_jax_orbax_state_matches_jax(disc_set, tmp_path, monkeypatch, capsys):
+    """reconstruct_cli --resume_from DIR, refused before the orbax reader,
+    on the train state that JAX's train_fast wrote at step 4 (an orbax
+    directory: parameters, optax's Adam state, the grid, the step): the
+    CLI's fast trainer resumes to step 6 as JAX's train_fast resumes from
+    the same directory, losses within 1e-4 relative
+    (test_train_resume_from_carried_state_matches_jax's tolerance). The
+    CLI's --implicit_model neus is parsed and not read, as in the JAX
+    package, and one line says so."""
+    import functools
+
+    _small_field_config(monkeypatch)
+    fcfg_j = dataclasses.replace(TINY_PYR_JAX, packed_dtype="bfloat16")
+    fast_j = jnsr.FastRenderConfig(n_probes=128, k_samples=32, bound=1.6, normal_mode="fd4")
+    jcfg = jrecon.ReconstructConfig(batch_size=64, lr=5e-4, epochs=2, white_bkg=True, bkg_mode="raw")
+    ds_j, jdir = JaxDataset(disc_set), str(tmp_path / "jax")
+    jrecon.train_fast(ds_j, fcfg_j, fast_j, jcfg, max_steps=4, state_dir=jdir, save_state_every=2)
+    _, _, jb = jrecon.train_fast(ds_j, fcfg_j, fast_j, jcfg, max_steps=6, log_every=1,
+                                 resume_from=f"{jdir}/state_latest")
+    monkeypatch.setattr(recon, "train_fast", functools.partial(recon.train_fast, log_every=1))
+    out = tmp_path / "out"
+    _, stats = reconstruct_cli.main(["--data_path", disc_set, "--use_cuda", "false", "--out_dir", str(out),
+                                     "--exp_name", "r", "--sampler", "fast", "--batch_size", "64", "--max_steps", "6",
+                                     "--i_val", "1000", "--i_save", "1000", "--i_mesh", "1000", "--implicit_model",
+                                     "neus", "--resume_from", f"{jdir}/state_latest"])
+    assert "[reconstruct] --implicit_model neus has no effect here" in capsys.readouterr().out
+    assert [s for s, _ in stats["losses"]] == [s for s, _ in jb["losses"]] == [4, 5]
+    np.testing.assert_allclose([l for _, l in stats["losses"]], [l for _, l in jb["losses"]], rtol=1e-4)
 
 
 def test_cli_parser_matches_jax():

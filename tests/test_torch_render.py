@@ -103,19 +103,22 @@ def test_field_outputs_match(rng):
 
 
 def test_unported_modes_raise():
-    """The view-direction SH encoder is still to port (it raises and names
-    its item) and an unknown encoder raises; the analytic normal mode
-    (tests/test_torch_stylize.py holds it against JAX) and the hash grid,
-    ported since, no longer raise: the hash grid's tables are the JAX
-    package's cell-packed dense levels, bit for bit."""
+    """An unknown encoder and an unknown normal mode raise; the analytic
+    normal mode (tests/test_torch_stylize.py holds it against JAX), the
+    hash grid and the view-direction SH encoder (use_viewdirs, held
+    against JAX in tests/test_torch_legacy.py), ported since, no longer
+    raise: the hash grid's tables are the JAX package's cell-packed dense
+    levels, bit for bit, and use_viewdirs builds the same tables."""
     _, params, fcfg = _small_field()
     x = torch.zeros(4, 3)
     sdf, feat, grad = nsr.field_sdf_grad(params, x, fcfg, 1.6, 0.005, "analytic")
     assert sdf.shape == (4, 1) and grad.shape == (4, 3) and torch.isfinite(grad).all()
     with pytest.raises(ValueError, match="unknown normal_mode"):
         nsr.field_sdf_grad(params, x, fcfg, 1.6, 0.005, "fd5")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
-        nsr.materialize_field_tables(params, dataclasses.replace(fcfg, use_viewdirs=True))
+    with_dirs = nsr.materialize_field_tables(params, dataclasses.replace(fcfg, use_viewdirs=True))
+    without = nsr.materialize_field_tables(params, fcfg)
+    assert sorted(with_dirs) == sorted(without)
+    assert all(torch.equal(a, b) for k in without for a, b in zip(with_dirs[k], without[k]))
     with pytest.raises(ValueError, match="unknown encoder"):
         nsr.materialize_field_tables(params, dataclasses.replace(fcfg, encoder="freq"))
 

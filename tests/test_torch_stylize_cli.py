@@ -1,7 +1,7 @@
 """The port's stylize CLI against the JAX package's, on the CPU: the
 derived sample budget on the committed artifact (exact, at 128x128 and
-64x64), the refusals of
-what is not ported yet (each names its ROADMAP item and writes nothing),
+64x64), its refusals (each writes nothing), ``--implicit_model`` parsed
+and not read as in the JAX package,
 and two-step CPU runs of the fast sampler whose final checkpoints load: with the stand-in
 guidance, with Stable Diffusion loaded by --sd_weights from tiny
 state-dict files, and with --i_mesh exports (the lattice patched from
@@ -104,11 +104,40 @@ def test_derive_sample_budget_matches_jax(artifact, refreshed_grid, res, chunk):
 
 # --sampler parity and --encoder hashgrid, refused here before the parity
 # pipeline was ported, run in tests/test_torch_parity_stylize.py
+# --implicit_model neus, refused here before the legacy models were ported,
+# is parsed and not read, as in the JAX package: test_cli_implicit_model_is_not_read
 REFUSALS = [
-    (["--implicit_model", "neus"], "ROADMAP item 20"),
     (["--guidance_type", "clip"], "JAX package refuses"),
     (["--guidance_type", "toy", "--tgt_text", "zombie", "--i_mesh", "100000"], "trained toy style"),
 ]
+
+
+def test_cli_implicit_model_is_not_read(tmp_path, monkeypatch, capsys):
+    """--implicit_model neus: the JAX package's stylize CLI parses the flag
+    and never reads it (cli/stylize_cli.py:37, it always stylizes the
+    instant-NSR field); the port says so in one line and sets up the same
+    run as without the flag (setup stopped before it loads anything)."""
+    import inspect
+
+    base = ["--weights_path", bench.ARTIFACT_CKPT, "--use_cuda", "false", "--out_dir", str(tmp_path / "out")]
+    assert jcli.build_parser().parse_args(base + ["--implicit_model", "neus"]).implicit_model == "neus"
+    assert "implicit_model" not in inspect.getsource(jcli.main)
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def setup(opt, *a, **k):
+        seen.append(vars(opt).copy())
+        raise Stop
+
+    monkeypatch.setattr(stylize_cli, "setup", setup)
+    for extra in ([], ["--implicit_model", "neus"]):
+        with pytest.raises(Stop):
+            stylize_cli.main(base + extra)
+    assert "[stylize] --implicit_model neus has no effect here" in capsys.readouterr().out
+    assert seen[1].pop("implicit_model") == "neus" and seen[0].pop("implicit_model") == "instant_nsr"
+    assert seen[0] == seen[1]
 
 
 @pytest.mark.parametrize("argv,msg", REFUSALS)
