@@ -11,8 +11,10 @@ shapes, in its order.
 3. stylize -- the parity phase B with each patch's rays sharded
    (``make_phaseB_step`` over the mesh), then Adam;
 4. scan -- S sharded steps of ``make_train_scan_fast`` against S sharded
-   per-step steps; on the card the mesh refuses the graphed scan (ROADMAP
-   item 25), which this path then holds;
+   per-step steps; on the card the scan's CUDA graph of the sharded step
+   (the loss psums and the gradient all-reduce on the port's cross-rank
+   kernel) is held bitwise against the same scan taken eagerly with the
+   same kernels: losses, parameters and Adam's moments;
 5. frame -- a 16x16 ``render_rays_fast`` frame, rays sharded, against the
    frame rendered whole on each rank;
 6. multi -- P = n prompts, the prompt axis over the ranks: each rank takes
@@ -32,7 +34,7 @@ step is one global draw from a seeded generator, of which each rank takes
 its rows.
 
 Tolerances and their causes: sums over ranks add in another order than one
-process does (gloo's all-reduce, then f32 sums of fewer terms), and the
+process does (per rank, then over the ranks in rank order), and the
 field's MLP gives a row other last bits in a batch of another size; the
 64+64 up-sampler's CDF inversion moves a sample by up to 10^4 x such an SDF
 difference. So losses agree to ``LOSS_RTOL`` and gradients per leaf to
@@ -334,21 +336,9 @@ def path_scan(mesh, inputs, data):
     grid = torch.full((17, 17, 17), 100.0, device=dev)
     images = torch.as_tensor(data["images_flat"], device=dev)
     masks = torch.as_tensor(data["masks_flat"], device=dev)
-    if dev.type == "cuda":
-        rest, shards, splice = trainable_shards(_tree(inputs["fast"], dev))
-        opt, _ = recon.make_optimizer(cfg, 10, leaves(rest) + shards)
-        try:
-            recon.make_train_scan_fast(FCFG_FAST, _fast_cfg(0), opt, ray_fn, 0.1, "composite", True, splice,
-                                       mesh=mesh)
-        except NotImplementedError as e:
-            if recon.GRAPHED_MESH_ITEM not in str(e):
-                raise
-            _say(mesh, f"scan-trainer refused on the card, as it must: {e}")
-            return {"refused": str(e)}
-        raise AssertionError("a graphed scan over a mesh on the card did not refuse")
     cols = data_sharding(mesh, 8 * n)
-    counts = [count_fast_samples(*ray_fn(poses, torch.as_tensor(data["vis"][s, cols], dtype=torch.int64),
-                                         torch.as_tensor(data["pis"][s, cols], dtype=torch.int64)),
+    index = lambda a: torch.as_tensor(a, dtype=torch.int64, device=dev)  # noqa: E731
+    counts = [count_fast_samples(*ray_fn(poses, index(data["vis"][s, cols]), index(data["pis"][s, cols])),
                                  _fast_cfg(0), grid) for s in range(SCAN_STEPS)]
     fast_cfg = _fast_cfg(_no_clip_budget(mesh, counts))
 
@@ -357,11 +347,23 @@ def path_scan(mesh, inputs, data):
         opt, sched = recon.make_optimizer(cfg, 10, leaves(rest) + shards)
         return rest, shards, splice, opt, sched
 
-    rest, shards, splice, opt, sched = fresh()
-    scan = recon.make_train_scan_fast(FCFG_FAST, fast_cfg, opt, ray_fn, 0.1, "composite", True, splice, graph=False,
-                                      mesh=mesh)
-    losses = scan(rest, shards, poses, images, masks, data["vis"], data["pis"], sched.advance(SCAN_STEPS), grid)
-    p_scan = gathered_params(rest, shards, splice)
+    def run_scan(graph):
+        rest, shards, splice, opt, sched = fresh()
+        scan = recon.make_train_scan_fast(FCFG_FAST, fast_cfg, opt, ray_fn, 0.1, "composite", True, splice,
+                                          graph=graph, mesh=mesh)
+        losses = scan(rest, shards, poses, images, masks, data["vis"], data["pis"], sched.advance(SCAN_STEPS), grid)
+        owned = leaves(rest) + shards
+        moments = [opt.state[p][k] for p in owned for k in ("exp_avg", "exp_avg_sq")]
+        return losses, gathered_params(rest, shards, splice), moments
+
+    losses, p_scan, moments = run_scan(False)
+    graphed = dev.type == "cuda"
+    if graphed:  # the graph against the same steps taken eagerly with the same kernels, bitwise
+        g_losses, g_params, g_moments = run_scan(None)
+        same = torch.equal(g_losses, losses) and all(torch.equal(a, b) for a, b in zip(
+            leaves(g_params) + g_moments, leaves(p_scan) + moments))
+        if not same:
+            raise AssertionError("the graphed sharded scan differs from the same steps taken eagerly")
 
     rest1, shards1, splice1, opt1, sched1 = fresh()
     step = recon.make_train_step_fast(FCFG_FAST, fast_cfg, opt1, ray_fn, 0.1, splice1, sched1, mesh)
@@ -376,8 +378,9 @@ def path_scan(mesh, inputs, data):
     _check_close("scan losses against per-step", _host(losses), per_step, atol=SCAN_LOSS_ATOL)
     for a, b in zip(leaves(p_scan), leaves(p_ref)):
         _check_close("scan parameters against per-step", _host(a), _host(b), atol=SCAN_PARAM_ATOL)
-    _say(mesh, f"scan-trainer OK: {SCAN_STEPS}x{8 * n} sharded steps == per-step")
-    return {"losses": _host(losses), "per_step": per_step, "params": map_leaves(p_scan, _host)}
+    _say(mesh, f"scan-trainer OK: {SCAN_STEPS}x{8 * n} sharded steps == per-step"
+               + ("; the CUDA graph's replays bitwise the eager scan" if graphed else ""))
+    return {"losses": _host(losses), "per_step": per_step, "params": map_leaves(p_scan, _host), "graphed": graphed}
 
 
 def _frame_rays(dev):

@@ -12,11 +12,14 @@ through the host), and ``make_mesh`` says so once. The mesh is never cut to
 fit the devices: JAX's ``make_mesh`` takes ``devices[:n]``, this one raises
 when n is not the group's size.
 
-The library collectives stand where JAX uses an XLA collective: ``psum`` for
-the batch's global sums, ``all_reduce_grads`` for the gradients of replicated
-parameters, ``all_gather_rows_of`` for the final gather of a frame. The
-gather of a row-sharded table and its reduce-scatter backward are the port's
-own kernels (``parallel.ring``), never gloo on the card.
+Where JAX uses an XLA collective in a step, the port's own calls stand
+(``parallel.ring``, never gloo on the card): ``psum`` for the batch's
+global sums and ``all_reduce_grads`` for the gradients of replicated
+parameters, both ``ring.ring_all_reduce`` (the same rank order on the card
+and the CPU, so every rank gets the same bits, and a CUDA graph can hold
+them), and the gather of a row-sharded table with its reduce-scatter
+backward. gloo's library collectives remain for what runs on the host or
+once a frame: ``replicate``, ``all_gather_rows_of`` and ``max_over_ranks``.
 
 ``launch(fn, n, *args)`` spawns the n ranks (start method ``spawn``: no
 process forks after CUDA is up), builds the cross-rank kernels first in the
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from avatarcraft_tpu_torch.parallel import ring
 from avatarcraft_tpu_torch.utils.checkpoint import map_leaves
 
 AXIS = "data"
@@ -152,17 +156,15 @@ def replicate(mesh: Mesh, tree):
 
 
 class _PSum(torch.autograd.Function):
-    """Forward: the sum over ranks. Backward: the cotangent as it is. Every
-    rank goes on to compute the same global loss from the sum and
-    back-propagates it, so each rank's own term gets the loss's cotangent
-    once; the gradients of replicated parameters are then summed once, by
-    ``all_reduce_grads``."""
+    """Forward: the sum over ranks (``ring.ring_all_reduce``). Backward: the
+    cotangent as it is. Every rank goes on to compute the same global loss
+    from the sum and back-propagates it, so each rank's own term gets the
+    loss's cotangent once; the gradients of replicated parameters are then
+    summed once, by ``all_reduce_grads``."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        out = x.detach().clone()
-        dist.all_reduce(out, group=group)
-        return out
+    def forward(ctx, x, mesh):
+        return ring.ring_all_reduce(x.detach(), mesh)
 
     @staticmethod
     def backward(ctx, ct):
@@ -170,9 +172,9 @@ class _PSum(torch.autograd.Function):
 
 
 def psum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The sum of ``x`` over the ranks (differentiable); ``x`` itself on one
-    rank."""
-    return _PSum.apply(x, mesh.group) if mesh.distributed else x
+    """The sum of ``x`` over the ranks (differentiable), added in rank
+    order; ``x`` itself on one rank."""
+    return _PSum.apply(x, mesh) if mesh.distributed else x
 
 
 def global_mean(local_sum: torch.Tensor, local_count: int, mesh: Mesh) -> torch.Tensor:
@@ -191,15 +193,24 @@ def global_ratio(num: torch.Tensor, den: torch.Tensor, mesh: Mesh, eps: float = 
 
 def all_reduce_grads(params, mesh: Mesh) -> None:
     """Sum the ``.grad`` of each replicated parameter over the ranks, in
-    place, in one collective over their concatenation (a missing grad
-    counts as zeros). Every rank gets the same bits, so the same optimizer
-    step keeps the replicas equal."""
+    place, in one ``ring.ring_all_reduce`` of their concatenation (a
+    missing grad counts as zeros), written straight into the all-reduce's
+    buffer on the card. Every rank gets the same bits, so the same
+    optimizer step keeps the replicas equal. The gradients are float32, as
+    every trainer's are (its bf16 tables are made from f32 parameters each
+    step); another dtype is refused. First reads the cross-rank calls'
+    error word (``ring.check_peer_error``): once a step."""
     if not mesh.distributed:
         return
+    ring.check_peer_error()
     params = [p for p in params]
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=mesh.group)
+    for g in grads:
+        if g.dtype != torch.float32:
+            raise ValueError(f"all_reduce_grads sums float32 gradients, got {g.dtype}")
+    flat = ring.all_reduce_input(sum(g.numel() for g in grads), mesh)
+    torch.cat([g.reshape(-1) for g in grads], out=flat)
+    flat = ring.ring_all_reduce(flat, mesh)
     offset = 0
     for p, g in zip(params, grads):
         n = g.numel()
@@ -209,7 +220,8 @@ def all_reduce_grads(params, mesh: Mesh) -> None:
 
 def all_gather_rows_of(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The ranks' equal [m, ...] row blocks, concatenated in rank order on
-    every rank (gloo's all_gather: the final gather of a frame)."""
+    every rank: gloo's all_gather through the host, which the final gather
+    of a frame (once a frame) and the checks can afford."""
     if not mesh.distributed:
         return x
     parts = [torch.empty_like(x) for _ in range(mesh.size)]
@@ -218,7 +230,8 @@ def all_gather_rows_of(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 
 def max_over_ranks(value: int, mesh: Mesh) -> int:
-    """The largest of the ranks' integers (a budget every rank can take)."""
+    """The largest of the ranks' integers (a budget every rank can take):
+    a host value, through gloo's all_reduce."""
     if not mesh.distributed:
         return int(value)
     t = torch.tensor([int(value)], dtype=torch.int64)
@@ -259,8 +272,6 @@ def _rank_main(rank: int, n: int, port: int, device: str, work, results, timeout
         fn, args = work.get()
         value = _host(fn(mesh, *args))
         if mesh.device.type == "cuda":
-            from avatarcraft_tpu_torch.parallel import ring
-
             ring.release_peer_buffers(mesh)
         results.put((rank, True, value))
         dist.destroy_process_group()
@@ -282,8 +293,6 @@ def launch(fn, n: int, *args, device: str = "cuda", timeout_s: float = DEFAULT_T
     if n < 1:
         raise ValueError(f"a mesh needs at least one rank, got {n}")
     if torch.device(device).type == "cuda":
-        from avatarcraft_tpu_torch.parallel import ring
-
         ring.build_kernels()
     ctx = multiprocessing.get_context("spawn")
     results = ctx.SimpleQueue()

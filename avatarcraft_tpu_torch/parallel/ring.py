@@ -30,10 +30,12 @@ card there is one replica (m = 1).
 Across the ranks of a mesh (``parallel.mesh``: one process per rank), the
 table is row-sharded over processes and ``ring_all_gather`` /
 ``ring_all_gather_grad`` / ``all_gather_table(shard, mesh)`` gather it, the
-port of ring.py:118-195 itself. Their kernels (``csrc/ring_peer.cu``) work on
-peer memory: a symmetric buffer per (group, kind, size) that each rank
+port of ring.py:118-195 itself. Their kernel (``csrc/ring_peer.cu``) works
+on peer memory: a symmetric buffer per (group, kind, size) that each rank
 allocates, exports with a CUDA IPC handle and opens from every other rank,
-with flags in the buffers for the TPU kernel's entry barrier and acks:
+with flags in the buffers for the TPU kernel's entry barrier and acks and
+the rank's call count (the host passes no sequence number, so a CUDA graph
+can hold and replay a call). A call is one launch and no host step:
 
 * ``peer_all_gather``, the forward: each rank stages its shard in its
   buffer and copies the n buffers' shards into its table. Plain version:
@@ -42,7 +44,15 @@ with flags in the buffers for the TPU kernel's entry barrier and acks:
   cotangent and sums block ``rank`` of the n buffers in rank order. Plain
   version: the n cotangents gathered (``dist.all_gather``), block ``rank``
   of each summed in rank order, which gloo's all_reduce would not keep.
+* ``peer_all_reduce`` (``ring_all_reduce``), not a TPU kernel: the sum of
+  a [N] f32 vector over the ranks in rank order, two-shot on buffers of
+  the same design, for the mesh's loss psums and gradient all-reduce (where XLA
+  inserts them in the JAX package). Its caller writes the input into the
+  buffer (``all_reduce_input``): no staging. Plain version: the n inputs
+  gathered, summed in rank order.
 
+A wait that gives up sets a sticky error word, which ``check_peer_error``
+reads after a step or a replay.
 A mesh of one rank takes the one-card kernels.
 """
 
@@ -58,9 +68,11 @@ from avatarcraft_tpu_torch.utils.cuda_build import build, load_library
 
 KERNEL = "all_gather_rows"
 RS_KERNEL = "reduce_scatter_rows"
-PEER_LIB = "ring_peer"  # csrc/ring_peer.cu: both cross-rank kernels
+PEER_LIB = "ring_peer"  # csrc/ring_peer.cu: the cross-rank calls
 PEER_GATHER = "peer_all_gather"
 PEER_RS = "peer_reduce_scatter"
+PEER_AR = "peer_all_reduce"  # csrc/ring_peer.cu too: the port's own, not a TPU kernel
+AR_ALIGN = 4  # floats: an all-reduce block's rounding, so that each starts 16-byte aligned
 # the kernels' by-value pointer tables (csrc/all_gather_rows.cu kMaxShards,
 # csrc/reduce_scatter_rows.cu kMaxTables)
 MAX_SHARDS = 128
@@ -68,7 +80,7 @@ MAX_TABLES = 128
 
 # launches of each CUDA kernel in this process; only the launch functions
 # add to them, and ``add_replayed`` for the launches a CUDA graph replays
-launches = {KERNEL: 0, RS_KERNEL: 0, PEER_GATHER: 0, PEER_RS: 0}
+launches = {KERNEL: 0, RS_KERNEL: 0, PEER_GATHER: 0, PEER_RS: 0, PEER_AR: 0}
 
 
 def all_gather_rows_plain(shards) -> torch.Tensor:
@@ -248,23 +260,33 @@ def build_kernels() -> None:
 
 
 def _peer_library(lib: ctypes.CDLL) -> ctypes.CDLL:
-    ptr, i64, u64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_int
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     sigs = {
         "ring_peer_alloc": [i64, ctypes.POINTER(ptr)],
         "ring_peer_free": [ptr],
+        "ring_peer_header_bytes": [],
         "ring_peer_handle_size": [],
         "ring_peer_handle": [ptr, ptr],
         "ring_peer_open": [ptr, ctypes.POINTER(ptr)],
         "ring_peer_close": [ptr],
-        "ring_peer_all_gather": [ctypes.POINTER(ptr), i32, i32, u64, ptr, ptr, i64, ptr],
-        "ring_peer_reduce_scatter": [ctypes.POINTER(ptr), i32, i32, u64, ptr, ptr, i64, ptr],
+        # (bases, n, me, share, ...): no sequence number, the count lives in the buffer
+        "ring_peer_all_gather": [ctypes.POINTER(ptr), i32, i32, i32, ptr, ptr, i64, ptr],
+        "ring_peer_reduce_scatter": [ctypes.POINTER(ptr), i32, i32, i32, ptr, ptr, i64, ptr],
+        "ring_peer_all_reduce": [ctypes.POINTER(ptr), i32, i32, i32, ptr, i64, i64, ptr],
+        "ring_peer_error": [],
     }
     for fn, args in sigs.items():
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = i32
+    lib.ring_peer_clear_error.argtypes = []
+    lib.ring_peer_clear_error.restype = None
     lib.ring_peer_error_string.argtypes = [i32]
     lib.ring_peer_error_string.restype = ctypes.c_char_p
+    _peer_loaded.append(lib)
     return lib
+
+
+_peer_loaded: list = []  # the cross-rank library, once this process has loaded it
 
 
 def _peer_checked(what: str, rc: int) -> None:
@@ -273,31 +295,105 @@ def _peer_checked(what: str, rc: int) -> None:
         raise RuntimeError(f"{what} failed: error {rc} ({msg})")
 
 
-class PeerBuffer:
-    """This rank's symmetric buffer of one (group, kind, size) and the n
-    ranks' buffers mapped here (``bases``, the kernels' by-value table);
-    ``seq`` counts the calls made on it, the same on every rank."""
+def check_peer_error() -> None:
+    """Raise if a wait of a cross-rank call of this process gave up (a peer
+    stopped calling, or the ranks' calls differ): the kernels' sticky error
+    word, read in host memory without a synchronisation, so it shows the
+    calls that have ended. Read after a step (``mesh.all_reduce_grads``), a
+    scan's replays and a kernel check; the host alone clears it."""
+    if _peer_loaded:
+        rc = _peer_loaded[0].ring_peer_error()
+        if rc:
+            raise RuntimeError(f"a cross-rank call failed: error {rc} "
+                               f"({_peer_loaded[0].ring_peer_error_string(rc).decode()})")
 
-    def __init__(self, mesh, nbytes: int):
-        lib = _library(PEER_LIB)
-        own = ctypes.c_void_p()
-        _peer_checked("ring_peer_alloc", lib.ring_peer_alloc(nbytes, ctypes.byref(own)))
-        handle = ctypes.create_string_buffer(lib.ring_peer_handle_size())
-        _peer_checked("ring_peer_handle", lib.ring_peer_handle(own, handle))
-        handles = [None] * mesh.size
-        dist.all_gather_object(handles, handle.raw, group=mesh.group)
-        self.own, self.opened, bases = own.value, [], []
-        for p, h in enumerate(handles):
-            if p == mesh.rank:
-                bases.append(self.own)
-                continue
-            peer = ctypes.c_void_p()
-            _peer_checked("ring_peer_open", lib.ring_peer_open(ctypes.create_string_buffer(h, len(h)),
-                                                               ctypes.byref(peer)))
-            self.opened.append(peer.value)
-            bases.append(peer.value)
-        self.bases = (ctypes.c_void_p * mesh.size)(*bases)
-        self.nbytes, self.seq = nbytes, 0
+
+class _CudaArray:
+    """``numel`` f32 elements at a device address, for ``torch.as_tensor``
+    (the CUDA array interface; no stream is named, so nothing
+    synchronises)."""
+
+    def __init__(self, ptr: int, numel: int):
+        self.__cuda_array_interface__ = {"shape": (numel,), "typestr": "<f4", "data": (ptr, False), "version": 2}
+
+
+class PeerBuffer:
+    """A rank's symmetric buffer of one (group, kind, size): ``own`` (its
+    address), the n ranks' buffers as mapped in this process (``bases``,
+    the kernel's by-value table), the rank's place ``me`` among them and
+    ``share``, the ranks of the group on this card, whose kernels wait on
+    each other there (the kernel sizes its grid so that all of theirs fit).
+    The buffer's header on the card holds the rank's call count: the host
+    passes no sequence number."""
+
+    def __init__(self, own: int, bases, me: int, share: int, nbytes: int, device, opened=()):
+        self.own, self.me, self.share, self.nbytes = own, me, share, nbytes
+        self.n, self.device, self.opened = len(bases), torch.device(device), list(opened)
+        self.bases = (ctypes.c_void_p * self.n)(*bases)
+        self._views: dict = {}
+
+    def view(self, numel: int) -> torch.Tensor:
+        """The first ``numel`` f32 elements of the buffer's data as a tensor
+        that aliases it: what a caller writes there, the next all-reduce
+        reads without a stage. Made once per length (never while a graph is
+        captured: the warm-up step makes it)."""
+        if numel not in self._views:
+            if numel * 4 > self.nbytes:
+                raise ValueError(f"a view of {numel} floats exceeds the buffer's {self.nbytes} bytes")
+            data = self.own + _library(PEER_LIB).ring_peer_header_bytes()
+            self._views[numel] = torch.as_tensor(_CudaArray(data, numel), device=self.device)
+        return self._views[numel]
+
+
+def _alloc(nbytes: int) -> int:
+    own = ctypes.c_void_p()
+    _peer_checked("ring_peer_alloc", _library(PEER_LIB).ring_peer_alloc(nbytes, ctypes.byref(own)))
+    return own.value
+
+
+def ranks_on_card(mesh) -> int:
+    """The ranks of ``mesh`` that share this rank's card (``rank_device``
+    puts rank r on card r % count)."""
+    count = max(torch.cuda.device_count(), 1)
+    return len(range(mesh.rank % count, mesh.size, count))
+
+
+def _exchange(mesh, nbytes: int) -> PeerBuffer:
+    """This rank's buffer, made and exported, and its peers' opened (a
+    collective: every rank makes the same calls)."""
+    lib = _library(PEER_LIB)
+    own = _alloc(nbytes)
+    handle = ctypes.create_string_buffer(lib.ring_peer_handle_size())
+    _peer_checked("ring_peer_handle", lib.ring_peer_handle(own, handle))
+    handles = [None] * mesh.size
+    dist.all_gather_object(handles, handle.raw, group=mesh.group)
+    opened, bases = [], []
+    for p, h in enumerate(handles):
+        if p == mesh.rank:
+            bases.append(own)
+            continue
+        peer = ctypes.c_void_p()
+        _peer_checked("ring_peer_open", lib.ring_peer_open(ctypes.create_string_buffer(h, len(h)),
+                                                           ctypes.byref(peer)))
+        opened.append(peer.value)
+        bases.append(peer.value)
+    return PeerBuffer(own, bases, mesh.rank, ranks_on_card(mesh), nbytes, mesh.device, opened)
+
+
+def local_peer_group(n: int, nbytes: int, device="cuda") -> list[PeerBuffer]:
+    """n ranks as n streams of this process on one card: a buffer each,
+    every rank's ``bases`` the same n addresses. Rank r's calls go on its
+    own stream; all n ranks must make the same calls. Free with
+    ``free_local_group``."""
+    owns = [_alloc(nbytes) for _ in range(n)]
+    return [PeerBuffer(own, owns, r, n, nbytes, device) for r, own in enumerate(owns)]
+
+
+def free_local_group(bufs) -> None:
+    torch.cuda.synchronize(bufs[0].device)
+    check_peer_error()
+    for buf in bufs:
+        _peer_checked("ring_peer_free", _library(PEER_LIB).ring_peer_free(buf.own))
 
 
 # (id of the group, kind, bytes, card) -> PeerBuffer
@@ -306,21 +402,29 @@ _peer_buffers: dict = {}
 
 def peer_buffer(mesh, kind: str, nbytes: int) -> PeerBuffer:
     """The rank's buffer for calls of ``kind`` moving ``nbytes`` per rank,
-    made on first use (a collective: every rank makes the same calls)."""
+    made on first use (a collective: every rank makes the same calls). A
+    CUDA graph holds the buffers' addresses, so every buffer a captured
+    step uses must exist before the capture (its eager warm-up step makes
+    them): making one during a capture raises."""
     key = (id(mesh.group), kind, nbytes, mesh.device.index)
     buf = _peer_buffers.get(key)
     if buf is None:
-        buf = _peer_buffers[key] = PeerBuffer(mesh, nbytes)
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"a {kind} call of {nbytes} bytes a rank inside a CUDA graph's capture, with no "
+                               "buffer made for it: its buffer is made by a collective, so run the step once "
+                               "eagerly before the capture")
+        buf = _peer_buffers[key] = _exchange(mesh, nbytes)
     return buf
 
 
 def release_peer_buffers(mesh) -> None:
     """Unmap and free this rank's buffers once every rank is done with
-    them (a collective, at the end of a rank)."""
+    them (a collective, at the end of a rank); raise if a call failed."""
     if not _peer_buffers:
         return
     lib = _library(PEER_LIB)
     torch.cuda.synchronize(mesh.device)
+    check_peer_error()
     dist.barrier(group=mesh.group)  # no rank still reads a peer's buffer
     for buf in _peer_buffers.values():
         for ptr in buf.opened:
@@ -331,6 +435,25 @@ def release_peer_buffers(mesh) -> None:
     _peer_buffers.clear()
 
 
+def _launch_peer(name: str, buf: PeerBuffer, out: torch.Tensor, count: int, src: torch.Tensor | None = None) -> None:
+    """One call of ``name`` on ``buf``: one launch of the peer kernel on the
+    current stream and no host step (the kernel reads its sequence number
+    from the buffer). ``count``: the gather's shard bytes, the
+    reduce-scatter's block floats, the all-reduce's output floats. Counts
+    the launch; raises if CUDA refuses it."""
+    lib = _library(PEER_LIB)
+    head = (buf.bases, buf.n, buf.me, buf.share)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    if name == PEER_GATHER:
+        rc = lib.ring_peer_all_gather(*head, src.data_ptr(), out.data_ptr(), count, stream)
+    elif name == PEER_RS:
+        rc = lib.ring_peer_reduce_scatter(*head, src.data_ptr(), out.data_ptr(), count, stream)
+    else:
+        rc = lib.ring_peer_all_reduce(*head, out.data_ptr(), buf.nbytes // (4 * (buf.n + 1)), count, stream)
+    _peer_checked(name, rc)
+    launches[name] += 1
+
+
 def ring_all_gather_plain(shard: torch.Tensor, mesh) -> torch.Tensor:
     """[S, F] on each rank -> [n*S, F] in rank order (``dist.all_gather``)."""
     parts = [torch.empty_like(shard) for _ in range(mesh.size)]
@@ -338,16 +461,27 @@ def ring_all_gather_plain(shard: torch.Tensor, mesh) -> torch.Tensor:
     return torch.cat(parts)
 
 
+def _rank_order_sum(parts) -> torch.Tensor:
+    total = parts[0].clone()
+    for part in parts[1:]:
+        total += part
+    return total
+
+
 def ring_reduce_scatter_plain(ct: torch.Tensor, mesh) -> torch.Tensor:
     """[n*S, F] on each rank -> this rank's block of their sum, added in
     rank order in f32."""
     parts = [torch.empty_like(ct) for _ in range(mesh.size)]
     dist.all_gather(parts, ct, group=mesh.group)
-    blocks = [p.chunk(mesh.size)[mesh.rank] for p in parts]
-    total = blocks[0].clone()
-    for b in blocks[1:]:
-        total += b
-    return total
+    return _rank_order_sum([p.chunk(mesh.size)[mesh.rank] for p in parts])
+
+
+def ring_all_reduce_plain(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every rank's ``x`` gathered (``dist.all_gather``) and added in rank
+    order: the sum, the same bits on every rank."""
+    parts = [torch.empty_like(x) for _ in range(mesh.size)]
+    dist.all_gather(parts, x.contiguous(), group=mesh.group)
+    return _rank_order_sum(parts)
 
 
 def _check_mesh_table(t: torch.Tensor, what: str, mesh) -> None:
@@ -366,13 +500,7 @@ def ring_all_gather(shard: torch.Tensor, mesh) -> torch.Tensor:
         return ring_all_gather_plain(shard, mesh)
     out = torch.empty((mesh.size * shard.shape[0], shard.shape[1]), dtype=shard.dtype, device=shard.device)
     nbytes = shard.numel() * shard.element_size()
-    buf = peer_buffer(mesh, PEER_GATHER, nbytes)
-    buf.seq += 1
-    stream = torch.cuda.current_stream(shard.device).cuda_stream
-    rc = _library(PEER_LIB).ring_peer_all_gather(buf.bases, mesh.size, mesh.rank, buf.seq, shard.data_ptr(),
-                                                 out.data_ptr(), nbytes, stream)
-    _peer_checked(PEER_GATHER, rc)
-    launches[PEER_GATHER] += 1
+    _launch_peer(PEER_GATHER, peer_buffer(mesh, PEER_GATHER, staged_bytes(nbytes)), out, nbytes, shard)
     return out
 
 
@@ -391,14 +519,63 @@ def ring_reduce_scatter(ct: torch.Tensor, mesh) -> torch.Tensor:
     if ct.device.type == "cpu":
         return ring_reduce_scatter_plain(ct, mesh)
     out = torch.empty((rows // mesh.size, cols), dtype=ct.dtype, device=ct.device)
-    buf = peer_buffer(mesh, PEER_RS, ct.numel() * 4)
-    buf.seq += 1
-    stream = torch.cuda.current_stream(ct.device).cuda_stream
-    rc = _library(PEER_LIB).ring_peer_reduce_scatter(buf.bases, mesh.size, mesh.rank, buf.seq, ct.data_ptr(),
-                                                     out.data_ptr(), out.numel(), stream)
-    _peer_checked(PEER_RS, rc)
-    launches[PEER_RS] += 1
+    _launch_peer(PEER_RS, peer_buffer(mesh, PEER_RS, staged_bytes(ct.numel() * 4)), out, out.numel(), ct)
     return out
+
+
+def staged_bytes(nbytes: int) -> int:
+    """A gather's or reduce-scatter's buffer for ``nbytes`` of input a rank:
+    two slots, which the calls use in turn (``csrc/ring_peer.cu``)."""
+    return 2 * nbytes
+
+
+def all_reduce_bytes(numel: int, n: int) -> int:
+    """An all-reduce buffer's data bytes for ``numel`` floats over n ranks:
+    the input's n blocks of ceil(numel / n) floats, each rounded up to
+    AR_ALIGN (so every block starts 16-byte aligned), then one block for
+    this rank's block of the sum; the padding is zeros at first and never
+    reaches an output."""
+    block = -(-max(numel, 1) // n)
+    return (n + 1) * (-(-block // AR_ALIGN) * AR_ALIGN) * 4
+
+
+def all_reduce_input(numel: int, mesh) -> torch.Tensor:
+    """Where a caller writes the [numel] f32 input of ``ring_all_reduce``:
+    on a CUDA mesh this rank's symmetric buffer itself, so that the call
+    stages nothing (its next call overwrites it); on the CPU a new
+    tensor."""
+    if mesh.device.type == "cuda" and mesh.distributed:
+        return peer_buffer(mesh, PEER_AR, all_reduce_bytes(numel, mesh.size)).view(numel)
+    return torch.empty(numel, dtype=torch.float32, device=mesh.device)
+
+
+def ring_all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum over the ranks of every rank's ``x``, added in rank order
+    (p = 0, 1, ..., n-1) in f32: the same bits on every rank, and the same
+    order on the card as on the CPU. On the card one launch of the peer
+    kernel, two-shot on the symmetric buffers (block ``rank`` of the sum
+    written into this rank's buffer, then the n summed blocks gathered); an
+    ``x`` that is ``all_reduce_input``'s tensor is read in place, any other
+    is first copied there. Not a TPU kernel: it stands where XLA inserts a
+    psum. One rank: ``x`` itself."""
+    if not mesh.distributed:
+        return x
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{PEER_AR} runs on cpu or cuda tensors, not {x.device}")
+    if x.device.type == "cuda" and x.device != mesh.device:
+        raise ValueError(f"{PEER_AR}: a tensor on {x.device}, but this rank runs on {mesh.device}")
+    if x.device.type == "cpu":
+        return ring_all_reduce_plain(x, mesh)
+    if x.dtype != torch.float32:
+        raise ValueError(f"{PEER_AR} adds in float32, got {x.dtype}")
+    numel = x.numel()
+    buf = peer_buffer(mesh, PEER_AR, all_reduce_bytes(numel, mesh.size))
+    inp = buf.view(numel)
+    if inp.data_ptr() != x.data_ptr():
+        inp.copy_(x.reshape(-1))
+    out = torch.empty(numel, dtype=torch.float32, device=x.device)
+    _launch_peer(PEER_AR, buf, out, numel)
+    return out.view(x.shape)
 
 
 class _RingAllGather(torch.autograd.Function):

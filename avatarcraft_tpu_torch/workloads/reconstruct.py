@@ -42,9 +42,10 @@ over the ranks and every replica takes the same Adam step. The fast step
 replicates its table too, as the JAX package does, and gathers it with
 the one-card kernel; the table row-sharded across ranks is
 ``table_mp.TableMPTrainStep``'s. One process is the mesh of one rank
-(``parallel.mesh.one_rank``), over which the same code runs. A graphed
-scan over a mesh raises (a CUDA graph cannot hold gloo's host-staged
-all-reduce; ROADMAP item 25).
+(``parallel.mesh.one_rank``), over which the same code runs. On the card
+the loss psums and the gradient all-reduce are the port's own cross-rank
+kernel on peer memory (``parallel.ring.ring_all_reduce``), which takes no
+host step, so the scan's CUDA graph holds a mesh's step too.
 """
 
 from __future__ import annotations
@@ -396,18 +397,6 @@ def _load_lr(optimizer, lrs: torch.Tensor, host_lrs: list, k: torch.Tensor) -> N
             group["lr"] = host_lrs[int(k)]
 
 
-GRAPHED_MESH_ITEM = "ROADMAP item 25"
-
-
-def refuse_graphed_mesh(mesh, device) -> None:
-    """A mesh of several ranks cannot run the graphed scan on the card: a
-    CUDA graph cannot hold gloo's host-staged all-reduce of the gradients."""
-    if mesh.distributed and torch.device(device).type == "cuda":
-        raise NotImplementedError(
-            f"scan_steps > 0 over a mesh of {mesh.size} ranks on the card: a CUDA graph cannot hold gloo's "
-            f"host-staged all-reduce ({GRAPHED_MESH_ITEM}, a graphed scan over a mesh); use scan_steps 0")
-
-
 def make_train_scan_fast(fcfg: FieldConfig, fast_cfg, optimizer, ray_fn, eikonal_weight: float, bkg_mode: str,
                          white_bkg: bool, splice, ss: int = 1, graph: bool | None = None, mesh=None):
     """Several occupancy-guided train steps per call with the dataset on
@@ -437,10 +426,11 @@ def make_train_scan_fast(fcfg: FieldConfig, fast_cfg, optimizer, ray_fn, eikonal
 
     With a ``mesh`` of ranks each rank takes its columns of the [n, B]
     index blocks and the step is ``make_train_step_fast``'s over the mesh;
-    on the card only ``graph=False`` runs (``refuse_graphed_mesh``)."""
+    on the card its graph holds the loss psums and the gradient
+    all-reduce (``ring.ring_all_reduce``: their buffers are made in the
+    eager first step), and the cross-rank calls' error word is read after
+    each call's replays."""
     mesh = mesh if mesh is not None else one_rank()
-    if graph is not False:
-        refuse_graphed_mesh(mesh, mesh.device)
     composite = bkg_mode.startswith("composite")
     random_bg = bkg_mode == "composite_random"
     bg_value = 1.0 if white_bkg else 0.0
@@ -513,6 +503,8 @@ def make_train_scan_fast(fcfg: FieldConfig, fast_cfg, optimizer, ray_fn, eikonal
             else:
                 optimizer.zero_grad(set_to_none=True)
                 step()
+        if mesh.distributed:
+            ring.check_peer_error()
         return st["losses"][:n].clone()
 
     return scan
@@ -729,12 +721,10 @@ def train_fast(
     rank's): each rank renders its rows of every batch and holds a replica
     of every parameter (the table too) and of Adam's state, as the JAX
     package's train_fast does; rank 0 alone writes the state files.
-    ``scan_steps`` > 0 over a mesh runs only on the CPU
-    (``refuse_graphed_mesh``)."""
+    ``scan_steps`` > 0 over a mesh replays each rank's graph of the step
+    on the card, as in one process."""
     mesh = mesh if mesh is not None else one_rank(device)
     device = mesh.device
-    if scan_steps > 0:
-        refuse_graphed_mesh(mesh, device)
     saved = load_train_state(resume_from, device) if resume_from is not None else None
     if saved is not None:
         params = saved["params"]

@@ -236,21 +236,37 @@ Phases, each printed with its start, end and wall seconds:
               by one ulp);
 25. multirank -- several ranks (processes, gloo) on the one card, time-
               slicing it: K10's cross-rank kernels (csrc/ring_peer.cu,
-              peer_all_gather and peer_reduce_scatter) at 2 and 4 ranks,
-              at the 128^3 x 4 grid table and the hash table (padded to a
-              multiple of the ranks), over MULTIRANK_CALLS back-to-back
-              calls whose inputs change every call, bitwise against their
-              plain versions; their times warm and with the L2 flushed,
-              beside the plain versions and gloo's all_gather_into_tensor
-              and all_reduce on the same tensors. In 2 ranks the dryrun
-              twin's paths (parallel/dryrun.py; the scan over a mesh must
-              refuse on the card), train_fast at batch 1600 (800 a rank)
-              for 3 steps against one process, and in 2 and 4 ranks the
-              table-parallel step on the artifact with the grid rows
+              peer_all_gather and peer_reduce_scatter) and the port's
+              all-reduce (peer_all_reduce, the same file) at 2 and 4
+              ranks, at the 128^3 x 4 grid table and the hash table
+              (padded to a multiple of the ranks; the all-reduce on the
+              unpadded hash table's floats, so its blocks are padded),
+              over MULTIRANK_CALLS back-to-back calls whose inputs change
+              every call, bitwise against their plain versions; then
+              MULTIRANK_GRAPH_CALLS calls of each captured into one CUDA
+              graph and replayed MULTIRANK_REPLAYS times with new inputs,
+              bitwise after every replay; their times warm and with the L2
+              flushed, beside the plain versions and gloo's
+              all_gather_into_tensor and all_reduce on the same tensors
+              (contexts taking turns). In 2 ranks the dryrun twin's paths
+              (parallel/dryrun.py; path 4 holds the graphed sharded scan
+              bitwise against the same steps taken eagerly), train_fast at
+              batch 1600 (800 a rank) for 3 steps against one process,
+              train_fast with --scan_steps 5 for 10 steps graphed, bitwise
+              against the same scan taken eagerly and its losses within
+              dryrun.GRAD_REL of one process's graphed run, steps/s beside
+              3 eager steps with the sums through gloo (a measurement
+              only: the port never takes gloo there), and in 2 and 4 ranks
+              the table-parallel step on the artifact with the grid rows
               sharded across the ranks against one process; the canonical
               CLI at --mesh_devices 2 under both samplers against one
               process. Each rank's launches, per path, equal on every rank,
-              summed here.
+              summed here. Then the three cross-rank kernels timed as n
+              ranks on n streams of this process (one context: the ranks'
+              kernels co-resident), from an event before the first launch
+              to the last rank's end, bitwise their plain versions, beside
+              bound_ms, design_bound_ms and a one-process library
+              yardstick of the same bytes.
 26. legacy -- the legacy models at the reference's widths from their
               inits (no weights): render_canonical_cli --implicit_model
               neus (NeuS 8 x 256, skip at 4, multires 6 and 4, d_feature
@@ -503,6 +519,12 @@ KERNELS = {
         "route": "cuda",
         "source": "avatarcraft_tpu_torch/csrc/ring_peer.cu",
         "replaces": "avatarcraft_tpu/parallel/ring.py:27 (its VJP across devices, ring.py:168-169)",
+    },
+    ring.PEER_AR: {
+        "route": "cuda",
+        "source": "avatarcraft_tpu_torch/csrc/ring_peer.cu",
+        "replaces": "none: the port's own all-reduce, where XLA inserts the gradient psum "
+                    "(avatarcraft_tpu/workloads/reconstruct.py:12-13)",
     },
 }
 
@@ -2548,10 +2570,14 @@ def check_parity_card_vs_cpu(root: str) -> None:
 # -- multirank: K10 across ranks, the dryrun twin, full-width runs over a mesh --
 
 # the table shapes of the cross-rank kernels: the 128^3 x 4 grid table and the
-# hash table padded to a multiple of the rank count (6,119,857 rows is odd)
+# hash table padded to a multiple of the rank count (6,119,857 rows is odd);
+# the all-reduce's vector at each: the table's floats, the hash table's
+# unpadded (no n of 2 or 4 divides 12,239,714, so its blocks carry padding)
 MULTIRANK_SIZES = (2, 4)
 MULTIRANK_CALLS = 200  # back-to-back calls whose shards change every call
+MULTIRANK_GRAPH_CALLS, MULTIRANK_REPLAYS = 3, 4  # calls of each kernel in one CUDA graph, its replays
 MULTIRANK_TRAIN_BATCH, MULTIRANK_TRAIN_STEPS = 1600, 3
+MULTIRANK_SCAN_STEPS, MULTIRANK_SCAN_TOTAL = 5, 10  # train_fast --scan_steps over 2 ranks: 2 calls
 MULTIRANK_TABLE_MP_RES = 32  # 1024 rays of bench camera 0, as check_table_mp
 # a fast train step, 2 ranks against 1 process, 3 steps at full width: the
 # losses; a table-MP step, n ranks against 1: the loss and the table
@@ -2564,6 +2590,8 @@ MULTIRANK_GRAD_REL = 1e-3
 # the canonical CLI over 2 ranks against 1: the PNGs' 8-bit levels
 MULTIRANK_CLI_LEVELS = 1
 MULTIRANK_CLI_RES, MULTIRANK_CLI_ORBIT = 256, 1
+PEER_KERNELS = (ring.PEER_GATHER, ring.PEER_RS, ring.PEER_AR)
+MULTIRANK_STREAM_ITERS = 20
 
 
 def _table_shapes(n: int):
@@ -2571,82 +2599,185 @@ def _table_shapes(n: int):
     return ((GRID_ROWS, GRID_COLS), (hash_rows, HASH_COLS))
 
 
+def _vector_sizes():
+    return (GRID_ROWS * GRID_COLS, HASH_ROWS * HASH_COLS)
+
+
 def _seeded(shape, seed: int) -> torch.Tensor:
     return torch.randn(shape, generator=torch.Generator("cuda").manual_seed(seed), device="cuda")
 
 
+def _peer_bytes(n: int, rows: int, cols: int, numel: int) -> tuple:
+    """(bound, design) bytes of each cross-rank kernel over all n ranks
+    through one HBM. The bound: each input read once, each output written
+    once: the gather reads the n shards and writes n tables ((n + n^2) S F
+    4), the reduce-scatter reads the n cotangents and writes n blocks
+    ((n^2 + n) S F 4), the all-reduce reads n vectors and writes n (2 n N
+    4). The design also stages each input of the gather and the
+    reduce-scatter in its buffer (a read and a write) and reads what the
+    body reads: each rank all n shards (gather), block r of each cotangent
+    (reduce-scatter); the all-reduce reads the n input blocks, writes its
+    sum block and reads the n sum blocks."""
+    S = rows // n
+    block = ring.all_reduce_bytes(numel, n) // (4 * (n + 1))
+    need = {ring.PEER_GATHER: (n + n * n) * S * cols * 4, ring.PEER_RS: (n * n + n) * S * cols * 4,
+            ring.PEER_AR: 2 * n * numel * 4}
+    design = {ring.PEER_GATHER: n * (2 * S + 2 * n * S) * cols * 4,
+              ring.PEER_RS: n * (2 * n * S + n * S + S) * cols * 4,
+              ring.PEER_AR: n * (2 * n * block + block + numel) * 4}
+    return need, design
+
+
+class _Held:
+    """Each kernel's differing elements and largest |kernel - plain|, kept
+    on the card over many calls and read once."""
+
+    def __init__(self):
+        self.differ = {k: torch.zeros((), dtype=torch.int64, device="cuda") for k in PEER_KERNELS}
+        self.err = {k: torch.zeros((), device="cuda") for k in PEER_KERNELS}
+
+    def hold(self, name, got, want) -> None:
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)}, plain {want.dtype} {tuple(want.shape)}")
+        self.differ[name] += (got.view(torch.int32) != want.view(torch.int32)).sum()
+        torch.maximum(self.err[name], (got - want).abs().max(), out=self.err[name])
+
+    def check(self, what: str) -> None:
+        torch.cuda.synchronize()
+        ring.check_peer_error()
+        for name in self.differ:
+            if int(self.differ[name]):
+                raise AssertionError(f"{name} != its plain version: {what}, {int(self.differ[name])} elements "
+                                     f"differ, max |diff| {float(self.err[name])}")
+
+
+def _rank_order_sum(parts) -> torch.Tensor:
+    """The tensors summed in rank order, in f32 (the plain versions' order)."""
+    total = parts[0].clone()
+    for part in parts[1:]:
+        total += part
+    return total
+
+
+def _all_reduce_owned(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The gradients' route: the input written into the all-reduce's own
+    buffer, then the call, which stages nothing."""
+    inp = ring.all_reduce_input(x.numel(), mesh)
+    inp.copy_(x)
+    return ring.ring_all_reduce(inp, mesh)
+
+
+def _peer_inputs(mesh, rows: int, cols: int, numel: int, seed: int) -> tuple:
+    """Rank r's seeded inputs of one call of each cross-rank kernel: its
+    [S, F] shard, its [n S, F] cotangent, its [numel] vector."""
+    n, r = mesh.size, mesh.rank
+    return (_seeded((rows // n, cols), seed + r), _seeded((rows, cols), seed + 32 + r),
+            _seeded((numel,), seed + 48 + r))
+
+
+def _hold_peer(mesh, held: _Held, outs, rows: int, cols: int, numel: int, seed: int) -> None:
+    """The outputs of one call of each cross-rank kernel on ``_peer_inputs``
+    of ``seed``, held against the plain versions computed here from every
+    rank's seeds (a rank can draw its peers' inputs: no collective in the
+    check)."""
+    n, r = mesh.size, mesh.rank
+    held.hold(ring.PEER_GATHER, outs[0], torch.cat([_seeded((rows // n, cols), seed + p) for p in range(n)]))
+    held.hold(ring.PEER_RS, outs[1], _rank_order_sum([_seeded((rows, cols), seed + 32 + p).chunk(n)[r]
+                                                      for p in range(n)]))
+    held.hold(ring.PEER_AR, outs[2], _rank_order_sum([_seeded((numel,), seed + 48 + p) for p in range(n)]))
+
+
+def _peer_graph_checks(mesh, rows: int, cols: int, numel: int) -> dict:
+    """MULTIRANK_GRAPH_CALLS calls of each cross-rank kernel captured into
+    one CUDA graph (their buffers made by the eager calls before), replayed
+    MULTIRANK_REPLAYS times, the static inputs new before every replay and
+    the outputs held bitwise after it. Returns the launches one replay
+    makes."""
+    n, K = mesh.size, MULTIRANK_GRAPH_CALLS
+    S = rows // n
+    ins = [(torch.empty((S, cols), device="cuda"), torch.empty((rows, cols), device="cuda"),
+            torch.empty(numel, device="cuda")) for _ in range(K)]
+    before = dict(ring.launches)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [(ring.ring_all_gather(a, mesh), ring.ring_reduce_scatter(b, mesh), _all_reduce_owned(c, mesh))
+                for a, b, c in ins]
+    per_replay = {name: ring.launches[name] - before[name] for name in before}
+    ring.launches.update(before)  # a capture records its launches and runs none
+    want = {name: (K if name in PEER_KERNELS else 0) for name in before}
+    if per_replay != want:
+        raise AssertionError(f"the graph of {K} calls of each cross-rank kernel records {per_replay}, not {want}")
+    held = _Held()
+    for rep in range(MULTIRANK_REPLAYS):
+        seeds = [((rows * 7 + 100_000 + rep * K + k) * 64) for k in range(K)]
+        for seed, static in zip(seeds, ins):
+            for dst, src in zip(static, _peer_inputs(mesh, rows, cols, numel, seed)):
+                dst.copy_(src)
+        graph.replay()
+        for seed, out in zip(seeds, outs):
+            _hold_peer(mesh, held, out, rows, cols, numel, seed)
+    held.check(f"n={mesh.size} [{rows},{cols}], {MULTIRANK_REPLAYS} replays of a graph of {K} calls each")
+    return per_replay
+
+
 def _peer_kernel_checks(mesh) -> dict:
-    """Both cross-rank kernels over MULTIRANK_CALLS back-to-back calls at
-    both shapes, each call's inputs new, bitwise against their plain
-    versions computed here from every rank's seeded inputs (a rank can draw
-    its peers' shards: no collective in the check): the differing elements
-    and the largest |kernel - plain| are summed and kept on the card over
-    the calls and read once a shape. Then the times."""
+    """The three cross-rank kernels over MULTIRANK_CALLS back-to-back calls
+    at both shapes, each call's inputs new, bitwise against their plain
+    versions (``_hold_peer``): the differing elements and the largest
+    |kernel - plain| are summed and kept on the card over the calls and
+    read once a shape; at the grid table also a CUDA graph of calls
+    replayed (``_peer_graph_checks``). Then the times, the ranks' contexts
+    taking turns on the one card."""
     import torch.distributed as dist
 
     n, r = mesh.size, mesh.rank
     out = {}
-    for rows, cols in _table_shapes(n):
+    for (rows, cols), numel in zip(_table_shapes(n), _vector_sizes()):
         S = rows // n
         t0 = time.perf_counter()
-        differ = {ring.PEER_GATHER: torch.zeros((), dtype=torch.int64, device="cuda"),
-                  ring.PEER_RS: torch.zeros((), dtype=torch.int64, device="cuda")}
-        err = {ring.PEER_GATHER: torch.zeros((), device="cuda"), ring.PEER_RS: torch.zeros((), device="cuda")}
-
-        def hold(name, got, want):
-            if got.shape != want.shape or got.dtype != want.dtype:
-                raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)}, plain {want.dtype} {tuple(want.shape)}")
-            differ[name] += (got.view(torch.int32) != want.view(torch.int32)).sum()
-            torch.maximum(err[name], (got - want).abs().max(), out=err[name])
-
-        for k in range(MULTIRANK_CALLS):
+        held = _Held()
+        for k in range(MULTIRANK_CALLS):  # the all-reduce's input in its buffer on even calls, its own on odd
             seed = (rows * 7 + k) * 64
-            hold(ring.PEER_GATHER, ring.ring_all_gather(_seeded((S, cols), seed + r), mesh),
-                 torch.cat([_seeded((S, cols), seed + p) for p in range(n)]))
-            got = ring.ring_reduce_scatter(_seeded((rows, cols), seed + 32 + r), mesh)
-            blocks = [_seeded((rows, cols), seed + 32 + p).chunk(n)[r] for p in range(n)]
-            want = blocks[0].clone()
-            for b in blocks[1:]:
-                want += b
-            hold(ring.PEER_RS, got, want)
-        for name in differ:
-            if int(differ[name]):
-                raise AssertionError(f"{name} != its plain version: n={n} [{rows},{cols}], {int(differ[name])} "
-                                     f"elements over {MULTIRANK_CALLS} calls differ, max |diff| {float(err[name])}")
+            shard, ct, x = _peer_inputs(mesh, rows, cols, numel, seed)
+            outs = (ring.ring_all_gather(shard, mesh), ring.ring_reduce_scatter(ct, mesh),
+                    _all_reduce_owned(x, mesh) if k % 2 == 0 else ring.ring_all_reduce(x, mesh))
+            _hold_peer(mesh, held, outs, rows, cols, numel, seed)
+        held.check(f"n={n} [{rows},{cols}], {MULTIRANK_CALLS} calls")
+        if rows == GRID_ROWS:
+            _peer_graph_checks(mesh, rows, cols, numel)
         checked_s = time.perf_counter() - t0
-        shard, ct = _seeded((S, cols), 11 + r), _seeded((rows, cols), 13 + r)
+        shard, ct, x = _seeded((S, cols), 11 + r), _seeded((rows, cols), 13 + r), _seeded((numel,), 17 + r)
         gathered = torch.empty((rows, cols), device="cuda")
-        reduced = ct.clone()
-        gather = lambda: ring.ring_all_gather(shard, mesh)  # noqa: E731
-        scatter = lambda: ring.ring_reduce_scatter(ct, mesh)  # noqa: E731
-        library_gather = lambda: dist.all_gather_into_tensor(gathered, shard, group=mesh.group)  # noqa: E731
-        library_reduce = lambda: dist.all_reduce(reduced, group=mesh.group)  # noqa: E731
-        # the bytes each function needs, over all n ranks through the one HBM:
-        # the gather reads the n shards and writes them (n 2nS F 4); the
-        # reduce-scatter reads rank r's block of each of the n cotangents and
-        # writes one block (n (nS + S) F 4). The design also stages each input
-        # in its IPC buffer (a read and a write): design_bytes
-        need = {ring.PEER_GATHER: n * 2 * n * S * cols * 4, ring.PEER_RS: n * (n * S + S) * cols * 4}
-        design = {ring.PEER_GATHER: n * (2 * S + 2 * n * S) * cols * 4,
-                  ring.PEER_RS: n * (2 * n * S + n * S + S) * cols * 4}
+        reduced, summed = ct.clone(), x.clone()
+        inp = ring.all_reduce_input(numel, mesh)
+        inp.copy_(x)  # the first call's input; later calls sum what the calls left (timing only)
+        fns = {
+            ring.PEER_GATHER: (lambda: ring.ring_all_gather(shard, mesh), lambda: ring.ring_all_gather_plain(shard, mesh),
+                               lambda: dist.all_gather_into_tensor(gathered, shard, group=mesh.group)),
+            ring.PEER_RS: (lambda: ring.ring_reduce_scatter(ct, mesh), lambda: ring.ring_reduce_scatter_plain(ct, mesh),
+                           lambda: dist.all_reduce(reduced, group=mesh.group)),
+            ring.PEER_AR: (lambda: ring.ring_all_reduce(inp, mesh), lambda: ring.ring_all_reduce_plain(x, mesh),
+                           lambda: dist.all_reduce(summed, group=mesh.group)),
+        }
+        need, design = _peer_bytes(n, rows, cols, numel)
         t = {}
-        for name, fn, plain, library in (
-                (ring.PEER_GATHER, gather, lambda: ring.ring_all_gather_plain(shard, mesh), library_gather),
-                (ring.PEER_RS, scatter, lambda: ring.ring_reduce_scatter_plain(ct, mesh), library_reduce)):
+        for name, (fn, plain, library) in fns.items():
             t[name] = {
-                "max_abs_err": float(err[name]),
-                "kernel_ms": cuda_ms(fn, iters=20, warmup=2),
-                "kernel_cold_ms": cuda_ms_cold(fn, iters=10, warmup=1),
-                "plain_ms": cuda_ms(plain, iters=5, warmup=1),
-                "library_ms": cuda_ms(library, iters=5, warmup=1),
+                "max_abs_err": float(held.err[name]),
+                "kernel_ms": cuda_ms(fn, iters=10, warmup=2),
+                "kernel_cold_ms": cuda_ms_cold(fn, iters=5, warmup=1),
+                "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+                "library_ms": cuda_ms(library, iters=3, warmup=1),
                 "bound_ms": need[name] / HBM_BYTES_PER_S * 1e3,
                 "design_bound_ms": design[name] / HBM_BYTES_PER_S * 1e3,
             }
+        ring.check_peer_error()
         out[f"{rows}x{cols}"] = t
         if r == 0:
-            print(f"multirank n={n} [{rows},{cols}]: both kernels bitwise over {MULTIRANK_CALLS} calls "
-                  f"({checked_s:.1f} s), timed in {time.perf_counter() - t0 - checked_s:.1f} s; "
-                  + json.dumps(t), flush=True)
+            print(f"multirank n={n} [{rows},{cols}] (all-reduce of {numel} floats): the three kernels bitwise over "
+                  f"{MULTIRANK_CALLS} calls" + (f" and {MULTIRANK_REPLAYS} replays of a graph of "
+                                                f"{MULTIRANK_GRAPH_CALLS} calls each" if rows == GRID_ROWS else "")
+                  + f" ({checked_s:.1f} s), timed in {time.perf_counter() - t0 - checked_s:.1f} s", flush=True)
     return out
 
 
@@ -2657,6 +2788,62 @@ def _train_losses(ds, fcfg, fast_cfg, mesh=None) -> tuple:
     _, _, stats = reconstruct.train_fast(ds, fcfg, fast_cfg, cfg, max_steps=MULTIRANK_TRAIN_STEPS, log_every=1,
                                          grid_update_every=0, device="cuda", mesh=mesh)
     return [loss for _, loss in stats["losses"]], stats["steps_per_sec"]
+
+
+def _scan_run(ds, fcfg, fast_cfg, mesh=None, graph: bool = True) -> tuple:
+    """train_fast with --scan_steps MULTIRANK_SCAN_STEPS for
+    MULTIRANK_SCAN_TOTAL steps at batch 1600: (the calls' logged losses,
+    the final tree, steps/s timed from the end of the first call). With
+    ``graph`` False the same capturable step is taken eagerly
+    (``reconstruct.graphed`` answers False for the run)."""
+    cfg = reconstruct.ReconstructConfig(batch_size=MULTIRANK_TRAIN_BATCH)
+    graphed = reconstruct.graphed
+    if not graph:
+        reconstruct.graphed = lambda device: False
+    try:
+        params, _, stats = reconstruct.train_fast(
+            ds, fcfg, fast_cfg, cfg, max_steps=MULTIRANK_SCAN_TOTAL, scan_steps=MULTIRANK_SCAN_STEPS, log_every=1,
+            grid_update_every=0, device="cuda", mesh=mesh)
+    finally:
+        reconstruct.graphed = graphed
+    return [loss for _, loss in stats["losses"]], params, stats["steps_per_sec"]
+
+
+def _gloo_all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
+    """gloo's host-staged all-reduce, the mesh's sums before the port's
+    kernel: a yardstick of the eager step, never the port's path."""
+    import torch.distributed as dist
+
+    out = x.detach().clone()
+    dist.all_reduce(out, group=mesh.group)
+    return out
+
+
+def _scan_over_ranks(mesh, ds, fcfg, fast_cfg, counts: dict, seconds: dict) -> dict:
+    """The graphed scan over the mesh and its eager twin (bitwise), each
+    counted as a path, then 3 eager steps with the sums through gloo (not
+    counted): losses and steps/s."""
+    t0 = time.perf_counter()
+    _reset_launches()
+    losses, params, rate = _scan_run(ds, fcfg, fast_cfg, mesh)
+    counts["train_fast_scan"] = dict(ring.launches)
+    _reset_launches()
+    e_losses, e_params, e_rate = _scan_run(ds, fcfg, fast_cfg, mesh, graph=False)
+    counts["train_fast_scan_eager"] = dict(ring.launches)
+    same = losses == e_losses and all(torch.equal(a, b) for a, b in zip(leaves(params), leaves(e_params)))
+    if not same:
+        raise AssertionError(f"the graphed scan over {mesh.size} ranks differs from the same steps taken eagerly: "
+                             f"losses {losses} against {e_losses}")
+    del params, e_params
+    seconds["train_fast_scan"], t0 = time.perf_counter() - t0, time.perf_counter()
+    kernel_sum = ring.ring_all_reduce
+    ring.ring_all_reduce = _gloo_all_reduce
+    try:
+        gloo_losses, gloo_rate = _train_losses(ds, fcfg, fast_cfg, mesh)
+    finally:
+        ring.ring_all_reduce = kernel_sum
+    seconds["train_fast_gloo"] = time.perf_counter() - t0
+    return {"losses": losses, "rate": rate, "eager_rate": e_rate, "gloo_losses": gloo_losses, "gloo_rate": gloo_rate}
 
 
 def _table_mp_run(mesh):
@@ -2685,17 +2872,21 @@ def _multirank_rank(mesh, ds, fcfg, fast_cfg, with_dryrun: bool) -> dict:
     if with_dryrun:
         t0 = time.perf_counter()
         dry = dryrun.run_paths(mesh, dryrun.default_inputs(mesh.size))
+        if not dry["results"]["scan"]["graphed"]:
+            raise AssertionError("the dryrun's scan path did not run its CUDA graph on the card")
         counts.update({f"dryrun.{p}": c for p, c in dry["launches"].items()})
         seconds["dryrun"], t0 = time.perf_counter() - t0, time.perf_counter()
         _reset_launches()
         out["train_losses"] = _train_losses(ds, fcfg, fast_cfg, mesh)
         counts["train_fast"] = dict(ring.launches)
         seconds["train_fast"] = time.perf_counter() - t0
+        out["scan"] = _scan_over_ranks(mesh, ds, fcfg, fast_cfg, counts, seconds)
     t0 = time.perf_counter()
     _reset_launches()
     out["table_mp"] = _table_mp_run(mesh)
     counts["table_mp"] = dict(ring.launches)
     seconds["table_mp"] = time.perf_counter() - t0
+    ring.check_peer_error()
     seconds["left"] = time.time()
     out["launches"], out["seconds"] = counts, seconds
     return out
@@ -2717,12 +2908,82 @@ def _cli_frames(sampler: str, n: int, out_dir: str) -> dict:
     return {"seconds": seconds, "frames": [read_png(os.path.join(exp, f)) for f in pngs]}
 
 
+def _streams_call(name: str, bufs, outs, ins, count: int, streams) -> None:
+    """One call of ``name`` by the n ranks of a local group, rank r's on
+    ``streams[r]``, all after the current stream's work and joined back
+    into it."""
+    start = torch.cuda.current_stream()
+    for buf, out, inp, stream in zip(bufs, outs, ins, streams):
+        stream.wait_stream(start)
+        with torch.cuda.stream(stream):
+            ring._launch_peer(name, buf, out, count, inp)
+    for stream in streams:
+        start.wait_stream(stream)
+
+
+def _streams_times() -> dict:
+    """Each cross-rank kernel with n ranks as n streams of this process
+    (one context: the ranks' blocks co-resident; ``ring.local_peer_group``)
+    at both shapes: one call held bitwise against its plain version, then
+    CUDA events around MULTIRANK_STREAM_ITERS calls, each from the event
+    before the first rank's launch to the last rank's end, beside bound_ms,
+    design_bound_ms and a one-process library yardstick of the same bytes:
+    torch.cat of the n shards n times (every rank's table), torch.stack of
+    the n cotangents summed (every rank's block), torch.stack of the n
+    vectors summed. {n: {shape: {kernel: record}}}."""
+    out = {}
+    for n in MULTIRANK_SIZES:
+        streams = [torch.cuda.Stream() for _ in range(n)]
+        out[n] = {}
+        for (rows, cols), numel in zip(_table_shapes(n), _vector_sizes()):
+            S = rows // n
+            need, design = _peer_bytes(n, rows, cols, numel)
+            shards = [_seeded((S, cols), 300 + p) for p in range(n)]
+            cts = [_seeded((rows, cols), 400 + p) for p in range(n)]
+            xs = [_seeded((numel,), 500 + p) for p in range(n)]
+            cases = {
+                ring.PEER_GATHER: (ring.staged_bytes(S * cols * 4), shards, (rows, cols), S * cols * 4,
+                                   [torch.cat(shards)] * n, lambda: [torch.cat(shards) for _ in range(n)]),
+                ring.PEER_RS: (ring.staged_bytes(rows * cols * 4), cts, (S, cols), S * cols,
+                               [_rank_order_sum([ct.chunk(n)[r] for ct in cts]) for r in range(n)],
+                               lambda: torch.stack(cts).sum(0)),
+                ring.PEER_AR: (ring.all_reduce_bytes(numel, n), [None] * n, (numel,), numel,
+                               [_rank_order_sum(xs)] * n, lambda: torch.stack(xs).sum(0)),
+            }
+            rec = {}
+            for name, (nbytes, ins, out_shape, count, plain, library) in cases.items():
+                bufs = ring.local_peer_group(n, nbytes)
+                outs = [torch.empty(out_shape, device="cuda") for _ in range(n)]
+                if name == ring.PEER_AR:
+                    for buf, x in zip(bufs, xs):
+                        buf.view(numel).copy_(x)
+                call = lambda: _streams_call(name, bufs, outs, ins, count, streams)  # noqa: E731
+                call()
+                torch.cuda.synchronize()
+                ring.check_peer_error()
+                for r, (got, want) in enumerate(zip(outs, plain)):
+                    if not _same_bits(got, want):
+                        raise AssertionError(f"{name} as {n} streams, rank {r}: not bitwise its plain version, max "
+                                             f"|diff| {float((got - want).abs().max())}")
+                rec[name] = {"kernel_ms": cuda_ms(call, iters=MULTIRANK_STREAM_ITERS, warmup=2),
+                             "bound_ms": need[name] / HBM_BYTES_PER_S * 1e3,
+                             "design_bound_ms": design[name] / HBM_BYTES_PER_S * 1e3,
+                             "library_ms": cuda_ms(library, iters=MULTIRANK_STREAM_ITERS, warmup=2)}
+                rec[name]["share_of_bound"] = rec[name]["bound_ms"] / rec[name]["kernel_ms"]
+                ring.free_local_group(bufs)
+            out[n][f"{rows}x{cols}"] = rec
+            del shards, cts, xs
+    return out
+
+
 def check_multirank() -> tuple:
-    """K10 across ranks on the one card (2 and 4 ranks, time-sliced), the
-    dryrun twin's 8 paths over 2 ranks, the canonical CLI at --mesh_devices
-    2 under both samplers, the fast trainer at batch 1600 over 2 ranks and
-    the table-parallel step row-sharded 2 and 4 ways, each against one
-    process. Returns (the kernels' records, the path's launches)."""
+    """K10 across ranks and the port's all-reduce on the one card (2 and 4
+    ranks, time-sliced; then as streams of this process), the dryrun
+    twin's 8 paths over 2 ranks, the canonical CLI at --mesh_devices 2
+    under both samplers, the fast trainer at batch 1600 over 2 ranks per
+    step and as a graphed scan, and the table-parallel step row-sharded 2
+    and 4 ways, each against one process. Returns (the kernels' records,
+    the path's launches)."""
     ds, fcfg, normal_mode = profile_train.artifact_image_set("cuda")
     fast_cfg = FastRenderConfig(normal_mode=normal_mode)
     runs = {}
@@ -2734,15 +2995,16 @@ def check_multirank() -> tuple:
         parts = ", ".join(f"{k} {v:.1f} s" for k, v in sec.items())
         print(f"multirank: the {n}-rank launch took {t1 - t0:.1f} s: rank 0 entered its function after "
               f"{entered - t0:.1f} s ({parts}); {t1 - left:.1f} s from its return to the launch's end", flush=True)
-    # the kernels: bitwise in every call (raised inside otherwise); times of rank 0
+    # the kernels: bitwise in every call and replay (raised inside otherwise); times of rank 0
     for n, ranks in runs.items():
         for shape, t in ranks[0]["kernels"].items():
-            print(f"multirank n={n} [{shape}] f32 ({card_line()}, {n} ranks time-slicing one card): "
-                  + json.dumps(t), flush=True)
-    print(f"multirank: both cross-rank kernels bitwise equal to their plain versions over "
-          f"{MULTIRANK_CALLS} changing calls at n = {list(MULTIRANK_SIZES)}, both shapes", flush=True)
+            print(f"multirank n={n} [{shape}] f32 ({card_line()}, {n} processes: contexts taking turns on one "
+                  "card): " + json.dumps(t), flush=True)
+    print(f"multirank: the three cross-rank kernels bitwise equal to their plain versions over {MULTIRANK_CALLS} "
+          f"changing calls at n = {list(MULTIRANK_SIZES)}, both shapes, and over {MULTIRANK_REPLAYS} replays of a "
+          "CUDA graph", flush=True)
 
-    # the dryrun's paths ran inside (each check raises); path 4 refused, as it must
+    # the dryrun's paths ran inside (each check raises; path 4 graphed)
     two = runs[2]
     # every rank made the same calls; the sums are the path's launches
     total = {name: 0 for name in ring.launches}
@@ -2756,16 +3018,18 @@ def check_multirank() -> tuple:
                     total[name] += c
     for n, ranks in runs.items():
         per_rank = ranks[0]["launches"]["table_mp"]
-        if per_rank[ring.PEER_GATHER] != 1 or per_rank[ring.PEER_RS] != 1:
-            raise AssertionError(f"table_mp n={n}: a step makes 1 gather and 1 reduce-scatter a rank, counted "
-                                 f"{per_rank}")
-    # train_fast replicates its parameters over the mesh: the one-card kernels
-    steps = two[0]["launches"]["train_fast"]
-    want = {ring.KERNEL: MULTIRANK_TRAIN_STEPS + 1, ring.RS_KERNEL: MULTIRANK_TRAIN_STEPS, ring.PEER_GATHER: 0,
-            ring.PEER_RS: 0}
-    if steps != want:
-        raise AssertionError(f"train_fast over 2 ranks: {MULTIRANK_TRAIN_STEPS} steps and the final tree make "
-                             f"{want} a rank, counted {steps}")
+        if (per_rank[ring.PEER_GATHER], per_rank[ring.PEER_RS], per_rank[ring.PEER_AR]) != (1, 1, 4):
+            raise AssertionError(f"table_mp n={n}: a step makes 1 gather, 1 reduce-scatter and 4 all-reduces (3 "
+                                 f"loss sums, the gradients) a rank, counted {per_rank}")
+    # train_fast replicates its parameters over the mesh: the one-card table
+    # kernels, and 4 all-reduces a step (3 loss sums, the gradients)
+    for path, steps in (("train_fast", MULTIRANK_TRAIN_STEPS), ("train_fast_scan", MULTIRANK_SCAN_TOTAL),
+                        ("train_fast_scan_eager", MULTIRANK_SCAN_TOTAL)):
+        want = {ring.KERNEL: steps + 1, ring.RS_KERNEL: steps, ring.PEER_GATHER: 0, ring.PEER_RS: 0,
+                ring.PEER_AR: 4 * steps}
+        if two[0]["launches"][path] != want:
+            raise AssertionError(f"{path} over 2 ranks: {steps} steps and the final tree make {want} a rank, "
+                                 f"counted {two[0]['launches'][path]}")
 
     # the fast trainer at full width: 2 ranks against one process
     t0 = time.perf_counter()
@@ -2777,6 +3041,18 @@ def check_multirank() -> tuple:
           f"{rate1:.3f} in one process", flush=True)
     if len(losses2) != MULTIRANK_TRAIN_STEPS or not rel <= MULTIRANK_LOSS_RTOL:
         raise AssertionError("train_fast over 2 ranks differs from one process")
+    # the graphed scan: 2 ranks (bitwise their eager twin, held inside) against one process
+    scan = two[0]["scan"]
+    s_losses1, _, s_rate1 = _scan_run(ds, fcfg, fast_cfg)
+    s_rel = max(abs(a - b) / abs(b) for a, b in zip(scan["losses"], s_losses1))
+    print(f"train_fast --scan_steps {MULTIRANK_SCAN_STEPS}, {MULTIRANK_SCAN_TOTAL} steps at batch "
+          f"{MULTIRANK_TRAIN_BATCH} ({card_line()}): 2 ranks graphed {scan['losses']} == the eager scan's bitwise, "
+          f"one process {s_losses1}, max relative {s_rel:.3g} (bound {dryrun.GRAD_REL}); steps/s over 2 ranks "
+          f"sharing the card: graphed {scan['rate']:.3f}, the scan eager {scan['eager_rate']:.3f}, per step with "
+          f"the kernels {rate2:.3f}, per step with gloo's sums {scan['gloo_rate']:.3f} (losses "
+          f"{scan['gloo_losses']}); one process graphed {s_rate1:.3f}", flush=True)
+    if len(scan["losses"]) != len(s_losses1) or not s_rel <= dryrun.GRAD_REL:
+        raise AssertionError("the graphed scan over 2 ranks differs from one process")
 
     # table-MP at full width: n ranks against one process
     loss1, grad1 = _table_mp_run(mesh_lib.one_rank("cuda"))
@@ -2789,7 +3065,7 @@ def check_multirank() -> tuple:
         if not (lrel <= MULTIRANK_LOSS_RTOL and grel <= MULTIRANK_GRAD_REL):
             raise AssertionError(f"table_mp over {n} ranks differs from one process")
 
-    print(f"multirank: the one-process train_fast and table-MP runs took {time.perf_counter() - t0:.1f} s",
+    print(f"multirank: the one-process train_fast, scan and table-MP runs took {time.perf_counter() - t0:.1f} s",
           flush=True)
 
     # the canonical CLI over 2 ranks against one process, both samplers; the
@@ -2814,14 +3090,31 @@ def check_multirank() -> tuple:
             raise AssertionError(f"the {sampler} frames over 2 ranks differ from one process's")
     print(f"multirank: the CLI runs took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # the kernels line: the times at n = 2 on the grid table; the largest
-    # |kernel - plain| over every call, shape, rank and rank count
+    # the three kernels as n ranks on n streams of this process
+    t0 = time.perf_counter()
+    streams = _streams_times()
+    for n, shapes in streams.items():
+        for shape, rec in shapes.items():
+            print(f"multirank as streams n={n} [{shape}] f32 ({card_line()}, {n} ranks on {n} streams of one "
+                  "process, bitwise their plain versions): " + json.dumps(rec), flush=True)
+    print(f"multirank: the streams timings took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the kernels line: the ranks-as-streams times at n = 2 on the grid table
+    # (ms, its bound and library yardstick), the turns of n = 2 processes
+    # (plain_ms, the multi-process record), the largest |kernel - plain| over
+    # every call, shape, rank and rank count
+    grid = f"{GRID_ROWS}x{GRID_COLS}"
     kernels = {}
-    for key in (ring.PEER_GATHER, ring.PEER_RS):
-        t = dict(two[0]["kernels"][f"{GRID_ROWS}x{GRID_COLS}"][key])
-        t["max_abs_err"] = max(rank["kernels"][shape][key]["max_abs_err"]
-                               for ranks in runs.values() for rank in ranks for shape in rank["kernels"])
-        kernels[key] = t
+    for key in PEER_KERNELS:
+        turns = two[0]["kernels"][grid][key]
+        kernels[key] = {
+            **streams[2][grid][key],
+            "plain_ms": turns["plain_ms"],
+            "max_abs_err": max(rank["kernels"][shape][key]["max_abs_err"]
+                               for ranks in runs.values() for rank in ranks for shape in rank["kernels"]),
+            "streams": {f"n={n} [{shape}]": rec[key] for n, shapes in streams.items() for shape, rec in shapes.items()},
+            "turns": {f"n={n} [{shape}]": t[key] for n, ranks in runs.items() for shape, t in ranks[0]["kernels"].items()},
+        }
     return kernels, total
 
 

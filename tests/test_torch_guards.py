@@ -244,13 +244,14 @@ def test_wrapper_takes_plain_version_only_on_cpu(wrapper, plain):
 
 @pytest.mark.parametrize("wrapper,plain,arg", [
     (ring.ring_all_gather, "ring_all_gather_plain", "shard"), (ring.ring_reduce_scatter, "ring_reduce_scatter_plain", "ct"),
+    (ring.ring_all_reduce, "ring_all_reduce_plain", "x"),
 ])
 def test_cross_rank_wrappers_take_plain_version_only_on_cpu(wrapper, plain, arg):
     """The cross-rank wrappers, by inspection of the dispatch: past the
     one-rank branch (the one-card kernels) and the checks, the plain
     version is called once, as the body of the ``device.type == "cpu"``
-    branch; a CUDA tensor goes on to the peer kernel's launch. A tensor on
-    another device is refused."""
+    branch; a CUDA tensor goes on to the peer kernel's launch, which counts
+    it. A tensor on another device is refused."""
     import inspect
 
     from avatarcraft_tpu_torch.parallel.mesh import Mesh
@@ -260,9 +261,11 @@ def test_cross_rank_wrappers_take_plain_version_only_on_cpu(wrapper, plain, arg)
     assert len(calls) == 1
     assert lines[calls[0] - 1] == f'if {arg}.device.type == "cpu":'
     assert lines[calls[0]].startswith("return ")
-    assert any("ring_peer_" in ln for ln in lines[calls[0] + 1 :])
-    assert any(f"launches[{'PEER_GATHER' if 'gather' in plain else 'PEER_RS'}] += 1" in ln
-               for ln in lines[calls[0] + 1 :])
+    name = {"ring_all_gather_plain": "PEER_GATHER", "ring_reduce_scatter_plain": "PEER_RS",
+            "ring_all_reduce_plain": "PEER_AR"}[plain]
+    assert any(f"_launch_peer({name}," in ln for ln in lines[calls[0] + 1 :])
+    launcher = inspect.getsource(ring._launch_peer)
+    assert "ring_peer_" in launcher and "launches[name] += 1" in launcher
     mesh = Mesh(2, 0, torch.device("cpu"), None)
     with pytest.raises(ValueError, match="cpu or cuda"):
         wrapper(torch.zeros(4, 2, device="meta"), mesh)
@@ -278,22 +281,80 @@ def test_cross_rank_kernel_source_names_what_it_replaces():
     assert "arch=compute_90a,code=sm_90a" in cuda_build.nvcc_command(ring.PEER_LIB, "/x/lib.so")
 
 
-def test_mesh_on_the_card_refuses_the_graphed_scan():
-    """A mesh of several ranks on the card refuses scan_steps > 0 (a CUDA
-    graph cannot hold gloo's host-staged all-reduce) and names its ROADMAP
-    item, before any work: in train_fast and in make_train_scan_fast."""
+def test_cross_rank_calls_take_no_host_sequence_number_and_no_sync():
+    """Each cross-rank call of csrc/ring_peer.cu is one launch of its
+    kernel, and no function of its C interface synchronises: a CUDA graph
+    can hold a call. The sequence number lives in the buffer on the card:
+    neither the C calls nor ring.py's wrappers pass one."""
+    import inspect
+
+    with open(cuda_build.source_path(ring.PEER_LIB)) as fp:
+        src = fp.read()
+    assert "cudaStreamSynchronize" not in src and src.count("<<<") == 1
+    extern = src[src.index('extern "C" {'):]
+    for fn in ("ring_peer_all_gather", "ring_peer_reduce_scatter", "ring_peer_all_reduce"):
+        signature = re.search(rf"int {fn}\(([^)]*)\)", extern).group(1)
+        assert "seq" not in signature and "unsigned long long" not in signature, fn
+        body = extern[extern.index(f"int {fn}("):]
+        body = body[: body.index("\n}\n")]
+        assert body.count("launch(") == 1 and "Synchronize" not in body, fn
+    assert "unsigned long long calls" in src and "h->calls" not in src  # the count: the buffer's header
+    module = inspect.getsource(ring)
+    assert "c_ulonglong" not in module and ".seq" not in module and not hasattr(ring.PeerBuffer, "seq")
+
+
+def test_card_mesh_sums_through_the_peer_kernel_never_gloo(monkeypatch):
+    """On a CUDA mesh, psum and all_reduce_grads go to ring_all_reduce (the
+    peer kernel's wrapper), the gradients written into the all-reduce's
+    buffer, and never to gloo's dist.all_reduce: both patched, the calls
+    recorded."""
+    import torch.distributed as dist
+
+    from avatarcraft_tpu_torch.parallel import mesh as mesh_lib
+
+    card_mesh = mesh_lib.Mesh(2, 0, torch.device("cuda", 0), None)
+    summed, made = [], []
+
+    def gloo(*args, **kwargs):
+        raise AssertionError("dist.all_reduce called on a CUDA mesh")
+
+    def peer(x, mesh):  # two ranks with equal inputs
+        assert mesh is card_mesh
+        summed.append(x.numel())
+        return x * 2
+
+    class Buffer:
+        def view(self, numel):
+            return torch.full((numel,), float("nan"))
+
+    monkeypatch.setattr(dist, "all_reduce", gloo)
+    monkeypatch.setattr(ring, "ring_all_reduce", peer)
+    monkeypatch.setattr(ring, "check_peer_error", lambda: None)
+    monkeypatch.setattr(ring, "peer_buffer", lambda mesh, kind, nbytes: made.append((kind, nbytes)) or Buffer())
+    x = torch.tensor(3.0, requires_grad=True)
+    y = mesh_lib.psum(x, card_mesh)
+    y.backward()
+    assert float(y.detach()) == 6.0 and float(x.grad) == 1.0
+    params = [torch.nn.Parameter(torch.ones(3)), torch.nn.Parameter(torch.ones(2, 2))]
+    params[0].grad = torch.arange(3.0)
+    mesh_lib.all_reduce_grads(params, card_mesh)
+    assert summed == [1, 7] and made == [(ring.PEER_AR, ring.all_reduce_bytes(7, 2))]
+    assert torch.equal(params[0].grad, 2 * torch.arange(3.0)) and torch.equal(params[1].grad, torch.zeros(2, 2))
+    with pytest.raises(ValueError, match="float32"):
+        mesh_lib.all_reduce_grads([torch.nn.Parameter(torch.ones(3, dtype=torch.float64))], card_mesh)
+
+
+def test_mesh_on_the_card_takes_the_graphed_scan():
+    """A mesh of several ranks on the card no longer refuses the graphed
+    scan: make_train_scan_fast builds its scan, which captures its step on
+    that device (``reconstruct.graphed``); the refusal is gone."""
     from avatarcraft_tpu_torch.parallel.mesh import Mesh
     from avatarcraft_tpu_torch.workloads import reconstruct
 
     card_mesh = Mesh(2, 0, torch.device("cuda", 0), None)
-    with pytest.raises(NotImplementedError, match=reconstruct.GRAPHED_MESH_ITEM):
-        reconstruct.train_fast(None, None, None, reconstruct.ReconstructConfig(), scan_steps=2, mesh=card_mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 25"):
-        reconstruct.make_train_scan_fast(None, None, None, None, 0.1, "raw", True, None, mesh=card_mesh)
-    # graph=False is the eager step, which a mesh runs; one rank is no mesh
-    reconstruct.make_train_scan_fast(None, None, None, None, 0.1, "raw", True, None, graph=False, mesh=card_mesh)
-    reconstruct.refuse_graphed_mesh(Mesh(1, 0, torch.device("cuda", 0), None), "cuda")
-    reconstruct.refuse_graphed_mesh(Mesh(2, 0, torch.device("cpu"), None), "cpu")
+    assert not hasattr(reconstruct, "refuse_graphed_mesh") and not hasattr(reconstruct, "GRAPHED_MESH_ITEM")
+    assert callable(reconstruct.make_train_scan_fast(None, None, None, None, 0.1, "raw", True, None, mesh=card_mesh))
+    assert reconstruct.graphed(card_mesh.device)
 
 
 def test_build_dir_is_ignored_by_git():

@@ -5,8 +5,10 @@ the canonical CLI's --mesh_devices, on the CPU against the JAX package.
 The port's ranks are processes (gloo, one torch thread each), spawned once
 per fixture: 4 ranks for the mesh and the ring, 2 ranks for the trainers.
 The JAX side runs on 4 (or 2) of the conftest's 8 CPU devices. On the CPU the
-cross-rank wrappers take their plain versions (gloo's all_gather); the CUDA
-kernels are held against those on the card by chip_smoke.py.
+cross-rank wrappers take their plain versions (gloo's all_gather, then the
+port's sums in rank order, so that psum and the gradient all-reduce add as
+the card's kernel does); the CUDA kernels are held against those on the
+card by chip_smoke.py.
 
 Tolerances:
 * the shardings, the replicas and the gather: exact;
@@ -14,6 +16,11 @@ Tolerances:
   cotangents (the port adds the ranks' blocks in rank order, XLA's
   all-reduce in an order of its own), bitwise on small integers, which f32
   adds exactly in any order;
+* the all-reduce against JAX's psum: bitwise at 2 ranks (one add, the same
+  in either order), 1e-6 relative at 4 on inputs in [0, 1) (no
+  cancellation, so another order moves a sum by a few ulp); bitwise
+  against the rank-order sum, and psum, all_reduce_grads and the plain
+  reduce-scatter then gather bitwise equal on every rank;
 * table parallelism: loss 1e-5 relative, leaves 3e-5 under SGD(0.5), the
   pins tests/test_table_mp.py holds JAX's sharded step to;
 * the trainers over 2 ranks against one process: losses 1e-5 relative and
@@ -71,6 +78,7 @@ def inputs():
         "table": (np.arange(N4 * S * F, dtype=np.float32).reshape(N4 * S, F) / 100.0),
         "cts": rng.normal(size=(N4, N4 * S, F)).astype(np.float32),
         "int_cts": rng.integers(-50, 50, size=(N4, N4 * S, F)).astype(np.float32),
+        "sums": rng.random((N4, 24 * 5)).astype(np.float32),
     }
 
 
@@ -85,7 +93,7 @@ def four_ranks(inputs, table_mp_jax):
     _, _, fcfg = _small_field()
     return mesh_lib.launch(torch_mesh_ranks.four_ranks, N4, inputs["batch"], inputs["table"], inputs["cts"],
                            inputs["int_cts"], params_from_jax(table_mp_jax, "cpu"), fcfg, _port_rcfg(),
-                           tuple(np.asarray(a) for a in _rays(32)), device="cpu", timeout_s=300)
+                           tuple(np.asarray(a) for a in _rays(32)), inputs["sums"], device="cpu", timeout_s=300)
 
 
 def _disc_set(n_views=2, res=8):
@@ -111,11 +119,11 @@ FCFGS = {
 
 
 @pytest.fixture(scope="module")
-def two_ranks(table_mp_jax):
+def two_ranks(table_mp_jax, inputs):
     _, _, fcfg = _small_field()
     return mesh_lib.launch(torch_mesh_ranks.two_ranks, 2, params_from_jax(table_mp_jax, "cpu"), fcfg, _port_rcfg(),
                            tuple(np.asarray(a) for a in _rays(32)), _disc_set(), FCFGS, TRAIN_CFG, TRAIN_STEPS,
-                           device="cpu", timeout_s=300)
+                           inputs["sums"][:2], device="cpu", timeout_s=300)
 
 
 def test_mesh_ranks_and_devices(four_ranks):
@@ -190,6 +198,37 @@ def test_gather_vjp_matches_psum_scatter(four_ranks, inputs, key):
         for p in range(1, N4):
             order += cts[p][r * S : (r + 1) * S]
         np.testing.assert_array_equal(got, order)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_all_reduce_matches_jax_psum(four_ranks, two_ranks, inputs, n):
+    """ring_all_reduce_plain over n gloo ranks against lax.psum under
+    shard_map on n CPU devices, and bitwise the sum in rank order."""
+    ranks = four_ranks if n == N4 else two_ranks
+    sums = inputs["sums"][:n]
+    want = np.asarray(jax.shard_map(lambda x: jax.lax.psum(x, "data"), mesh=jax_make_mesh(n), in_specs=P("data"),
+                                    out_specs=P(), check_vma=False)(jnp.asarray(sums)))[0]
+    order = sums[0].copy()
+    for p in range(1, n):
+        order += sums[p]
+    for r in ranks:
+        got = r["sums"]["all_reduce"]
+        np.testing.assert_array_equal(got.view(np.int32), order.view(np.int32))
+        if n == 2:
+            np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_psum_and_grads_give_every_rank_the_same_bits(four_ranks, two_ranks, n):
+    """psum and all_reduce_grads on a CPU mesh: every rank the same bits,
+    those of the plain reduce-scatter followed by the plain gather."""
+    ranks = four_ranks if n == N4 else two_ranks
+    first = ranks[0]["sums"]["rs_gather"].view(np.int32)
+    for r in ranks:
+        for key in ("all_reduce", "psum", "grads", "rs_gather"):
+            np.testing.assert_array_equal(r["sums"][key].view(np.int32), first, err_msg=key)
 
 
 def _jax_table_mp(n, jparams):

@@ -16,9 +16,29 @@ from avatarcraft_tpu_torch.utils.checkpoint import map_leaves
 
 
 def four_ranks(mesh, batch: dict, table: np.ndarray, cts: np.ndarray, int_cts: np.ndarray, params: dict, fcfg,
-               rcfg, rays: tuple) -> dict:
-    """``mesh_and_ring`` and ``table_mp_step`` in one launch."""
-    return {**mesh_and_ring(mesh, batch, table, cts, int_cts), "table_mp": table_mp_step(mesh, params, fcfg, rcfg, rays)}
+               rcfg, rays: tuple, sums: np.ndarray) -> dict:
+    """``mesh_and_ring``, ``table_mp_step`` and ``sum_checks`` in one
+    launch."""
+    return {**mesh_and_ring(mesh, batch, table, cts, int_cts), "table_mp": table_mp_step(mesh, params, fcfg, rcfg, rays),
+            "sums": sum_checks(mesh, sums)}
+
+
+def sum_checks(mesh, sums: np.ndarray) -> dict:
+    """Rank r's row of ``sums`` [n, N] summed over the ranks four ways: the
+    plain all-reduce, ``psum``, ``all_reduce_grads`` (the row cut into two
+    gradients) and the plain reduce-scatter followed by the plain gather
+    (the row as a [24, N / 24] table)."""
+    row = torch.from_numpy(sums[mesh.rank])
+    params = [torch.nn.Parameter(torch.zeros(7)), torch.nn.Parameter(torch.zeros(row.numel() - 7))]
+    params[0].grad, params[1].grad = row[:7].clone(), row[7:].clone()
+    mesh_lib.all_reduce_grads(params, mesh)
+    table = row.reshape(24, -1)
+    return {
+        "all_reduce": ring.ring_all_reduce_plain(row, mesh),
+        "psum": mesh_lib.psum(row, mesh),
+        "grads": torch.cat([p.grad for p in params]),
+        "rs_gather": ring.ring_all_gather_plain(ring.ring_reduce_scatter_plain(table, mesh), mesh).reshape(-1),
+    }
 
 
 def mesh_and_ring(mesh, batch: dict, table: np.ndarray, cts: np.ndarray, int_cts: np.ndarray) -> dict:
@@ -83,10 +103,12 @@ def trainer_losses(ds, fcfgs: dict, cfg, max_steps: int, mesh=None) -> dict:
     return out
 
 
-def two_ranks(mesh, params: dict, fcfg, rcfg, rays: tuple, ds, fcfgs: dict, cfg, max_steps: int) -> dict:
-    """The table-parallel step and the three trainers over a 2-rank mesh."""
+def two_ranks(mesh, params: dict, fcfg, rcfg, rays: tuple, ds, fcfgs: dict, cfg, max_steps: int,
+              sums: np.ndarray) -> dict:
+    """The table-parallel step, the three trainers and ``sum_checks`` over
+    a 2-rank mesh."""
     return {"table_mp": table_mp_step(mesh, params, fcfg, rcfg, rays),
-            "trainers": trainer_losses(ds, fcfgs, cfg, max_steps, mesh)}
+            "trainers": trainer_losses(ds, fcfgs, cfg, max_steps, mesh), "sums": sum_checks(mesh, sums)}
 
 
 CLI_ARGS = ["--weights_path", bench.ARTIFACT_CKPT, "--grid_path", bench.ARTIFACT_GRID, "--use_cuda", "false",
