@@ -61,6 +61,16 @@ def sorted_leaves(tree) -> list:
     return [] if tree is None else [tree]
 
 
+def sorted_leaf_paths(tree, prefix: str = "") -> list:
+    """The path of each leaf of ``sorted_leaves``, written as
+    ``jax.tree_util.keystr`` writes it (``"['sdf'][0]['v']"``)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in sorted_leaf_paths(tree[k], f"{prefix}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in sorted_leaf_paths(v, f"{prefix}[{i}]")]
+    return [] if tree is None else [prefix]
+
+
 def replace_sorted_leaves(tree, new_leaves: list):
     """The same tree with its leaves, in ``sorted_leaves`` order, replaced
     by ``new_leaves``."""

@@ -17,3 +17,16 @@ def card_line() -> str:
     except (OSError, subprocess.SubprocessError) as exc:
         return f"nvidia-smi unavailable ({type(exc).__name__})"
     return "; ".join(line.strip() for line in res.stdout.splitlines() if line.strip())
+
+
+def tool_device(platform: str) -> str:
+    """The device of an offline tool's ``--platform``: ``cpu`` is the CPU,
+    ``default`` the CUDA card, refused where there is none (never a quiet
+    fall back to the CPU)."""
+    if platform == "cpu":
+        return "cpu"
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA card: pass --platform cpu to run on the CPU")
+    return "cuda"

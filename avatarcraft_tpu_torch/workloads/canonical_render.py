@@ -47,7 +47,8 @@ def make_fast_frame_renderer(
     bg_color: float = 1.0,
     n_shards: int = 1,
 ):
-    """render(rays_o [N,3], rays_d [N,3]) -> {"rgb": [N,3], "depth": [N]}.
+    """render(rays_o [N,3], rays_d [N,3]) -> {"rgb": [N,3], "depth": [N],
+    "weight_sum": [N,1]} (the opacity).
 
     ``params`` and ``density_grid`` live on the device the renderer runs on;
     the finest grid is split into ``n_shards`` row shards there (default:
@@ -64,15 +65,15 @@ def make_fast_frame_renderer(
         if pad:
             rays_o = torch.cat([rays_o, rays_o.new_ones((pad, 3))])
             rays_d = torch.cat([rays_d, rays_d.new_tensor([0.0, 0.0, 1.0]).expand(pad, 3)])
-        rgb, depth = [], []
+        outs = {"rgb": [], "depth": [], "weight_sum": []}
         for i in range(0, n + pad, chunk):
             out = render_rays_fast(
                 full, rays_o[i : i + chunk], rays_d[i : i + chunk], fcfg, cfg,
                 density_grid, bg_color, field,
             )
-            rgb.append(out["rgb"])
-            depth.append(out["depth"])
-        return {"rgb": torch.cat(rgb)[:n], "depth": torch.cat(depth)[:n]}
+            for k, parts in outs.items():
+                parts.append(out[k])
+        return {k: torch.cat(parts)[:n] for k, parts in outs.items()}
 
     return render
 

@@ -174,7 +174,8 @@ Phases, each printed with its start, end and wall seconds:
               cubes), and at 128^3 the native extractor held against the
               numpy plain version (the same triangle count, the sorted
               vertices within 1e-4), both timed. Its dataset and the parity
-              run's hash-grid checkpoint stay for the parity phases;
+              run's hash-grid checkpoint stay for the parity phases, the
+              fast run's state, final checkpoint and grid for tools;
 19b. reconstruct_scan -- the fast reconstruct CLI on that set with
               --scan_steps 5 --max_steps 43 (8 calls and a tail of 3) and
               with --scan_steps 0, refreshes and state saves every 20 (5
@@ -189,6 +190,25 @@ Phases, each printed with its start, end and wall seconds:
               parameters and Adam's moments bitwise equal, the launches
               counted exactly, ms per step of each; the graphed first
               step runs under sync debug mode "error";
+19c. tools -- the offline tools' twins (avatarcraft_tpu_torch/tools/) on
+              the card, on the reconstruct set: eval_psnr (views 13, 62,
+              95 at 128x128, raw images on black) of the committed
+              artifact, which rendered the set, every view above 35 dB,
+              with --band_stats; of the fast run's train state at step 40,
+              finite and its mean above an all-black image's; of its
+              final checkpoint and grid, the same numbers; bake_artifact
+              of that state (fp16 tables) and eval_psnr of the bake, every
+              view within 0.1 dB of the state; prune_grid of the artifact
+              on the card and the CPU, the occupied and kept counts within
+              0.1 %; style_delta unpack of the lava delta and pack of the
+              result against the artifact: sparse rows and values bitwise
+              the committed delta's but the rows whose fp16 values are all
+              zero, dense leaves within one f32 ulp, the grid bitwise;
+              eval_style of the unpacked lava field with its grid and the
+              toy guidance at 128x128 over 4 views, mean_style_dist below
+              mean_bare_dist, printed beside docs/eval/multi_lava.json.
+              One gather per rendered view, counted exactly; each tool's
+              wall seconds. The fast run's files are removed after it;
 20. parity_render -- the canonical CLI (cli.render_canonical_cli.main) at
               its defaults, --sampler parity (64+64, no jitter, the
               artifact's fd4, 4096-ray chunks), with --log_extra true,
@@ -349,9 +369,11 @@ from avatarcraft_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     load_params_with_config,
     map_leaves,
+    sorted_leaves,
 )
-from avatarcraft_tpu_torch.tools import run_multi_stylize
-from avatarcraft_tpu_torch.utils import cuda_build, gif, marching_cubes as mc, native, orbax, style_delta
+from avatarcraft_tpu_torch.tools import bake_artifact, eval_psnr, eval_style, prune_grid, run_multi_stylize, style_delta
+from avatarcraft_tpu_torch.utils import cuda_build, gif, marching_cubes as mc, native, orbax
+from avatarcraft_tpu_torch.utils.style_delta import apply_delta
 from avatarcraft_tpu_torch.utils.metrics import integerify_img
 from avatarcraft_tpu_torch.utils.png import read_png, write_png
 from avatarcraft_tpu_torch.utils.device import card_line
@@ -391,6 +413,7 @@ GRID_ROWS, GRID_COLS = 128**3, 4  # the artifact's finest grid as a table
 HASH_ROWS, HASH_COLS = HashGridSpec().total_params, HashGridSpec().level_dim
 HERE = os.path.dirname(os.path.abspath(__file__))
 LAVA_DELTA = os.path.join(HERE, "artifacts", "styled", "multi_lava_delta.npz")
+LAVA_EVAL_RECORD = os.path.join(HERE, "docs", "eval", "multi_lava.json")
 STYLED_GOLDEN = os.path.join(HERE, "tests", "golden_styled_warp_32.npy")
 STYLED_RES, STYLED_FRAME = 32, 10  # tests/test_styled_warp.py:56-84
 TOY_DIR = os.path.join(HERE, "artifacts", "toy_guidance")
@@ -454,6 +477,16 @@ RECON_FAST_REFRESH = 20  # the fast run's grid warmup, refresh period and state 
 # a tail of 3), against --scan_steps 0; the graphed scan against the eager
 # one over calls of 5, 5 and 3 steps
 RECON_SCAN_STEPS, RECON_SCAN_MAX, RECON_SCAN_TAIL = 5, 43, 3
+# tools: eval_psnr's default views at level 4 (128x128) against the raw
+# images; the artifact rendered the set (8-bit PNGs of its renders), so its
+# PSNR there is high; the fp16-table bake of a state within a margin of it
+# (the renderer packs tables to bf16 either way); prune_grid's cell counts
+# on the card and the CPU; eval_style at the committed record's 128x128
+TOOLS_VIEWS, TOOLS_LEVEL = "13,62,95", 4
+TOOLS_ARTIFACT_PSNR_FLOOR = 35.0  # dB
+TOOLS_BAKE_PSNR_MARGIN = 0.1  # dB
+TOOLS_PRUNE_SHARE = 1e-3
+TOOLS_STYLE_RES, TOOLS_STYLE_VIEWS = 128, 4
 # one parity step of the hash grid, card against CPU, on a 32x32 block of
 # view 0: the loss as the fast step's (TRAIN_LOSS_RTOL); every gradient
 # leaf, the hash table's included, within 1e-2 x its max|g|. Both devices
@@ -898,7 +931,7 @@ def check_styled_warp() -> None:
     imgs, budget = {}, None
     for device in ("cpu", "cuda"):
         base, _, _, _ = bench.load_artifact(device)
-        styled, fcfg, _ = style_delta.apply_delta(base, LAVA_DELTA)
+        styled, fcfg, _ = apply_delta(base, LAVA_DELTA)
         ro, rd = pose2rays(STYLED_RES, STYLED_RES, bench.warp_view(), device=device)
         if budget is None:
             budget = derive_warp_budget(world_verts, ro, rd, settings)
@@ -1961,8 +1994,8 @@ def check_reconstruct(root: str) -> dict:
     print(f"reconstruct: peak memory {peak / 2**30:.2f} GiB, {(peak - held) / 2**30:.2f} GiB above the "
           f"{held / 2**30:.2f} GiB held when the phase began", flush=True)
     time_mesh_export()
-    for name in ("fast", "fast_resume"):  # their train-state files (about 0.9 GB each)
-        shutil.rmtree(os.path.join(out, name), ignore_errors=True)
+    # the resume's train-state files (about 0.9 GB each); the fast run's stay for the tools phase
+    shutil.rmtree(os.path.join(out, "fast_resume"), ignore_errors=True)
     return counts
 
 
@@ -2087,6 +2120,167 @@ def check_reconstruct_scan(root: str) -> dict:
         "scan_steps_per_sec": scan["stats"].get("steps_per_sec"), "per_step_steps_per_sec":
         steps["stats"].get("steps_per_sec"), **timing}) + f" ({card_line()})", flush=True)
     return scan["launches"]
+
+
+def _timed_tool(secs: dict, name: str, main, argv: list):
+    """A tool's main on ``argv``, its wall seconds printed and kept."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = main(argv)
+    torch.cuda.synchronize()
+    secs[name] = time.perf_counter() - t0
+    print(f"tools {name}: {secs[name]:.2f} s", flush=True)
+    return result
+
+
+def _black_psnr(ds, views, level: int) -> dict:
+    """{view: PSNR of an all-black image} against eval_psnr's raw ground
+    truth at ``level`` (its pixel rows and columns)."""
+    side = ds.H // level
+    ys = np.round(np.linspace(0, ds.H - 1, side)).astype(int)
+    xs = np.round(np.linspace(0, ds.W - 1, side)).astype(int)
+    return {v: -10.0 * np.log10(max(float(np.mean(ds.images[v][np.ix_(ys, xs)] ** 2)), 1e-12)) for v in views}
+
+
+def _hold_repacked_delta(repacked: str, committed: str, base: dict) -> str:
+    """The lava delta unpacked and packed again against the committed one.
+    A sparse leaf keeps the committed rows but those whose fp16 differences
+    are all zero (the styled field equals the base there, so pack cannot
+    see them), with its values bitwise; a dense leaf within one f32 ulp of
+    the larger of |base + delta| and |delta| (the rounded sum, then the
+    difference); the grid bitwise; meta_json equal but for the dropped
+    rows' counts. Returns a line of what it found."""
+    new, old = np.load(repacked), np.load(committed)
+    if sorted(new.files) != sorted(old.files):
+        raise AssertionError(f"repacked delta: arrays {sorted(new.files)} against {sorted(old.files)}")
+    base_leaves = [t.detach().cpu().numpy() for t in sorted_leaves(base)]
+    meta_new, meta_old = (json.loads(bytes(z["meta_json"]).decode()) for z in (new, old))
+    dropped, dense_ulps = {}, 0.0
+    for key in old.files:
+        kind, _, leaf = key.partition(":")
+        if kind == "idx":
+            i = int(leaf)
+            keep = np.isin(old[key], new[key])
+            if not (np.isin(new[key], old[key]).all() and np.array_equal(old[key][keep], new[key])
+                    and np.array_equal(old[f"val:{i}"][keep], new[f"val:{i}"])
+                    and not old[f"val:{i}"][~keep].any()):
+                raise AssertionError(f"repacked delta: leaf {i}'s rows or values differ beyond the all-zero rows")
+            dropped[i] = int((~keep).sum())
+        elif kind == "dense":
+            b, d = base_leaves[int(leaf)], old[key]
+            ulps = np.abs(new[key] - d) / np.spacing(np.maximum(np.abs(b + d), np.abs(d)))
+            dense_ulps = max(dense_ulps, float(ulps.max()))
+        elif kind == "grid" and not np.array_equal(new[key], old[key]):
+            raise AssertionError("repacked delta: the grid differs")
+    if dense_ulps > 1.0:
+        raise AssertionError(f"repacked delta: a dense leaf {dense_ulps} f32 ulps from the committed delta")
+    for t in meta_old["tensors"]:
+        if t["mode"] == "sparse_rows":
+            t["rows_changed"] -= dropped[t["leaf"]]
+    if meta_new != meta_old:
+        raise AssertionError("repacked delta: meta_json differs beyond the dropped rows' counts")
+    return (f"sparse rows and values bitwise but {sum(dropped.values())} committed rows whose fp16 values are all "
+            f"zero; dense leaves within {dense_ulps:.3g} f32 ulp; grid bitwise; meta_json equal but those counts")
+
+
+def check_tools(root: str) -> dict:
+    """The offline tools' twins on the card, on the reconstruct phase's set
+    and files (``root``): eval_psnr of the committed artifact (which
+    rendered the set) at TOOLS_LEVEL on TOOLS_VIEWS against the raw images,
+    every view above TOOLS_ARTIFACT_PSNR_FLOOR, with band statistics; of
+    the fast run's train state (step 40): finite, its mean above an
+    all-black image's, and the same numbers from its final checkpoint and
+    grid (the same field); bake_artifact of that state, whose fp16 artifact comes within
+    TOOLS_BAKE_PSNR_MARGIN dB of the state; prune_grid of the artifact on
+    the card against the CPU, the counts within TOOLS_PRUNE_SHARE; the lava
+    delta unpacked and packed again (``_hold_repacked_delta``); eval_style
+    of the unpacked lava field with its grid and the toy guidance at
+    128x128 over 4 views: the styled field nearer its target than the bare
+    one, beside the committed record. One gather a rendered view, counted
+    exactly. The fast run's files are removed at the end."""
+    fast = os.path.join(root, "out", "fast")
+    work = tempfile.mkdtemp(prefix="tools_", dir=root)
+    secs = {}
+    _reset_launches()
+    views = [int(v) for v in TOOLS_VIEWS.split(",")]
+    psnr_argv = ["--data_path", root, "--views", TOOLS_VIEWS, "--level", str(TOOLS_LEVEL), "--gt_mode", "raw"]
+    art = _timed_tool(secs, "eval_psnr artifact", eval_psnr.main,
+                      ["--ckpt", bench.ARTIFACT_CKPT, "--grid_path", bench.ARTIFACT_GRID, "--band_stats"] + psnr_argv)
+    if not min(art["psnr"].values()) >= TOOLS_ARTIFACT_PSNR_FLOOR:
+        raise AssertionError(f"tools: the artifact's PSNR on its own renders {art['psnr']} below "
+                             f"{TOOLS_ARTIFACT_PSNR_FLOOR} dB")
+    state_path = os.path.join(fast, "state_latest.pt")
+    state = _timed_tool(secs, "eval_psnr state", eval_psnr.main, ["--state", state_path] + psnr_argv)
+    black = _black_psnr(SMPLMultiviewDataset(root), views, TOOLS_LEVEL)
+    print(f"tools: PSNR of an all-black image {json.dumps(black)}", flush=True)
+    black_mean = float(np.mean(list(black.values())))
+    if state["step"] != RECON_STEPS or not (np.isfinite(list(state["psnr"].values())).all()
+                                            and state["mean_psnr"] > black_mean):
+        raise AssertionError(f"tools: the fast run's state at step {state['step']}: PSNR {state['psnr']}, "
+                             f"an all-black image {black}")
+    final = _timed_tool(secs, "eval_psnr final checkpoint", eval_psnr.main,
+                        ["--ckpt", os.path.join(fast, "fast_final.pth.tar"), "--grid_path",
+                         os.path.join(fast, "fast_grid.npy")] + psnr_argv)
+    if final["psnr"] != state["psnr"]:
+        raise AssertionError(f"tools: the final checkpoint's PSNR {final['psnr']} is not its state's {state['psnr']}")
+    psnr_json = os.path.join(work, "psnr.json")
+    with open(psnr_json, "w") as fp:
+        json.dump(state, fp)
+    baked = os.path.join(work, "baked")
+    bake = _timed_tool(secs, "bake_artifact", bake_artifact.main,
+                       ["--state", state_path, "--out", baked, "--normal_mode", "fd4", "--psnr_json", psnr_json])
+    shutil.rmtree(fast, ignore_errors=True)  # the fast run's train states (about 0.9 GB each)
+    baked_psnr = _timed_tool(secs, "eval_psnr baked", eval_psnr.main,
+                             ["--ckpt", os.path.join(baked, "bare_smpl_tpu.pth.tar"), "--grid_path",
+                              os.path.join(baked, "grid.npy")] + psnr_argv)
+    gap = max(abs(baked_psnr["psnr"][v] - state["psnr"][v]) for v in views)
+    print(f"tools eval_psnr ({card_line()}): the artifact on its own renders {json.dumps(art)}; the fast run's "
+          f"state (step {state['step']}) {json.dumps(state['psnr'])}, its final checkpoint the same; baked with "
+          f"fp16 tables ({json.dumps(bake['bytes'])}) {json.dumps(baked_psnr['psnr'])}, at most {gap:.3g} dB "
+          f"from the state (margin {TOOLS_BAKE_PSNR_MARGIN})", flush=True)
+    if not gap <= TOOLS_BAKE_PSNR_MARGIN:
+        raise AssertionError(f"tools: the baked artifact {gap} dB from its state")
+
+    pruned = {}
+    for device in ("cuda", "cpu"):
+        pruned[device] = _timed_tool(secs, f"prune_grid {device}", prune_grid.main,
+                                     ["--ckpt", bench.ARTIFACT_CKPT, "--out", os.path.join(work, f"pruned_{device}.npy")]
+                                     + (["--platform", "cpu"] if device == "cpu" else []))
+    for key in ("occupied", "kept"):
+        card, cpu = pruned["cuda"][key], pruned["cpu"][key]
+        if not (cpu > 0 and abs(card - cpu) <= TOOLS_PRUNE_SHARE * cpu):
+            raise AssertionError(f"tools prune_grid: {key} cells {card} on the card, {cpu} on the CPU")
+    print(f"tools prune_grid: card {json.dumps(pruned['cuda'])}, CPU {json.dumps(pruned['cpu'])} "
+          f"(share {TOOLS_PRUNE_SHARE})", flush=True)
+
+    lava, lava_grid = os.path.join(work, "lava.pth.tar"), os.path.join(work, "lava_grid.npy")
+    _timed_tool(secs, "style_delta unpack", style_delta.main,
+                ["unpack", "--base", bench.ARTIFACT_CKPT, "--delta", LAVA_DELTA, "--out", lava, "--grid_out", lava_grid])
+    repacked = os.path.join(work, "lava_repacked.npz")
+    _timed_tool(secs, "style_delta pack", style_delta.main,
+                ["pack", "--base", bench.ARTIFACT_CKPT, "--styled", lava, "--out", repacked, "--grid", lava_grid])
+    found = _hold_repacked_delta(repacked, LAVA_DELTA, load_params_with_config(bench.ARTIFACT_CKPT, "cpu")[0])
+    print(f"tools style_delta: the lava delta unpacked and packed again: {found}", flush=True)
+
+    style = _timed_tool(secs, "eval_style", eval_style.main,
+                        ["--ckpt", lava, "--grid_path", lava_grid, "--style", "lava", "--guidance", TOY_DIR,
+                         "--res", str(TOOLS_STYLE_RES), "--views", str(TOOLS_STYLE_VIEWS)])
+    with open(LAVA_EVAL_RECORD) as fp:
+        record = json.load(fp)
+    keys = ("mean_style_dist", "mean_bare_dist", "improvement_factor", "mean_palette_dist",
+            "mean_bare_palette_dist", "fg_sat_eval", "fg_sat_bare", "txt2img_hue_emd_eval",
+            "txt2img_chroma_angle_eval_deg")
+    print(f"tools eval_style ({card_line()}): " + json.dumps({k: {"card": style[k], "record": record[k]} for k in keys})
+          + f" (the record: {os.path.relpath(LAVA_EVAL_RECORD, HERE)}, the full styled checkpoint before packing)",
+          flush=True)
+    if not style["mean_style_dist"] < style["mean_bare_dist"]:
+        raise AssertionError(f"tools eval_style: the lava field's distance {style['mean_style_dist']} is not below "
+                             f"the bare field's {style['mean_bare_dist']}")
+    shutil.rmtree(work, ignore_errors=True)
+    launches = dict(ring.launches)
+    _expect_launches("tools", launches, {ring.KERNEL: 4 * len(views) + 2 * TOOLS_STYLE_VIEWS, ring.RS_KERNEL: 0})
+    print("tools: " + json.dumps({"seconds": secs, "launches": launches}), flush=True)
+    return launches
 
 
 def recon_parity_checkpoint(root: str) -> str:
@@ -3362,6 +3556,8 @@ def main() -> int:
             paths["reconstruct_fast"] = check_reconstruct(recon_root)
         with Phase("reconstruct_scan"):
             paths["reconstruct_scan"] = check_reconstruct_scan(recon_root)
+        with Phase("tools"):
+            paths["tools"] = check_tools(recon_root)
         with Phase("parity_render"):
             paths["parity_render"] = check_parity_render()
         with Phase("parity_warp"):

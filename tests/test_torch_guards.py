@@ -1,7 +1,8 @@
 """Guards for what the card's machine needs of the PyTorch port: it imports
-without JAX, the JAX package, imageio, cv2, PIL, regex, transformers,
-diffusers, orbax, tensorstore or zstandard (the modules of every slice
-reached); entry points default to the card; a scan of
+without JAX, the JAX package, the repository's root tools/, imageio, cv2,
+PIL, regex, transformers, diffusers, orbax, tensorstore or zstandard (the
+modules of every slice reached); entry points and the tools default to the
+card; a scan of
 train steps on the card never runs its steps eagerly; chip_smoke.py fails loudly
 without a card or without the package; kernels build for sm_90a into a
 directory git ignores; the wrapper never falls back to the CPU."""
@@ -28,7 +29,7 @@ from avatarcraft_tpu_torch.utils.png import write_png
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(avatarcraft_tpu_torch.__file__))
 BLOCKED = ("jax", "jaxlib", "imageio", "cv2", "PIL", "avatarcraft_tpu", "regex", "transformers", "diffusers",
-           "orbax", "tensorstore", "zstandard")
+           "orbax", "tensorstore", "zstandard", "tools")
 KERNELS = (ring.KERNEL, ring.RS_KERNEL)
 # modules of the training slice, which the import guard must reach
 TRAIN_MODULES = (
@@ -98,6 +99,14 @@ LEGACY_MODULES = (
     "avatarcraft_tpu_torch.workloads.hybrid",
     "avatarcraft_tpu_torch.utils.orbax",
 )
+# the offline tools' twins
+TOOL_MODULES = (
+    "avatarcraft_tpu_torch.tools.eval_psnr",
+    "avatarcraft_tpu_torch.tools.eval_style",
+    "avatarcraft_tpu_torch.tools.bake_artifact",
+    "avatarcraft_tpu_torch.tools.prune_grid",
+    "avatarcraft_tpu_torch.tools.style_delta",
+)
 
 
 def _env_without_repo():
@@ -117,7 +126,7 @@ for m in pkgutil.walk_packages(avatarcraft_tpu_torch.__path__, "avatarcraft_tpu_
     importlib.import_module(m.name)
 import chip_smoke
 missing = [m for m in {TRAIN_MODULES + WARP_MODULES + STYLIZE_MODULES + SD_MODULES + RECON_MODULES + MULTI_MODULES
-                      + OUTPUT_MODULES + MESH_MODULES + LEGACY_MODULES!r}
+                      + OUTPUT_MODULES + MESH_MODULES + LEGACY_MODULES + TOOL_MODULES!r}
            if m not in sys.modules]
 print("imports ok" if not missing else f"not imported: {{missing}}")
 """
@@ -183,7 +192,7 @@ def test_port_never_names_the_jax_package():
             text = fp.read()
         assert not re.search(r"avatarcraft_tpu(?!_torch)", text), path
         assert not re.search(r"^\s*(import|from)\s+(jax|imageio|cv2|regex|transformers|diffusers|orbax|tensorstore"
-                             r"|zstandard)\b", text, re.M), path
+                             r"|zstandard|tools)\b", text, re.M), path
 
 
 def test_chip_smoke_without_card_fails():
@@ -462,6 +471,42 @@ def test_multi_stylize_defaults_to_cuda():
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA card"):
             run_multi_stylize.main([])
+
+
+def test_tools_default_to_cuda(monkeypatch, tmp_path):
+    """Each offline tool runs on the card unless --platform cpu: its
+    --platform defaults to ``default`` (each style_delta subcommand's too),
+    its main takes its device from ``tool_device(opt.platform)`` alone, and
+    without a card it refuses to start rather than fall back to the CPU."""
+    import importlib
+    import inspect
+
+    from avatarcraft_tpu_torch.utils.device import tool_device
+
+    argv = {
+        "eval_psnr": ["--ckpt", "x", "--grid_path", "x"],
+        "eval_style": ["--ckpt", "x", "--style", "lava"],
+        "bake_artifact": ["--state", "x"],
+        "prune_grid": ["--ckpt", "x", "--out", str(tmp_path / "x.npy")],
+        "style_delta": ["unpack", "--base", "x", "--delta", "x", "--out", "x"],
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in TOOL_MODULES:
+        tool = importlib.import_module(name)
+        short = name.rsplit(".", 1)[1]
+        opt = tool.build_parser().parse_args(argv[short])
+        assert opt.platform == "default", name
+        main = inspect.getsource(tool.main)
+        assert main.count("tool_device(opt.platform)") == 1 and '"cuda"' not in main, name
+        with pytest.raises(SystemExit, match="no CUDA card: pass --platform cpu"):
+            tool.main(argv[short])
+    from avatarcraft_tpu_torch.tools import style_delta
+
+    assert style_delta.build_parser().parse_args(["pack", "--base", "b", "--styled", "s", "--out", "o"]).platform \
+        == "default"
+    assert tool_device("cpu") == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert tool_device("default") == "cuda"
 
 
 def test_bench_refuses_cpu():

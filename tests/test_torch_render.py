@@ -169,7 +169,8 @@ def test_frame_renderer_chunks_and_shards(rng):
     whole = make_fast_frame_renderer(params, fcfg, cfg, _t(grid), chunk=100)(_t(o), _t(d))
     chunked = make_fast_frame_renderer(params, fcfg, cfg, _t(grid), chunk=32, n_shards=4)(_t(o), _t(d))
     assert chunked["rgb"].shape == (100, 3) and chunked["depth"].shape == (100,)
-    for k in ("rgb", "depth"):
+    assert chunked["weight_sum"].shape == (100, 1)
+    for k in ("rgb", "depth", "weight_sum"):
         np.testing.assert_allclose(chunked[k].numpy(), whole[k].numpy(), atol=1e-6, rtol=0)
 
 
