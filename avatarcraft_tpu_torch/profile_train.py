@@ -173,16 +173,25 @@ def _device_events(prof) -> list:
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA and e.name not in host_names]
 
 
+def _summed_by_key(events, keep) -> dict:
+    """{key: (device_time_total summed in us, count)} of the events that
+    ``keep`` takes, in first-seen order: what ``prof.key_averages()`` gives
+    for them, without averaging the whole profile (whose device and CPU
+    totals it works out for every event, which takes seconds a call at a
+    fine SDS step's 10^5 kernels)."""
+    totals: dict = {}
+    for e in events:
+        if keep(e):
+            us, count = totals.get(e.key, (0.0, 0))
+            totals[e.key] = (us + e.device_time_total, count + 1)
+    return totals
+
+
 def _top_kernels(prof, n_steps: int, k: int = 15) -> list:
     host_names = {e.name for e in prof.events() if e.device_type == DeviceType.CPU}
-    kernels = sorted(
-        (
-            (e.key, e.device_time_total / 1e3 / n_steps, e.count // n_steps)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.key not in host_names
-        ),
-        key=lambda kv: -kv[1],
-    )[:k]
+    totals = _summed_by_key(prof.events(), lambda e: e.device_type == DeviceType.CUDA and e.key not in host_names)
+    kernels = sorted(((key, us / 1e3 / n_steps, count // n_steps) for key, (us, count) in totals.items()),
+                     key=lambda kv: -kv[1])[:k]
     return [{"name": name[:80], "ms_per_step": ms, "calls_per_step": c} for name, ms, c in kernels]
 
 
@@ -223,9 +232,9 @@ def main() -> dict:
     busy = busy_us(device_events)
     phases = {k: v / PROFILED for k, v in _phase_device_ms(prof).items()}
     stages = {
-        e.key: e.device_time_total / 1e3 / PROFILED
-        for e in prof.key_averages()
-        if e.key.startswith("render.") and e.device_type == DeviceType.CPU
+        key: us / 1e3 / PROFILED
+        for key, (us, _) in _summed_by_key(prof.events(), lambda e: e.key.startswith("render.")
+                                           and e.device_type == DeviceType.CPU).items()
     }
     kernel_ms = {
         k: sum(e.time_range.elapsed_us() for e in device_events if k in e.name) / 1e3 / PROFILED
@@ -465,9 +474,9 @@ def profile_stylize_steps(trainer, epoch: int, n: int, prefix: str = "stylize") 
     phases = _phase_device_ms(prof, prefix, STYLIZE_PHASES, "phaseB")
     # inside the ranges: the render stages' forward and Adam's step
     inner = {
-        e.key: e.device_time_total / 1e3 / n
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CPU and (e.key.startswith("render.") or e.key.startswith("Optimizer.step"))
+        key: us / 1e3 / n
+        for key, (us, _) in _summed_by_key(prof.events(), lambda e: e.device_type == DeviceType.CPU and (
+            e.key.startswith("render.") or e.key.startswith("Optimizer.step"))).items()
     }
     return {
         "profiled_wall_ms_per_step": wall * 1e3 / n,

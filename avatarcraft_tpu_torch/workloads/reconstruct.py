@@ -218,6 +218,28 @@ def cosine_decay(decay_steps: int):
     return factor
 
 
+def warmup_cosine_decay(init_value: float, peak_value: float, warmup_steps: int, decay_steps: int,
+                        end_value: float = 0.0):
+    """optax.warmup_cosine_decay_schedule as a function of the step, in
+    double: linear from ``init_value`` to ``peak_value`` over
+    ``warmup_steps``, then a cosine from ``peak_value`` to ``end_value``
+    over the remaining ``decay_steps - warmup_steps`` (optax counts the
+    warmup inside ``decay_steps``), ``end_value`` after it."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    cosine_steps = decay_steps - warmup_steps
+    if cosine_steps <= 0:
+        raise ValueError(f"warmup_cosine_decay: decay_steps {decay_steps} must exceed warmup_steps {warmup_steps}")
+
+    def lr(step: int) -> float:
+        if step < warmup_steps:
+            frac = 1.0 - max(step, 0) / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        count = min(step - warmup_steps, cosine_steps)
+        return peak_value * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * count / cosine_steps)) + alpha)
+
+    return lr
+
+
 class CosineSchedule:
     """The cosine learning rate of ``make_optimizer``'s Adam, stepped after
     each optimizer step as a ``LambdaLR`` is: after ``last_epoch`` steps the
@@ -528,6 +550,23 @@ def make_grid_update_fn(fcfg: FieldConfig, bound: float):
     return refresh
 
 
+def adam_moments(optimizer, rest: dict, shards, splice) -> tuple[dict, dict, int]:
+    """(mu, nu, count) of ``optimizer``'s Adam state over ``rest`` and the
+    table ``shards`` (``trainable_shards``) in the parameters' layout, as
+    ``save_train_state`` takes them: zeros for a tensor it has not stepped,
+    the count that of the first stepped tensor (0 before any step)."""
+
+    def moments(key):
+        m = lambda p: optimizer.state[p][key] if p in optimizer.state else torch.zeros_like(p)  # noqa: E731
+        with torch.no_grad():
+            table = torch.cat([m(s) for s in shards])
+        return splice(map_leaves(rest, m), table)
+
+    stepped = [p for p in list(shards) + leaves(rest) if p in optimizer.state]
+    count = int(optimizer.state[stepped[0]]["step"]) if stepped else 0
+    return moments("exp_avg"), moments("exp_avg_sq"), count
+
+
 def pixel_batches(n_views: int, n_pixels: int, batch: int, rng: np.random.Generator,
                   view_ids: np.ndarray | None = None) -> Iterator[tuple[np.ndarray, np.ndarray]]:
     """One epoch of (view_idx, pix_idx) batches over a shuffled permutation
@@ -760,16 +799,9 @@ def train_fast(
         grid, step = saved["grid"], int(saved["step"])
 
     def save_state(name: str, params: dict | None = None) -> None:
-        def moments(key):  # Adam's moments in the parameters' layout (zeros before a step)
-            m = lambda p: opt.state[p][key] if p in opt.state else torch.zeros_like(p)  # noqa: E731
-            with torch.no_grad():
-                table = torch.cat([m(s) for s in shards])
-            return splice(map_leaves(rest, m), table)
-
-        count = int(opt.state[shards[0]]["step"]) if shards[0] in opt.state else 0
         if params is None:
             params = gathered_params(rest, shards, splice)
-        mu, nu = moments("exp_avg"), moments("exp_avg_sq")
+        mu, nu, count = adam_moments(opt, rest, shards, splice)
         if mesh.rank == 0:
             save_train_state(f"{state_dir}/{name}.pt", params, mu, nu, count, step, grid)
 

@@ -208,7 +208,25 @@ Phases, each printed with its start, end and wall seconds:
               toy guidance at 128x128 over 4 views, mean_style_dist below
               mean_bare_dist, printed beside docs/eval/multi_lava.json.
               One gather per rendered view, counted exactly; each tool's
-              wall seconds. The fast run's files are removed after it;
+              wall seconds. The fast run's files stay for finetune;
+19d. finetune -- the fine-tune and asset tools' twins on the card, on the
+              reconstruct set: finetune_color --ckpt of the artifact with
+              analytic normals for FINETUNE_COLOR_STEPS steps (every leaf
+              but the color MLP's bitwise the artifact's), bake_artifact of
+              it and eval_psnr of the bake under analytic normals beside
+              the artifact's own under analytic (printed, not held);
+              finetune_ss --state of the fast run at ss 2 for two
+              graphed calls of FINETUNE_SS_SCAN steps, one refresh and one
+              <out>_latest save (their steps and Adam counts checked);
+              train_toy_guidance at 64x64 over 16 orbit and 4 head views
+              for 10 steps, its output loaded and given one eps call;
+              make_demo_body with both rigs at 128^3, each loaded by
+              load_smpl and rendered as one 32x32 warp frame of the
+              artifact. K10: one gather a color step, a view, a toy group
+              of 8 views, a warp frame, a refresh and a saved tree, one
+              gather and one reduce-scatter a supersampled step (the
+              graph's replays counted), counted exactly; each tool's wall
+              seconds. The fast run's files are removed after it;
 20. parity_render -- the canonical CLI (cli.render_canonical_cli.main) at
               its defaults, --sampler parity (64+64, no jitter, the
               artifact's fd4, 4096-ray chunks), with --log_extra true,
@@ -368,10 +386,25 @@ from avatarcraft_tpu_torch.utils.checkpoint import (
     leaves,
     load_checkpoint,
     load_params_with_config,
+    load_train_state,
     map_leaves,
+    sorted_leaf_paths,
     sorted_leaves,
 )
-from avatarcraft_tpu_torch.tools import bake_artifact, eval_psnr, eval_style, prune_grid, run_multi_stylize, style_delta
+from avatarcraft_tpu_torch.data.amass import load_pose_sequence
+from avatarcraft_tpu_torch.models.smpl import load_smpl
+from avatarcraft_tpu_torch.tools import (
+    bake_artifact,
+    eval_psnr,
+    eval_style,
+    finetune_color,
+    finetune_ss,
+    make_demo_body,
+    prune_grid,
+    run_multi_stylize,
+    style_delta,
+    train_toy_guidance,
+)
 from avatarcraft_tpu_torch.utils import cuda_build, gif, marching_cubes as mc, native, orbax
 from avatarcraft_tpu_torch.utils.style_delta import apply_delta
 from avatarcraft_tpu_torch.utils.metrics import integerify_img
@@ -387,6 +420,7 @@ from avatarcraft_tpu_torch.workloads.multi_stylize import MultiPromptTrainer, st
 from avatarcraft_tpu_torch.workloads.stylize import StylizeConfig, StylizeTrainer
 from avatarcraft_tpu_torch.workloads.warp_render import (
     WarpRenderSettings,
+    calc_local_trans,
     derive_warp_budget,
     make_warp_frame_renderer_fast,
 )
@@ -487,6 +521,15 @@ TOOLS_ARTIFACT_PSNR_FLOOR = 35.0  # dB
 TOOLS_BAKE_PSNR_MARGIN = 0.1  # dB
 TOOLS_PRUNE_SHARE = 1e-3
 TOOLS_STYLE_RES, TOOLS_STYLE_VIEWS = 128, 4
+# finetune: finetune_color from the artifact with analytic normals for a few
+# steps; finetune_ss from the fast run's state at ss 2 for two calls, the
+# grid refreshed after the second and the state saved after the first;
+# train_toy_guidance at 64x64 over a few views and steps; make_demo_body
+# with both rigs at its default 128^3, each rendered as one warp frame
+FINETUNE_COLOR_STEPS = 8
+FINETUNE_SS, FINETUNE_SS_SCAN = 2, 5
+TOY_TRAIN_VIEWS, TOY_TRAIN_RES, TOY_TRAIN_STEPS, TOY_TRAIN_SCAN = 16, 64, 10, 5
+DEMO_BODY_LATTICE, DEMO_BODY_RES = 128, 32  # make_demo_body's default lattice; each made body's warp frame
 # one parity step of the hash grid, card against CPU, on a 32x32 block of
 # view 0: the loss as the fast step's (TRAIN_LOSS_RTOL); every gradient
 # leaf, the hash table's included, within 1e-2 x its max|g|. Both devices
@@ -2197,7 +2240,7 @@ def check_tools(root: str) -> dict:
     of the unpacked lava field with its grid and the toy guidance at
     128x128 over 4 views: the styled field nearer its target than the bare
     one, beside the committed record. One gather a rendered view, counted
-    exactly. The fast run's files are removed at the end."""
+    exactly. The fast run's files stay for the finetune phase."""
     fast = os.path.join(root, "out", "fast")
     work = tempfile.mkdtemp(prefix="tools_", dir=root)
     secs = {}
@@ -2229,7 +2272,6 @@ def check_tools(root: str) -> dict:
     baked = os.path.join(work, "baked")
     bake = _timed_tool(secs, "bake_artifact", bake_artifact.main,
                        ["--state", state_path, "--out", baked, "--normal_mode", "fd4", "--psnr_json", psnr_json])
-    shutil.rmtree(fast, ignore_errors=True)  # the fast run's train states (about 0.9 GB each)
     baked_psnr = _timed_tool(secs, "eval_psnr baked", eval_psnr.main,
                              ["--ckpt", os.path.join(baked, "bare_smpl_tpu.pth.tar"), "--grid_path",
                               os.path.join(baked, "grid.npy")] + psnr_argv)
@@ -2280,6 +2322,182 @@ def check_tools(root: str) -> dict:
     launches = dict(ring.launches)
     _expect_launches("tools", launches, {ring.KERNEL: 4 * len(views) + 2 * TOOLS_STYLE_VIEWS, ring.RS_KERNEL: 0})
     print("tools: " + json.dumps({"seconds": secs, "launches": launches}), flush=True)
+    return launches
+
+
+def _frozen_leaves_bitwise(trained: dict, start: dict) -> tuple[int, int]:
+    """(frozen leaves, color leaves) of ``trained`` against ``start``:
+    every leaf outside the color MLP bitwise its start, every color leaf
+    moved; raises otherwise."""
+    paths, a, b = sorted_leaf_paths(start), sorted_leaves(trained), sorted_leaves(start)
+    if sorted_leaf_paths(trained) != paths:
+        raise AssertionError("finetune_color: the trained tree differs from its start's")
+    frozen = moved = 0
+    for path, x, y in zip(paths, a, b):
+        same = x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        if path.startswith("['color']"):
+            moved += not same
+            if same:
+                raise AssertionError(f"finetune_color: the color leaf {path} did not move")
+        elif not same:
+            raise AssertionError(f"finetune_color: the frozen leaf {path} moved")
+        else:
+            frozen += 1
+    return frozen, moved
+
+
+def _body_frame(path: str, params: dict, fcfg) -> dict:
+    """One DEMO_BODY_RES^2 warp frame of the artifact on the body at
+    ``path`` (load_smpl): the root rig morphed to the first interp_shape
+    frame, the articulated rig in demo pose STYLED_FRAME, from the warp
+    bench's camera at a zero-clip budget. Returns its numbers."""
+    model = load_smpl(path)
+    if model.n_joints == 7:
+        world_verts, Ts, _ = calc_local_trans(model, "animate", poses=load_pose_sequence(bench.POSES)[STYLED_FRAME:],
+                                              max_frames=1, rest_pose="zero")
+    else:
+        world_verts, Ts, _ = calc_local_trans(model, "interp_shape", max_frames=1, rest_pose="zero")
+    settings = WarpRenderSettings(chunk=DEMO_BODY_RES * DEMO_BODY_RES)
+    ro, rd = pose2rays(DEMO_BODY_RES, DEMO_BODY_RES, bench.warp_view(), device="cuda")
+    budget = derive_warp_budget(world_verts, ro, rd, settings)
+    render = make_warp_frame_renderer_fast(params, fcfg, settings, budget)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rgb = render(ro, rd, WarpData.create(world_verts[0], model.faces, Ts[0], "cuda")).reshape(
+        DEMO_BODY_RES, DEMO_BODY_RES, 3).cpu().numpy()
+    ms = 1e3 * (time.perf_counter() - t0)
+    fg = float((np.abs(rgb - 1.0).sum(-1) > 0.15).mean())
+    if not (np.isfinite(rgb).all() and fg > 0.01):
+        raise AssertionError(f"finetune: the warp frame on {path} is not finite or shows no body ({fg})")
+    return {"joints": model.n_joints, "vertices": len(model.v_template), "faces": len(model.faces),
+            "budget": budget, "body_share": fg, "frame_ms": ms}
+
+
+def check_finetune(root: str) -> dict:
+    """The fine-tune and asset tools' twins on the card, on the reconstruct
+    phase's set (``root``) and its fast run's state, which this phase
+    removes at its end:
+
+    * finetune_color --ckpt of the artifact, analytic normals, for
+      FINETUNE_COLOR_STEPS steps: every leaf but the color MLP's bitwise
+      the artifact's on the card, the losses finite; bake_artifact of the
+      result and eval_psnr of the bake under analytic normals (views 13,
+      62, 95 at 128x128, raw), beside the artifact's own under analytic
+      (its fd4 numbers are the tools phase's), printed and not held;
+    * finetune_ss --state of the fast run at ss FINETUNE_SS for two calls
+      of FINETUNE_SS_SCAN steps (a CUDA graph of the supersampled step),
+      one refresh after the second call and one ``_latest`` save after the
+      first: the steps and counts saved, the grid finite;
+    * train_toy_guidance at TOY_TRAIN_RES^2 over TOY_TRAIN_VIEWS orbit views
+      (and the head views) for TOY_TRAIN_STEPS steps: its output loaded by
+      load_toy_guidance and given one eps call;
+    * make_demo_body with both rigs at DEMO_BODY_LATTICE^3 from the artifact, each loaded
+      by load_smpl and rendered as one warp frame (``_body_frame``).
+
+    K10's launches counted exactly: finetune_color one gather a step and
+    one for the final tree, no reduce-scatter (only the color MLP takes a
+    gradient); eval_psnr one gather a view; finetune_ss one gather and one
+    reduce-scatter a step (the graph's replays counted), one gather for
+    the refresh and one for each save; the toy dataset one gather a group
+    of 8 views; make_demo_body none (it reads the field whole); a warp
+    frame one gather. Prints each tool's wall seconds."""
+    fast = os.path.join(root, "out", "fast")
+    work = tempfile.mkdtemp(prefix="finetune_", dir=root)
+    secs, views = {}, [int(v) for v in TOOLS_VIEWS.split(",")]
+    _reset_launches()
+    want = {ring.KERNEL: 0, ring.RS_KERNEL: 0}
+
+    def expect(what: str, gathers: int, reduce_scatters: int = 0) -> None:
+        want[ring.KERNEL] += gathers
+        want[ring.RS_KERNEL] += reduce_scatters
+        _expect_launches(f"finetune {what}", dict(ring.launches), want)
+
+    # finetune_color: the artifact re-fitted under analytic normals
+    color_out = os.path.join(work, "color.pt")
+    color = _timed_tool(secs, "finetune_color", finetune_color.main, [
+        "--ckpt", bench.ARTIFACT_CKPT, "--grid_path", bench.ARTIFACT_GRID, "--out", color_out, "--data_path", root,
+        "--normal_mode", "analytic", "--steps", str(FINETUNE_COLOR_STEPS)])
+    expect("finetune_color", FINETUNE_COLOR_STEPS + 1)
+    if not (len(color["losses"]) == FINETUNE_COLOR_STEPS and np.isfinite(color["losses"]).all()):
+        raise AssertionError(f"finetune_color: losses {color['losses']}")
+    state = load_train_state(color_out, "cuda")
+    frozen, moved = _frozen_leaves_bitwise(state["params"], load_params_with_config(bench.ARTIFACT_CKPT, "cuda")[0])
+    if (state["step"], state["count"]) != (FINETUNE_COLOR_STEPS, 0):
+        raise AssertionError(f"finetune_color: saved step {state['step']}, count {state['count']}")
+    del state
+    baked = os.path.join(work, "color_baked")
+    _timed_tool(secs, "bake_artifact", bake_artifact.main, ["--state", color_out, "--out", baked, "--normal_mode",
+                                                            "analytic"])
+    psnr_argv = ["--data_path", root, "--views", TOOLS_VIEWS, "--level", str(TOOLS_LEVEL), "--gt_mode", "raw"]
+    psnr = {
+        "tuned_analytic": _timed_tool(secs, "eval_psnr tuned", eval_psnr.main, [
+            "--ckpt", os.path.join(baked, "bare_smpl_tpu.pth.tar"), "--grid_path", os.path.join(baked, "grid.npy"),
+            "--normal_mode", "analytic"] + psnr_argv),
+        "artifact_analytic": _timed_tool(secs, "eval_psnr artifact analytic", eval_psnr.main, [
+            "--ckpt", bench.ARTIFACT_CKPT, "--grid_path", bench.ARTIFACT_GRID, "--normal_mode", "analytic"] + psnr_argv),
+    }
+    expect("eval_psnr", 2 * len(views))
+    print(f"finetune_color ({card_line()}): {FINETUNE_COLOR_STEPS} steps from the artifact under analytic normals, "
+          f"losses {json.dumps([round(l, 6) for l in color['losses']])}; {frozen} frozen leaves bitwise the "
+          f"artifact's, {moved} color leaves moved; PSNR (raw, {TOOLS_LEVEL}x down) " + json.dumps(
+              {k: {"mean": v["mean_psnr"], "normal_mode": v["normal_mode"]} for k, v in psnr.items()})
+          + " (the artifact's under its own fd4: the tools phase)", flush=True)
+    shutil.rmtree(baked, ignore_errors=True)
+    os.remove(color_out)
+
+    # finetune_ss: two graphed calls of the supersampled step from the fast run's state
+    ss_out, steps = os.path.join(work, "ss.pt"), 2 * FINETUNE_SS_SCAN
+    ss = _timed_tool(secs, "finetune_ss", finetune_ss.main, [
+        "--state", os.path.join(fast, "state_latest.pt"), "--out", ss_out, "--data_path", root, "--ss",
+        str(FINETUNE_SS), "--steps", str(steps), "--scan", str(FINETUNE_SS_SCAN), "--grid_refresh", str(steps),
+        "--save_every", str(FINETUNE_SS_SCAN)])
+    expect("finetune_ss", steps + 3, steps)
+    latest, final = (load_train_state(p, "cpu") for p in (ss_out + "_latest", ss_out))
+    saved = (latest["step"], latest["count"], final["step"], final["count"])
+    want_saved = (RECON_STEPS + FINETUNE_SS_SCAN, FINETUNE_SS_SCAN, RECON_STEPS + steps, steps)
+    if saved != want_saved or not (np.isfinite(ss["final_loss"]) and torch.isfinite(final["grid"]).all()):
+        raise AssertionError(f"finetune_ss: saved (step, count) x 2 {saved}, expected {want_saved}; {ss}")
+    print(f"finetune_ss ({card_line()}): {json.dumps(ss)}; saved (step, count) {saved[:2]} and {saved[2:]}; the "
+          f"refreshed grid's max {float(final['grid'].max()):.4g}", flush=True)
+    del latest, final
+    shutil.rmtree(fast, ignore_errors=True)  # the fast run's train states (about 0.9 GB each)
+    for p in (ss_out, ss_out + "_latest"):
+        os.remove(p)
+
+    # train_toy_guidance: the dataset rendered from the artifact, a few DDPM steps
+    toy_out = os.path.join(work, "toy")
+    meta = _timed_tool(secs, "train_toy_guidance", train_toy_guidance.main, [
+        "--artifact", bench.ARTIFACT_DIR, "--out", toy_out, "--views", str(TOY_TRAIN_VIEWS), "--res", str(TOY_TRAIN_RES), "--steps",
+        str(TOY_TRAIN_STEPS), "--scan", str(TOY_TRAIN_SCAN)])
+    expect("train_toy_guidance", -(-meta["views"] // train_toy_guidance.RENDER_GROUP))
+    params, cfg, embs = load_toy_guidance(toy_out, "cuda")
+    lat = torch.randn((1, 3, TOY_TRAIN_RES, TOY_TRAIN_RES), generator=torch.Generator("cuda").manual_seed(0),
+                      device="cuda")
+    modules = make_toy_modules(params, cfg, embs)
+    with torch.no_grad():
+        eps = modules.unet(lat, torch.tensor([SDS_T], device="cuda"), modules.text_encode(["lava"]))
+    if not (np.isfinite(meta["final_loss"]) and eps.shape == lat.shape and torch.isfinite(eps).all()):
+        raise AssertionError(f"train_toy_guidance: {meta}, eps finite {bool(torch.isfinite(eps).all())}")
+    print(f"train_toy_guidance ({card_line()}): {json.dumps(meta)}; loaded, eps of one input finite, "
+          f"|eps| {float(eps.abs().mean()):.4f}", flush=True)
+
+    # make_demo_body: both rigs, each animated for one warp frame
+    art_params, art_fcfg = load_params_with_config(bench.ARTIFACT_CKPT, "cuda")
+    bodies = {}
+    for rig in ("root", "articulated"):
+        out = os.path.join(work, f"body_{rig}.npz")
+        made = _timed_tool(secs, f"make_demo_body {rig}", make_demo_body.main, [
+            "--ckpt", bench.ARTIFACT_CKPT, "--out", out, "--rig", rig, "--resolution", str(DEMO_BODY_LATTICE)])
+        expect(f"make_demo_body {rig}", 0)
+        bodies[rig] = {"made": made, "frame": _body_frame(out, art_params, art_fcfg)}
+        expect(f"warp frame on the {rig} body", 1)
+    committed = {name: len(np.load(os.path.join(bench.ARTIFACT_DIR, name))["v_template"])
+                 for name in ("demo_body.npz", "demo_body_rig.npz")}
+    print(f"make_demo_body ({card_line()}): " + json.dumps(bodies) + f"; the committed bodies' vertices "
+          f"{json.dumps(committed)}", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    launches = dict(ring.launches)
+    print("finetune: " + json.dumps({"seconds": secs, "launches": launches}), flush=True)
     return launches
 
 
@@ -3558,6 +3776,8 @@ def main() -> int:
             paths["reconstruct_scan"] = check_reconstruct_scan(recon_root)
         with Phase("tools"):
             paths["tools"] = check_tools(recon_root)
+        with Phase("finetune"):
+            paths["finetune"] = check_finetune(recon_root)
         with Phase("parity_render"):
             paths["parity_render"] = check_parity_render()
         with Phase("parity_warp"):

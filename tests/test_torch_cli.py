@@ -11,11 +11,24 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from avatarcraft_tpu_torch import bench
 from avatarcraft_tpu_torch.cli import render_canonical_cli as cli
 
 ARGS = ["--weights_path", bench.ARTIFACT_CKPT, "--grid_path", bench.ARTIFACT_GRID, "--sampler", "fast"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work (tier-1 runs six
+    pytest workers on the machine's cores, and the CPU renders here ran up
+    to fifty times slower under them than alone). Restored after the
+    module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.skipif(not os.path.exists(bench.ARTIFACT_CKPT), reason="artifact not present")

@@ -106,6 +106,10 @@ TOOL_MODULES = (
     "avatarcraft_tpu_torch.tools.bake_artifact",
     "avatarcraft_tpu_torch.tools.prune_grid",
     "avatarcraft_tpu_torch.tools.style_delta",
+    "avatarcraft_tpu_torch.tools.finetune_color",
+    "avatarcraft_tpu_torch.tools.finetune_ss",
+    "avatarcraft_tpu_torch.tools.train_toy_guidance",
+    "avatarcraft_tpu_torch.tools.make_demo_body",
 )
 
 
@@ -489,6 +493,10 @@ def test_tools_default_to_cuda(monkeypatch, tmp_path):
         "bake_artifact": ["--state", "x"],
         "prune_grid": ["--ckpt", "x", "--out", str(tmp_path / "x.npy")],
         "style_delta": ["unpack", "--base", "x", "--delta", "x", "--out", "x"],
+        "finetune_color": ["--state", "x", "--out", "x"],
+        "finetune_ss": ["--state", "x", "--out", "x"],
+        "train_toy_guidance": [],
+        "make_demo_body": [],
     }
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for name in TOOL_MODULES:

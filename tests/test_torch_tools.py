@@ -4,7 +4,11 @@ package's root ``tools/``, on the CPU, at small sizes: a 16x16 disc set of
 4 views, a pyramid field with f32 tables (tests/test_torch_stylize.py's),
 the TINY toy guidance, 2 views at 16x16 for eval_style, a 17^3 refresh
 for prune_grid. Each JAX tool's ``main`` runs once, in the module fixture
-``jax_runs``; the port's tools run with ``--platform cpu``.
+``jax_runs``; the port's tools run with ``--platform cpu``. The parsers of
+the fine-tune and asset tools (finetune_color, finetune_ss,
+train_toy_guidance, make_demo_body; held to JAX in
+tests/test_torch_finetune.py and tests/test_torch_toy_train.py) are
+compared here with the others'.
 
 Tolerances:
 * eval_psnr: every per-view PSNR, the mean and the band statistics'
@@ -610,35 +614,44 @@ def _flags(parser):
         if isinstance(a, argparse._SubParsersAction):
             out[a.dest] = {name: _flags(p) for name, p in a.choices.items()}
             continue
-        typed = None if a.type is None else [a.type(s) for s in ("3", "false", "True")] if a.type is not int \
-            else int
+        typed = None if a.type is None else a.type if a.type in (int, float) \
+            else [a.type(s) for s in ("3", "false", "True")]
         out[a.dest] = (tuple(a.option_strings), a.default, a.choices, a.required, type(a).__name__, typed)
     return out
 
 
-@pytest.mark.parametrize("name", ["eval_psnr", "eval_style", "bake_artifact", "prune_grid", "style_delta"])
+TOOL_NAMES = ["eval_psnr", "eval_style", "bake_artifact", "prune_grid", "style_delta", "finetune_color",
+              "finetune_ss", "train_toy_guidance", "make_demo_body"]
+
+
+@pytest.mark.parametrize("name", TOOL_NAMES)
 def test_parsers_match_jax(name):
     """Each tool's flags, defaults, choices and types are the root tool's,
     except where the port differs on purpose: ``--platform`` defaults to
-    the card (``default``) where the JAX eval_psnr and prune_grid default
-    to ``cpu``, bake_artifact and style_delta (which always read on the
-    CPU in JAX) take it too, and eval_psnr reads ``--white_bkg`` as a
-    boolean and defaults ``--data_path`` to reconstruct_cli's."""
-    port = {"eval_psnr": eval_psnr, "eval_style": eval_style, "bake_artifact": bake_artifact,
-            "prune_grid": prune_grid, "style_delta": style_delta}[name]
-    jmain = {"eval_psnr": jeval_psnr.main, "eval_style": jeval_style.main, "bake_artifact": jbake.main,
-             "prune_grid": jprune.main, "style_delta": jstyle_delta.main}[name]
+    the card (``default``) where the JAX eval_psnr, prune_grid and
+    make_demo_body default to ``cpu``, bake_artifact, style_delta and the
+    two fine-tunes (which run where JAX puts them, no flag) take it too,
+    eval_psnr reads ``--white_bkg`` as a boolean, and eval_psnr and the
+    fine-tunes default ``--data_path`` to reconstruct_cli's."""
+    import importlib
+
+    port = importlib.import_module(f"avatarcraft_tpu_torch.tools.{name}")
+    jmain = importlib.import_module(f"tools.{name}").main
     got, want = _flags(port.build_parser()), _flags(_jax_parser(jmain))
     platform = (("--platform",), "default", ["cpu", "default"], False, "_StoreAction", None)
     if name == "style_delta":
         for sub in ("pack", "unpack"):
             assert got["cmd"][sub].pop("platform") == platform
-    elif name in ("bake_artifact",):
+    elif name in ("bake_artifact", "finetune_color", "finetune_ss"):
+        assert "platform" not in want
         assert got.pop("platform") == platform
     else:
         jplat = want.pop("platform")
         assert got.pop("platform") == platform
-        assert jplat[1] == ("default" if name == "eval_style" else "cpu")
+        assert jplat[1] == ("default" if name in ("eval_style", "train_toy_guidance") else "cpu")
+    if name in ("finetune_color", "finetune_ss"):
+        assert want.pop("data_path")[1].endswith("/data/smpl_da_512")
+        assert got.pop("data_path")[1] == "data/smpl_da_512"
     if name == "eval_psnr":
         # the JAX tool's set lies at an absolute path of its own machine; the
         # port's default is reconstruct_cli's, relative to the working directory
