@@ -669,7 +669,9 @@ def _probe_occupied(rays_o, rays_d, near, far, cfg: FastRenderConfig, density_gr
     """M uniform probe depths per ray + their fine-grid occupancy (bool),
     looked up through the bit-packed table."""
     t = _linspace01(cfg.n_probes, rays_o.device)
-    z_probe = near + (far - near) * t[None, :]
+    # one fused multiply-add, as XLA fuses the JAX package's expression: a
+    # depth rounded twice can move a probe across a cell face
+    z_probe = torch.addcmul(near, far - near, t[None, :])
     p_probe = rays_o[:, None, :] + rays_d[:, None, :] * z_probe[..., None]
     thresh = torch.clamp(density_grid.mean(), max=cfg.occ_threshold)
     packed = pack_occupancy_bits(density_grid, thresh)

@@ -29,6 +29,7 @@ JAX package computes it); it replaces no Pallas kernel.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import dataclasses
 import math
 import os
@@ -147,6 +148,17 @@ def _transformer(p: dict, x: torch.Tensor, ctx: torch.Tensor, heads: int, groups
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
+
+
+class MetaGenerator(torch.Generator):
+    """A generator whose draws land on the ``meta`` device: the ``init_*``
+    functions draw on their generator's device, so under this one they
+    build a tree's structure and shapes without memory (what
+    ``jax.eval_shape`` of an init gives)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
 
 
 def _uniform(gen, shape, bound):
@@ -590,12 +602,31 @@ class KeyAudit(dict):
                              f"e.g. {stray[:5]}")
 
 
+_KEEP_SOURCE_DTYPES = contextvars.ContextVar("keep_source_dtypes", default=False)
+
+
+@contextlib.contextmanager
+def source_dtypes():
+    """Within the block the converters keep each state-dict value's dtype
+    (float64 narrowed to float32), as the JAX package's converters keep
+    numpy's; outside it every converted leaf is float32. The leaves a
+    converter makes up (a missing bias, the VAE's time projection) are
+    float32 either way."""
+    token = _KEEP_SOURCE_DTYPES.set(True)
+    try:
+        yield
+    finally:
+        _KEEP_SOURCE_DTYPES.reset(token)
+
+
 def _tensor(v, device) -> torch.Tensor:
-    """A state-dict value (torch tensor or numpy array) as an f32 copy on
-    ``device``."""
+    """A state-dict value (torch tensor or numpy array) as a copy on
+    ``device``: float32, or its own dtype within ``source_dtypes``."""
+    keep = _KEEP_SOURCE_DTYPES.get()
     if not isinstance(v, torch.Tensor):
-        v = torch.from_numpy(np.array(v, np.float32))
-    return v.to(device=device, dtype=torch.float32, copy=True)
+        v = torch.from_numpy(np.array(v) if keep else np.array(v, np.float32))
+    dtype = (torch.float32 if v.dtype == torch.float64 else v.dtype) if keep else torch.float32
+    return v.to(device=device, dtype=dtype, copy=True)
 
 
 def _t_conv(sd, prefix, device):

@@ -227,6 +227,24 @@ Phases, each printed with its start, end and wall seconds:
               gather and one reduce-scatter a supersampled step (the
               graph's replays counted), counted exactly; each tool's wall
               seconds. The fast run's files are removed after it;
+19e. probes -- the last root tools' twins on the card: preflight_sd on an
+              SD 1.5 diffusers snapshot this phase writes (f16
+              .safetensors by the port's writer, seeded random weights
+              under the published key layout, no tokenizer), GO and exit
+              0 with every smoke flag true; synth_gt_band_check of the
+              artifact on view 13 of the reconstruct set at 512, ss 4 and
+              2 (4,194,304 and 1,048,576 rays after one gather), every
+              number finite; sds_scale_probe for 2 steps (SD 1.5 from
+              random weights, a fresh field, 256x256), finite, with the
+              memory counters; profile_stylize_fine at batch 32,768 on
+              the artifact with the toy guidance, lava, PROBES_FINE_STEPS
+              steps with a refresh every PROBES_FINE_REFRESH (cut from 40
+              and 10), its derived budget and steps/s; the
+              postprocess_multi.sh twin for lava at RES 64 and TRAJ 2 on a
+              run directory unpacked from the committed lava delta, in a
+              scratch tree (every output file present), its processes'
+              K10 launches read through a sitecustomize hook. K10 counted
+              exactly per tool; each tool's wall seconds;
 20. parity_render -- the canonical CLI (cli.render_canonical_cli.main) at
               its defaults, --sampler parity (64+64, no jitter, the
               artifact's fd4, 4096-ray chunks), with --log_extra true,
@@ -337,9 +355,11 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import shutil
+import subprocess
 import sys
 import tempfile
 import time
@@ -400,12 +420,17 @@ from avatarcraft_tpu_torch.tools import (
     finetune_color,
     finetune_ss,
     make_demo_body,
+    preflight_sd,
+    profile_stylize_fine,
     prune_grid,
     run_multi_stylize,
+    sds_scale_probe,
     style_delta,
+    synth_gt_band_check,
     train_toy_guidance,
 )
 from avatarcraft_tpu_torch.utils import cuda_build, gif, marching_cubes as mc, native, orbax
+from avatarcraft_tpu_torch.utils.safetensors import save_file as save_safetensors
 from avatarcraft_tpu_torch.utils.style_delta import apply_delta
 from avatarcraft_tpu_torch.utils.metrics import integerify_img
 from avatarcraft_tpu_torch.utils.png import read_png, write_png
@@ -530,6 +555,32 @@ FINETUNE_COLOR_STEPS = 8
 FINETUNE_SS, FINETUNE_SS_SCAN = 2, 5
 TOY_TRAIN_VIEWS, TOY_TRAIN_RES, TOY_TRAIN_STEPS, TOY_TRAIN_SCAN = 16, 64, 10, 5
 DEMO_BODY_LATTICE, DEMO_BODY_RES = 128, 32  # make_demo_body's default lattice; each made body's warp frame
+# probes: synth_gt_band_check's view of the reconstruct set; sds_scale_probe's
+# steps; profile_stylize_fine cut from 40 steps with a refresh every 10; the
+# postprocess script for one prompt at a small frame and trajectory
+PROBES_BAND_VIEW, PROBES_SDS_STEPS = 13, 2
+PROBES_FINE_STEPS, PROBES_FINE_REFRESH = 12, 5
+PROBES_POST_RES, PROBES_POST_TRAJ, PROBES_POST_PROMPT = 64, 2, "lava"
+# appended to each of the postprocess script's Python processes: the K10
+# launches it made, one JSON line a process, into $K10_LAUNCHES_OUT (the
+# installation's own sitecustomize, if any, still runs)
+LAUNCH_HOOK = '''import atexit, json, os, sys
+
+def _record():
+    ring = sys.modules.get("avatarcraft_tpu_torch.parallel.ring")
+    with open(os.environ["K10_LAUNCHES_OUT"], "a") as fp:
+        fp.write(json.dumps({"argv": [os.path.basename(sys.argv[0])] + sys.argv[1:3],
+                             "launches": dict(ring.launches) if ring else {}}) + "\\n")
+
+atexit.register(_record)
+_here = os.path.dirname(os.path.abspath(__file__))
+sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != _here]
+del sys.modules["sitecustomize"]
+try:
+    import sitecustomize  # noqa: F401
+except ImportError:
+    pass
+'''
 # one parity step of the hash grid, card against CPU, on a 32x32 block of
 # view 0: the loss as the fast step's (TRAIN_LOSS_RTOL); every gradient
 # leaf, the hash table's included, within 1e-2 x its max|g|. Both devices
@@ -2501,6 +2552,297 @@ def check_finetune(root: str) -> dict:
     return launches
 
 
+# -- the last root tools' twins ------------------------------------------------
+
+
+def _sd15_state_dicts(gen: torch.Generator) -> dict:
+    """{module: state dict} of SD 1.5 under the diffusers / transformers key
+    names the converters read (the layout of tests/test_sd_converters.py's
+    build_unet_sd and build_vae_sd, the VAE's >= 0.17 attention names, and
+    tests/test_torch_sd.py's build_clip_sd), float16 on the CPU: weights
+    normal / sqrt(fan-in) drawn on ``gen``'s device, biases 0, norms 1 and 0."""
+    out = {}
+
+    def draw(sd_, pre, shape, fan_in, bias=True):
+        sd_[f"{pre}.weight"] = (torch.randn(shape, generator=gen, device=gen.device) / fan_in**0.5).half().cpu()
+        if bias:
+            sd_[f"{pre}.bias"] = torch.zeros(shape[0], dtype=torch.float16)
+
+    def conv(sd_, pre, cin, cout, k=3):
+        draw(sd_, pre, (cout, cin, k, k), cin * k * k)
+
+    def lin(sd_, pre, cin, cout, bias=True):
+        draw(sd_, pre, (cout, cin), cin, bias)
+
+    def norm(sd_, pre, c):
+        sd_[f"{pre}.weight"], sd_[f"{pre}.bias"] = torch.ones(c, dtype=torch.float16), torch.zeros(c, dtype=torch.float16)
+
+    def resnet(sd_, pre, cin, cout, temb=None):
+        norm(sd_, f"{pre}.norm1", cin)
+        conv(sd_, f"{pre}.conv1", cin, cout)
+        if temb:
+            lin(sd_, f"{pre}.time_emb_proj", temb, cout)
+        norm(sd_, f"{pre}.norm2", cout)
+        conv(sd_, f"{pre}.conv2", cout, cout)
+        if cin != cout:
+            conv(sd_, f"{pre}.conv_shortcut", cin, cout, k=1)
+
+    def transformer(sd_, pre, c, ctx):
+        norm(sd_, f"{pre}.norm", c)
+        conv(sd_, f"{pre}.proj_in", c, c, k=1)
+        blk = f"{pre}.transformer_blocks.0"
+        for i, kv in ((1, c), (2, ctx)):
+            norm(sd_, f"{blk}.norm{i}", c)
+            lin(sd_, f"{blk}.attn{i}.to_q", c, c, bias=False)
+            lin(sd_, f"{blk}.attn{i}.to_k", kv, c, bias=False)
+            lin(sd_, f"{blk}.attn{i}.to_v", kv, c, bias=False)
+            lin(sd_, f"{blk}.attn{i}.to_out.0", c, c)
+        norm(sd_, f"{blk}.norm3", c)
+        lin(sd_, f"{blk}.ff.net.0.proj", c, 8 * c)
+        lin(sd_, f"{blk}.ff.net.2", 4 * c, c)
+        conv(sd_, f"{pre}.proj_out", c, c, k=1)
+
+    ucfg, vcfg, tcfg = sd.stable_diffusion_configs("1.5")
+    u, ch, temb = {}, ucfg.block_out_channels, ucfg.time_embed_dim
+    conv(u, "conv_in", ucfg.in_channels, ch[0])
+    lin(u, "time_embedding.linear_1", ch[0], temb)
+    lin(u, "time_embedding.linear_2", temb, temb)
+    cin = ch[0]
+    for i, cout in enumerate(ch):
+        for j in range(ucfg.layers_per_block):
+            resnet(u, f"down_blocks.{i}.resnets.{j}", cin, cout, temb)
+            if ucfg.attn_blocks[i]:
+                transformer(u, f"down_blocks.{i}.attentions.{j}", cout, ucfg.cross_attention_dim)
+            cin = cout
+        if i < len(ch) - 1:
+            conv(u, f"down_blocks.{i}.downsamplers.0.conv", cout, cout)
+    resnet(u, "mid_block.resnets.0", ch[-1], ch[-1], temb)
+    transformer(u, "mid_block.attentions.0", ch[-1], ucfg.cross_attention_dim)
+    resnet(u, "mid_block.resnets.1", ch[-1], ch[-1], temb)
+    rev = list(reversed(ch))
+    for i, cout in enumerate(rev):
+        for j in range(ucfg.layers_per_block + 1):
+            skip = rev[min(i + 1, len(ch) - 1)] if j == ucfg.layers_per_block else cout
+            resnet(u, f"up_blocks.{i}.resnets.{j}", cin + skip, cout, temb)
+            if list(reversed(ucfg.attn_blocks))[i]:
+                transformer(u, f"up_blocks.{i}.attentions.{j}", cout, ucfg.cross_attention_dim)
+            cin = cout
+        if i < len(ch) - 1:
+            conv(u, f"up_blocks.{i}.upsamplers.0.conv", cout, cout)
+    norm(u, "conv_norm_out", ch[0])
+    conv(u, "conv_out", ch[0], ucfg.out_channels)
+    out["unet"] = u
+
+    v, ch = {}, vcfg.block_out_channels
+    conv(v, "encoder.conv_in", vcfg.in_channels, ch[0])
+    cin = ch[0]
+    for i, cout in enumerate(ch):
+        for j in range(vcfg.layers_per_block):
+            resnet(v, f"encoder.down_blocks.{i}.resnets.{j}", cin, cout)
+            cin = cout
+        if i < len(ch) - 1:
+            conv(v, f"encoder.down_blocks.{i}.downsamplers.0.conv", cout, cout)
+    rev = tuple(reversed(ch))
+    for half, c in (("encoder", ch[-1]), ("decoder", rev[0])):
+        resnet(v, f"{half}.mid_block.resnets.0", c, c)
+        norm(v, f"{half}.mid_block.attentions.0.group_norm", c)
+        for n in ("to_q", "to_k", "to_v", "to_out.0"):
+            lin(v, f"{half}.mid_block.attentions.0.{n}", c, c)
+        resnet(v, f"{half}.mid_block.resnets.1", c, c)
+    norm(v, "encoder.conv_norm_out", ch[-1])
+    conv(v, "encoder.conv_out", ch[-1], 2 * vcfg.latent_channels)
+    conv(v, "quant_conv", 2 * vcfg.latent_channels, 2 * vcfg.latent_channels, k=1)
+    conv(v, "post_quant_conv", vcfg.latent_channels, vcfg.latent_channels, k=1)
+    conv(v, "decoder.conv_in", vcfg.latent_channels, rev[0])
+    cin = rev[0]
+    for i, cout in enumerate(rev):
+        for j in range(vcfg.layers_per_block + 1):
+            resnet(v, f"decoder.up_blocks.{i}.resnets.{j}", cin, cout)
+            cin = cout
+        if i < len(rev) - 1:
+            conv(v, f"decoder.up_blocks.{i}.upsamplers.0.conv", cout, cout)
+    norm(v, "decoder.conv_norm_out", rev[-1])
+    conv(v, "decoder.conv_out", rev[-1], vcfg.in_channels)
+    out["vae"] = v
+
+    c, d = {}, tcfg.hidden_size
+    draw(c, "text_model.embeddings.token_embedding", (tcfg.vocab_size, d), d, bias=False)
+    draw(c, "text_model.embeddings.position_embedding", (tcfg.max_len, d), d, bias=False)
+    c["text_model.embeddings.position_ids"] = torch.arange(tcfg.max_len)[None]
+    for i in range(tcfg.num_layers):
+        pre = f"text_model.encoder.layers.{i}"
+        norm(c, f"{pre}.layer_norm1", d)
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            lin(c, f"{pre}.self_attn.{n}", d, d)
+        norm(c, f"{pre}.layer_norm2", d)
+        lin(c, f"{pre}.mlp.fc1", d, 4 * d)
+        lin(c, f"{pre}.mlp.fc2", 4 * d, d)
+    norm(c, "text_model.final_layer_norm", d)
+    out["text_encoder"] = c
+    return out
+
+
+def write_sd15_snapshot(root: str) -> dict:
+    """SD 1.5 as a diffusers snapshot of float16 .safetensors under
+    ``root`` (``_sd15_state_dicts`` seeded 0 on the card); {file: bytes}."""
+    files = {"unet": "unet/diffusion_pytorch_model.safetensors", "vae": "vae/diffusion_pytorch_model.safetensors",
+             "text_encoder": "text_encoder/model.safetensors"}
+    written = {}
+    for mod, state in _sd15_state_dicts(torch.Generator("cuda").manual_seed(0)).items():
+        path = os.path.join(root, files[mod])
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        save_safetensors(state, path, {"format": "pt"})
+        written[files[mod]] = os.path.getsize(path)
+    return written
+
+
+def _run_postprocess(work: str, secs: dict) -> dict:
+    """The postprocess_multi.sh twin for PROBES_POST_PROMPT at
+    PROBES_POST_RES and PROBES_POST_TRAJ in a scratch tree under ``work``
+    (the script at its place, the artifact and toy guidance linked, the run
+    directory unpacked from the committed lava delta): every output file
+    checked; returns the K10 launches of its processes, summed by tool."""
+    tree = os.path.join(work, "tree")
+    script = os.path.join(tree, "avatarcraft_tpu_torch", "tools", "postprocess_multi.sh")
+    os.makedirs(os.path.dirname(script))
+    shutil.copy(os.path.join(HERE, "avatarcraft_tpu_torch", "tools", "postprocess_multi.sh"), script)
+    os.makedirs(os.path.join(tree, "artifacts"))
+    os.makedirs(os.path.join(tree, "docs", "eval"))
+    for name in ("canonical", "toy_guidance"):
+        os.symlink(os.path.join(HERE, "artifacts", name), os.path.join(tree, "artifacts", name))
+    run = os.path.join(tree, "style", "toy", "multi")
+    p = PROBES_POST_PROMPT
+    _timed_tool(secs, "style_delta unpack", style_delta.main, [
+        "unpack", "--base", bench.ARTIFACT_CKPT, "--delta", LAVA_DELTA, "--out",
+        os.path.join(run, f"multi_{p}_final.pth.tar"), "--grid_out", os.path.join(run, f"multi_{p}_grid.npy")])
+    hook = os.path.join(work, "hook")
+    os.makedirs(hook)
+    with open(os.path.join(hook, "sitecustomize.py"), "w") as fp:
+        fp.write(LAUNCH_HOOK)
+    counts_file = os.path.join(work, "k10.jsonl")
+    env = {**os.environ, "RES": str(PROBES_POST_RES), "TRAJ": str(PROBES_POST_TRAJ), "PYTHONPATH": os.pathsep.join(
+        [hook, HERE] + [q for q in os.environ.get("PYTHONPATH", "").split(os.pathsep) if q]),
+        "K10_LAUNCHES_OUT": counts_file}
+    t0 = time.perf_counter()
+    res = subprocess.run(["bash", script, "final", p], env=env, capture_output=True, text=True, timeout=600)
+    secs["postprocess_multi"] = time.perf_counter() - t0
+    print(f"tools postprocess_multi: {secs['postprocess_multi']:.2f} s", flush=True)
+    if res.returncode != 0:
+        raise AssertionError(f"postprocess_multi exited {res.returncode}:\n{res.stdout[-3000:]}\n{res.stderr[-5000:]}")
+    bare = f"multi_bare_{PROBES_POST_RES}"
+    frames = [f"demo/canonical_360/{exp}/{exp}_{pose}_can_{i:04d}.png" for exp in (bare, f"multi_{p}")
+              for pose in ("body", "head") for i in range(PROBES_POST_TRAJ)]
+    gifs = [f"docs/media/multi_{p}_sbs.gif", f"docs/media/multi_{p}_head_sbs.gif"]
+    for rel in frames + gifs + [f"docs/eval/multi_{p}.json", f"artifacts/styled/multi_{p}_delta.npz"]:
+        if not os.path.isfile(os.path.join(tree, rel)):
+            raise AssertionError(f"postprocess_multi: {rel} is missing")
+    for rel in gifs:
+        info = gif.gif_info(os.path.join(tree, rel))
+        if len(info["delays"]) != PROBES_POST_TRAJ:
+            raise AssertionError(f"postprocess_multi: {rel} holds {len(info['delays'])} frames")
+    with open(os.path.join(tree, "docs", "eval", f"multi_{p}.json")) as fp:
+        style = json.load(fp)
+    by_tool = {}
+    with open(counts_file) as fp:
+        for line in fp:
+            rec = json.loads(line)
+            name = rec["argv"][0].removesuffix(".py")
+            tally = by_tool.setdefault(name, {ring.KERNEL: 0, ring.RS_KERNEL: 0})
+            for k in tally:
+                tally[k] += rec["launches"].get(k, 0)
+    print(f"tools postprocess_multi ({card_line()}): {len(frames)} frames, 2 GIFs, eval_style "
+          + json.dumps({k: style[k] for k in ("mean_style_dist", "mean_bare_dist", "improvement_factor")})
+          + f", the delta; K10 by tool {json.dumps(by_tool)}", flush=True)
+    return by_tool
+
+
+def check_probes(root: str) -> dict:
+    """The last root tools' twins on the card (see the module docstring,
+    phase 19e), on the reconstruct phase's set (``root``). K10 counted
+    exactly per tool: preflight_sd none (it renders no field);
+    synth_gt_band_check one gather for both renders; sds_scale_probe one
+    gather when its trainer is built and one gather and one reduce-scatter
+    a step; profile_stylize_fine the same, plus one gather a refresh; the
+    postprocess script one gather a rendered frame (the render CLI's 2 x
+    2 x PROBES_POST_TRAJ, eval_style's 2 x its 4 views), none in
+    make_sbs_gif or style_delta."""
+    work = tempfile.mkdtemp(prefix="probes_", dir=root)
+    secs, want = {}, {ring.KERNEL: 0, ring.RS_KERNEL: 0}
+    _reset_launches()
+
+    def expect(what: str, gathers: int, reduce_scatters: int = 0) -> None:
+        want[ring.KERNEL] += gathers
+        want[ring.RS_KERNEL] += reduce_scatters
+        _expect_launches(f"probes {what}", dict(ring.launches), want)
+
+    snap = os.path.join(work, "sd15")
+    t0 = time.perf_counter()
+    written = write_sd15_snapshot(snap)
+    secs["write SD 1.5 snapshot"] = time.perf_counter() - t0
+    printed = io.StringIO()
+
+    def preflight_main(argv):
+        with contextlib.redirect_stdout(printed):
+            return preflight_sd.main(argv)
+
+    rc = _timed_tool(secs, "preflight_sd", preflight_main, ["--weights", snap])
+    report = json.loads(printed.getvalue().strip().splitlines()[-1])
+    expect("preflight_sd", 0)
+    smoke = report.get("smoke") or {}
+    print(f"tools preflight_sd ({card_line()}): exit {rc}, {json.dumps(report)}; the snapshot's bytes "
+          f"{json.dumps(written)} written in {secs['write SD 1.5 snapshot']:.2f} s", flush=True)
+    if not (rc == 0 and report["go"] and all(smoke.get(k) for k in (
+            "text_embeds_finite", "sds_grad_finite", "sds_grad_nonzero", "txt2img_decoded_finite"))):
+        raise AssertionError("preflight_sd: not GO on the SD 1.5 snapshot")
+    shutil.rmtree(snap)
+    torch.cuda.empty_cache()
+
+    band = _timed_tool(secs, "synth_gt_band_check", synth_gt_band_check.main, [
+        "--ckpt", bench.ARTIFACT_CKPT, "--grid_path", bench.ARTIFACT_GRID, "--data_path", root, "--view",
+        str(PROBES_BAND_VIEW), "--out", os.path.join(work, "band.json")])
+    expect("synth_gt_band_check", 1)
+    numbers = [band[k] for k in ("psnr_vs_synthetic_gt", "band_frac_of_pixels", "band_mse_share", "interior_psnr")]
+    print(f"tools synth_gt_band_check ({card_line()}): {json.dumps(band)}", flush=True)
+    if not (np.isfinite(numbers).all() and 0 < band["band_frac_of_pixels"] < 1):
+        raise AssertionError(f"synth_gt_band_check: {band}")
+
+    torch.cuda.reset_peak_memory_stats()
+    probe = _timed_tool(secs, "sds_scale_probe", sds_scale_probe.main, [str(PROBES_SDS_STEPS)])
+    expect("sds_scale_probe", 1 + PROBES_SDS_STEPS, PROBES_SDS_STEPS)
+    print(f"tools sds_scale_probe ({card_line()}): {json.dumps(probe)}", flush=True)
+    mem = probe["mem_after_steps_GiB"]
+    if not (np.isfinite([probe["step0_s_with_compile"], probe["steady_step_s"], probe["sds_iters_per_sec"]]).all()
+            and probe["unet_params_M"] == 859.6 and mem["peak_bytes_in_use"] > 0):
+        raise AssertionError(f"sds_scale_probe: {probe}")
+    torch.cuda.empty_cache()
+
+    fine = _timed_tool(secs, "profile_stylize_fine", profile_stylize_fine.main, [
+        "--weights_path", bench.ARTIFACT_CKPT, "--grid_path", bench.ARTIFACT_GRID, "--toy_weights", TOY_DIR,
+        "--steps", str(PROBES_FINE_STEPS), "--grid_update_every", str(PROBES_FINE_REFRESH)])
+    refreshes = PROBES_FINE_STEPS // PROBES_FINE_REFRESH
+    expect("profile_stylize_fine", 1 + PROBES_FINE_STEPS + refreshes, PROBES_FINE_STEPS)
+    print(f"tools profile_stylize_fine ({card_line()}): {json.dumps(fine)}", flush=True)
+    if not (np.isfinite(fine["steps_per_sec"]) and fine["config"]["budget"] > 0
+            and np.isfinite([fine["occ_frac_start"], fine["occ_frac_end"]]).all()):
+        raise AssertionError(f"profile_stylize_fine: {fine}")
+
+    by_tool = _run_postprocess(work, secs)
+    frames = 2 * 2 * PROBES_POST_TRAJ  # the bare and the styled orbit, body and head
+    want_by_tool = {"render_canonical_cli": {ring.KERNEL: frames, ring.RS_KERNEL: 0},
+                    "make_sbs_gif": {ring.KERNEL: 0, ring.RS_KERNEL: 0},
+                    "eval_style": {ring.KERNEL: 2 * TOOLS_STYLE_VIEWS, ring.RS_KERNEL: 0},
+                    "style_delta": {ring.KERNEL: 0, ring.RS_KERNEL: 0}}
+    if by_tool != want_by_tool:
+        raise AssertionError(f"postprocess_multi: K10 launches {by_tool}, expected {want_by_tool}")
+    launches = dict(ring.launches)
+    for tally in by_tool.values():
+        for k, n in tally.items():
+            launches[k] += n
+    shutil.rmtree(work, ignore_errors=True)
+    print("probes: " + json.dumps({"seconds": secs, "launches": launches}), flush=True)
+    return launches
+
+
 def recon_parity_checkpoint(root: str) -> str:
     """The hash-grid checkpoint that check_reconstruct's parity CLI run wrote."""
     return os.path.join(root, "out", "parity", "parity_final.pth.tar")
@@ -3778,6 +4120,8 @@ def main() -> int:
             paths["tools"] = check_tools(recon_root)
         with Phase("finetune"):
             paths["finetune"] = check_finetune(recon_root)
+        with Phase("probes"):
+            paths["probes"] = check_probes(recon_root)
         with Phase("parity_render"):
             paths["parity_render"] = check_parity_render()
         with Phase("parity_warp"):

@@ -29,7 +29,7 @@ from avatarcraft_tpu_torch.utils.png import write_png
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(avatarcraft_tpu_torch.__file__))
 BLOCKED = ("jax", "jaxlib", "imageio", "cv2", "PIL", "avatarcraft_tpu", "regex", "transformers", "diffusers",
-           "orbax", "tensorstore", "zstandard", "tools")
+           "orbax", "tensorstore", "zstandard", "safetensors", "tools")
 KERNELS = (ring.KERNEL, ring.RS_KERNEL)
 # modules of the training slice, which the import guard must reach
 TRAIN_MODULES = (
@@ -110,6 +110,15 @@ TOOL_MODULES = (
     "avatarcraft_tpu_torch.tools.finetune_ss",
     "avatarcraft_tpu_torch.tools.train_toy_guidance",
     "avatarcraft_tpu_torch.tools.make_demo_body",
+    "avatarcraft_tpu_torch.tools.preflight_sd",
+    "avatarcraft_tpu_torch.tools.synth_gt_band_check",
+    "avatarcraft_tpu_torch.tools.sds_scale_probe",
+    "avatarcraft_tpu_torch.tools.profile_stylize_fine",
+)
+# tools that compute on the host alone (no device, no --platform)
+HOST_TOOL_MODULES = (
+    "avatarcraft_tpu_torch.tools.make_sbs_gif",
+    "avatarcraft_tpu_torch.utils.safetensors",
 )
 
 
@@ -130,7 +139,7 @@ for m in pkgutil.walk_packages(avatarcraft_tpu_torch.__path__, "avatarcraft_tpu_
     importlib.import_module(m.name)
 import chip_smoke
 missing = [m for m in {TRAIN_MODULES + WARP_MODULES + STYLIZE_MODULES + SD_MODULES + RECON_MODULES + MULTI_MODULES
-                      + OUTPUT_MODULES + MESH_MODULES + LEGACY_MODULES + TOOL_MODULES!r}
+                      + OUTPUT_MODULES + MESH_MODULES + LEGACY_MODULES + TOOL_MODULES + HOST_TOOL_MODULES!r}
            if m not in sys.modules]
 print("imports ok" if not missing else f"not imported: {{missing}}")
 """
@@ -184,7 +193,7 @@ def _port_sources():
         if "_build" in root or "__pycache__" in root:
             continue
         for f in files:
-            if f.endswith((".py", ".cu", ".cuh")):
+            if f.endswith((".py", ".cu", ".cuh", ".sh")):
                 yield os.path.join(root, f)
 
 
@@ -196,7 +205,7 @@ def test_port_never_names_the_jax_package():
             text = fp.read()
         assert not re.search(r"avatarcraft_tpu(?!_torch)", text), path
         assert not re.search(r"^\s*(import|from)\s+(jax|imageio|cv2|regex|transformers|diffusers|orbax|tensorstore"
-                             r"|zstandard|tools)\b", text, re.M), path
+                             r"|zstandard|safetensors|tools)\b", text, re.M), path
 
 
 def test_chip_smoke_without_card_fails():
@@ -497,6 +506,10 @@ def test_tools_default_to_cuda(monkeypatch, tmp_path):
         "finetune_ss": ["--state", "x", "--out", "x"],
         "train_toy_guidance": [],
         "make_demo_body": [],
+        "preflight_sd": ["--weights", "x"],
+        "synth_gt_band_check": [],
+        "sds_scale_probe": ["1"],
+        "profile_stylize_fine": [],
     }
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for name in TOOL_MODULES:
@@ -515,6 +528,29 @@ def test_tools_default_to_cuda(monkeypatch, tmp_path):
     assert tool_device("cpu") == "cpu"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert tool_device("default") == "cuda"
+
+
+def test_postprocess_script_defaults_to_cuda():
+    """The port's postprocess_multi.sh runs every step on the card unless
+    PLATFORM=cpu: the render CLI gets --use_cuda from it, each tool that
+    has a device its --platform; it calls the port's modules alone (no
+    root script, no root tool) and keeps the JAX script's variables."""
+    path = os.path.join(PKG, "tools", "postprocess_multi.sh")
+    with open(path) as fp:
+        text = fp.read()
+    assert "PLATFORM=${PLATFORM:-default}" in text
+    for var in ("RUN_DIR=${RUN_DIR:-style/toy/multi}", "RES=${RES:-256}", "TRAJ=${TRAJ:-30}", "SUFFIX=${SUFFIX:-}"):
+        assert var in text, var
+    calls = re.findall(r"^\s*python3? (\S+)(.*?)(?<!\\)\n", text, re.S | re.M)
+    assert len(calls) == 6
+    for target, args in calls:
+        assert target == "-m" and args.split()[0].startswith("avatarcraft_tpu_torch."), (target, args)
+        module = args.split()[0]
+        if module.endswith("render_canonical_cli"):
+            assert "--use_cuda $USE_CUDA" in args
+        elif not module.endswith("make_sbs_gif"):
+            assert "--platform $PLATFORM" in args, module
+    assert "default) USE_CUDA=true;;" in text and "cpu) USE_CUDA=false;;" in text
 
 
 def test_bench_refuses_cpu():
