@@ -17,8 +17,12 @@ raises:
 * ``reduce_scatter_rows`` (``csrc/reduce_scatter_rows.cu``), the backward:
   the m replicas' cotangent tables summed in replica order and split into
   the n shard gradients, with the m + n pointers passed by value as the
-  gather passes its own (at most ``MAX_TABLES``). Plain version: the same
-  f32 adds in the same order, then the split.
+  gather passes its own (at most ``MAX_TABLES``), the flat output cut into
+  pieces whose load and store widths follow their alignment: at m = 1 (one
+  card) the gather's staged TMA bulk copy where each shard's source and
+  output agree mod 16, otherwise a block of in-order f32 sums a 4 KB
+  chunk. Plain version: the same f32 adds in the same order, then the
+  split.
 
 Neither wrapper copies anything to the card, so a launch captured into a
 CUDA graph holds all it reads (``workloads/reconstruct.py``'s graphed

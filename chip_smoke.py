@@ -16,10 +16,13 @@ Phases, each printed with its start, end and wall seconds:
               and ragged and misaligned cases (through the wrapper, and
               launched over an output of all-ones bytes), and reduce_scatter_rows
               against its plain version for m = 1/2/4 replicas x n =
-              1/2/4/8 shards of that table in f32 and two ragged cases:
-              bitwise equal; neither wrapper puts a host-to-device copy
-              on the card (torch.profiler; both pass their pointers by
-              value); times each kernel, its
+              1/2/4/8 shards of that table in f32, ragged cases (shards of
+              1, 2 and 3 floats mod 4 at n = 2, 3, 5), cotangents 4, 8 and
+              12 bytes past a 16-byte boundary, m + n = 128, m = 1/2/3/8
+              at the hash table and a captured CUDA graph replayed on
+              inputs changed in place: bitwise equal; neither wrapper
+              puts a host-to-device copy on the card (torch.profiler;
+              both pass their pointers by value); times each kernel, its
               wrapper, plain version and library call with CUDA events
               (``kernel_ms``: the kernel alone, printed again as ``ms`` in
               the kernels line; ``wrapper_ms``: with the wrapper's
@@ -27,7 +30,10 @@ Phases, each printed with its start, end and wall seconds:
               with the L2 cache flushed before every call
               (``kernel_cold_ms``, ``library_cold_ms``; the
               reduce-scatter's ``wrapper_cold_ms`` too, also at the hash
-              table's shape), as the main paths
+              table's shape and for a cotangent 4 bytes past a 16-byte
+              boundary, its one-call yardstick Tensor.clone at m = 1
+              and torch.stack(...).sum(0) as ``stack_sum_*`` at m = 4, each
+              kernel time beside its ``share_of_bound*``), as the main paths
               find the table, and the profiler's device time of what each
               call launches in that cold loop (``kernel_cold_device_ms``,
               ``library_cold_device_ms``);
@@ -802,16 +808,31 @@ def check_gather_kernel() -> dict:
     return {"max_abs_err": max_err, **timings[1]}
 
 
+def _misaligned(gen, rows: int, cols: int, floats: int) -> torch.Tensor:
+    """A [rows, cols] f32 view that starts ``floats`` x 4 bytes past a
+    16-byte boundary of a larger buffer."""
+    base = torch.randn(rows * cols + 4, generator=gen, device="cuda")
+    return base[floats:floats + rows * cols].view(rows, cols)
+
+
+def _share_of_bound(t: dict) -> dict:
+    """The bound over each of the kernel's times."""
+    return {f"share_of_bound{k[len('kernel'):-len('_ms')]}": t["bound_ms"] / t[k]
+            for k in ("kernel_ms", "kernel_cold_ms", "kernel_cold_device_ms")}
+
+
 def check_reduce_scatter_kernel() -> dict:
     """reduce_scatter_rows vs its plain version, bitwise, for m replicas x
-    n shards of the 128^3 x 4 table and two ragged cases; timings at the
-    training path's shape (one replica, one shard per card)."""
+    n shards of the 128^3 x 4 table, ragged, misaligned and capped cases,
+    the hash table and a captured and replayed CUDA graph; timings at the
+    training path's shape (one replica, one shard per card), at 4 shards,
+    4 replicas, the hash table and a cotangent 4 bytes past a boundary."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     max_err, n_cases = 0.0, 0
 
-    def check(cts, n, what):
+    def check(cts, n, what, got=None):
         nonlocal max_err, n_cases
-        got = ring.reduce_scatter_rows(cts, n)
+        got = ring.reduce_scatter_rows(cts, n) if got is None else got
         want = ring.reduce_scatter_rows_plain(cts, n)
         torch.cuda.synchronize()
         if len(got) != n or not all(_same_bits(g, w) for g, w in zip(got, want)):
@@ -819,49 +840,92 @@ def check_reduce_scatter_kernel() -> dict:
         max_err = max(max_err, max(float((g - w).abs().max()) for g, w in zip(got, want)))
         n_cases += 1
 
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
     for m in (1, 2, 4):
-        cts = [torch.randn(GRID_ROWS, GRID_COLS, generator=gen, device="cuda") for _ in range(m)]
+        cts = [randn(GRID_ROWS, GRID_COLS) for _ in range(m)]
         for n in (1, 2, 4, 8):
             check(cts, n, f"m={m} n={n} [{GRID_ROWS},{GRID_COLS}]")
-    # 3-float rows, shards of 3003 floats: the scalar path
-    check([torch.randn(3 * 1001, 3, generator=gen, device="cuda") for _ in range(2)], 3, "m=2 n=3 [3003,3]")
+    # 3-float rows, shards of 3003 floats: no 16-byte middle in shards 1 and 2
+    check([randn(3 * 1001, 3) for _ in range(2)], 3, "m=2 n=3 [3003,3]")
     # a table that starts 4 bytes past a 16-byte boundary
-    base = torch.randn(2, 4 * 64 * 4 + 1, generator=gen, device="cuda")
+    base = randn(2, 4 * 64 * 4 + 1)
     check([b[1:].view(4 * 64, 4) for b in base], 4, "m=2 n=4, misaligned")
-    # the hash table: one replica as the SDS and train steps give it, and two
-    for m in (1, 2):
-        check([torch.randn(HASH_ROWS, HASH_COLS, generator=gen, device="cuda") for _ in range(m)], 1,
+    # the hash table: one replica as the SDS and train steps give it, and more
+    for m in (1, 2, 3, 8):
+        check([randn(HASH_ROWS, HASH_COLS) for _ in range(m)], 1,
               f"m={m} n=1 [{HASH_ROWS},{HASH_COLS}], the hash table")
+    # shards of 1, 2 and 3 floats mod 4: shard boundaries inside 16-byte words
+    for n, rows, cols in ((2, 100_003, 1), (3, 100_003, 2), (5, 100_001, 3)):
+        for m in (1, 2):
+            check([randn(n * rows, cols) for _ in range(m)], n, f"m={m} n={n} [{n * rows},{cols}]")
+    # cotangents 4, 8 and 12 bytes past a 16-byte boundary, alone, and three
+    # replicas each at another offset
+    for floats in (1, 2, 3):
+        ct = _misaligned(gen, GRID_ROWS // 8, GRID_COLS, floats)
+        for n in (1, 4):
+            check([ct], n, f"m=1 n={n}, {4 * floats} bytes past a boundary")
+        cts = [_misaligned(gen, GRID_ROWS // 8, GRID_COLS, (floats + r) % 4) for r in range(3)]
+        check(cts, 4, f"m=3 n=4, {4 * floats} bytes past a boundary and on")
+    # m + n at the 128-pointer cap, small shards
+    for m in (1, 64, 127):
+        n = ring.MAX_TABLES - m
+        check([randn(n * 37, 3) for _ in range(m)], n, f"m={m} n={n} [{n * 37},3], the cap")
+    # a captured launch replayed on inputs changed in place: the graph holds
+    # the pointers, and each replay reads what the inputs hold then
+    for m, n, rows, cols in ((1, 4, GRID_ROWS, GRID_COLS), (3, 1, HASH_ROWS, HASH_COLS)):
+        cts = [randn(rows, cols) for _ in range(m)]
+        ring.reduce_scatter_rows(cts, n)  # warm-up, outside the capture
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = ring.reduce_scatter_rows(cts, n)
+        for _ in range(2):
+            for c in cts:
+                c.copy_(randn(rows, cols))
+            graph.replay()
+            check(cts, n, f"m={m} n={n} [{rows},{cols}], a replayed graph", got=outs)
+        del graph
     print(f"reduce_scatter_rows bitwise equal to its plain version in {n_cases} cases", flush=True)
 
     timings = {}
-    for m, n, rows, cols in ((1, 1, GRID_ROWS, GRID_COLS), (1, 4, GRID_ROWS, GRID_COLS),
-                             (4, 1, GRID_ROWS, GRID_COLS), (1, 1, HASH_ROWS, HASH_COLS)):
-        cts = [torch.randn(rows, cols, generator=gen, device="cuda") for _ in range(m)]
+    # (m, n, table, floats the cotangent starts past a 16-byte boundary)
+    for m, n, rows, cols, floats in ((1, 1, GRID_ROWS, GRID_COLS, 0), (1, 4, GRID_ROWS, GRID_COLS, 0),
+                                     (4, 1, GRID_ROWS, GRID_COLS, 0), (1, 1, HASH_ROWS, HASH_COLS, 0),
+                                     (1, 1, GRID_ROWS, GRID_COLS, 1)):
+        cts = [_misaligned(gen, rows, cols, floats) if floats else randn(rows, cols) for _ in range(m)]
         outs = [torch.empty(rows // n, cols, device="cuda") for _ in range(n)]
         ptrs = ring.shard_pointers(cts + outs)
         nbytes = (m + 1) * rows * cols * 4  # read m tables, write one table's worth
         kernel = lambda: ring.launch_reduce_scatter(ptrs, outs[0].device, rows // n, cols, m, n)  # noqa: E731
         wrapper = lambda: ring.reduce_scatter_rows(cts, n)  # noqa: E731
-        library = lambda: [c.contiguous() for c in torch.stack(cts).sum(0).chunk(n)]  # noqa: E731
+        # m = 1: Tensor.clone, the one call that computes the function (the
+        # split is views); m > 1: the replicas stacked and summed
+        if m == 1:
+            yard, library = "library", lambda: cts[0].clone()  # noqa: E731
+        else:
+            yard = "stack_sum"
+            library = lambda: [c.contiguous() for c in torch.stack(cts).sum(0).chunk(n)]  # noqa: E731
         kernel_dev, _ = cold_device_ms(kernel)
         library_dev, _ = cold_device_ms(library)
         t = {
             "kernel_ms": cuda_ms(kernel),
             "wrapper_ms": cuda_ms(wrapper),
             "plain_ms": cuda_ms(lambda: ring.reduce_scatter_rows_plain(cts, n)),
-            "library_ms": cuda_ms(library),
+            f"{yard}_ms": cuda_ms(library),
             "kernel_cold_ms": cuda_ms_cold(kernel),
             "wrapper_cold_ms": cuda_ms_cold(wrapper),
-            "library_cold_ms": cuda_ms_cold(library),
+            f"{yard}_cold_ms": cuda_ms_cold(library),
             "kernel_cold_device_ms": kernel_dev,
-            "library_cold_device_ms": library_dev,
+            f"{yard}_cold_device_ms": library_dev,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
         }
-        what = " (the hash table)" if rows == HASH_ROWS else ""
+        t.update(_share_of_bound(t))
+        what = " (the hash table)" if rows == HASH_ROWS else f", {4 * floats} bytes past a boundary" if floats else ""
         print(f"reduce_scatter_rows m={m} n={n} [{rows},{cols}] f32{what}: " + json.dumps(t), flush=True)
-        timings[(m, n, rows)] = t
-    return {"max_abs_err": max_err, **timings[(1, 1, GRID_ROWS)]}
+        timings[(m, n, rows, floats)] = t
+    return {"max_abs_err": max_err, **timings[(1, 1, GRID_ROWS, 0)]}
 
 
 def _reset_launches() -> None:

@@ -131,6 +131,15 @@ def test_table_cap_is_checked_on_cpu_too():
         ring.reduce_scatter_rows(cts, ring.MAX_TABLES - 1)
 
 
+def test_every_reduce_scatter_kernel_is_named_for_the_profilers():
+    """profile_train.py and chip_smoke.py find the backward's device
+    kernels by the substring ``reduce_scatter_rows_kernel`` and the
+    gather's by ``gather_rows_kernel``: each kernel of the backward's
+    source carries the one and not the other."""
+    names = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)\(", _source(ring.RS_KERNEL))
+    assert names and all("reduce_scatter_rows_kernel" in n and "gather_rows_kernel" not in n for n in names)
+
+
 def _c_params(name: str) -> list[str]:
     """The parameter types of ``int name(...)`` in the kernel's source."""
     sig = re.search(rf"^int {name}\(([^)]*)\)", _source(name), re.M)
