@@ -20,8 +20,10 @@ false``.
 the device: on the card one step captured into a CUDA graph and replayed
 (``workloads.reconstruct.make_train_scan_fast``).
 
-``--resume_from`` takes a port train-state file or the JAX package's orbax
-train-state directory (read without orbax, ``utils/checkpoint.py``).
+``--resume_from`` takes an orbax train-state directory, as this CLI and the
+JAX package's write them (``<exp>/state_latest``, ``<exp>/state_final``;
+read and written without orbax, ``utils/checkpoint.py``), or a port
+``.pt`` train-state file.
 ``--implicit_model`` is parsed and not read, as in the JAX package (one
 line says so).
 
@@ -70,8 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--encoder", default=None, choices=["hashgrid", "tpu_pyramid"],
                         help="spatial encoder (default: hashgrid for parity, tpu_pyramid for fast)")
     parser.add_argument("--resume_from", default=None, type=str,
-                        help="train-state file (params + optimizer moments), or the JAX package's orbax "
-                             "train-state directory, to continue from")
+                        help="orbax train-state dir (params + optimizer moments), such as <exp>/state_latest "
+                             "of either package, or a port .pt train-state file, to continue from")
     parser.add_argument("--holdout_views", default="", type=str,
                         help="comma-separated view indices excluded from training (fast sampler)")
     parser.add_argument("--save_state_every", default=0, type=int,

@@ -19,8 +19,10 @@ draw itself, and the same leaves under ``params/<path>`` (the JAX tree's
 keys joined by "/", HWIO convolutions), which the tests hold bitwise
 against the orbax directory. Run ``python tests/test_torch_toy_guidance.py``
 to regenerate it (it needs the JAX package and orbax).
-``save_toy_guidance`` writes a directory without ``params/``: the npz
-alone, which ``load_toy_guidance`` then reads the leaves from.
+``save_toy_guidance`` writes the JAX package's directory (``params/``
+through ``utils/checkpoint.py::save_checkpoint``, and ``config.json``)
+and an npz of the style embeddings alone; ``load_toy_guidance`` reads the
+leaves from an npz only where ``params/`` is missing.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 
 from avatarcraft_tpu_torch.models.diffusion import DiffusionSchedule, GuidanceModules
 from avatarcraft_tpu_torch.models.sd import UNetConfig, full_f32, params_from_jax, unet_apply
-from avatarcraft_tpu_torch.utils.checkpoint import load_checkpoint
+from avatarcraft_tpu_torch.utils.checkpoint import load_checkpoint, map_leaves, save_checkpoint
 
 # luminance -> color control points (evenly spaced in [0, 1])
 STYLE_PALETTES: dict[str, tuple] = {
@@ -268,34 +270,19 @@ def make_toy_train_scan(cfg: ToyGuidanceConfig, embeddings: torch.Tensor, optimi
 # ---------------------------------------------------------------------------
 
 
-def _flatten(tree, prefix: str) -> dict:
-    """{"<prefix>/a/0/b": leaf}: the tree's leaves under its keys joined by
-    "/" (empty lists and None hold none)."""
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, list):
-        items = ((str(i), v) for i, v in enumerate(tree))
-    elif tree is None:
-        return {}
-    else:
-        return {prefix: tree}
-    out = {}
-    for k, v in items:
-        out.update(_flatten(v, f"{prefix}/{k}"))
-    return out
-
-
 def save_toy_guidance(path: str, params: dict, cfg: ToyGuidanceConfig, embeddings: torch.Tensor) -> None:
-    """config.json and params_torch.npz, as ``load_toy_guidance`` reads them:
-    the leaves in the JAX package's layout (HWIO convolutions) and the
-    style embeddings. (The JAX package's orbax checkpoint is not written.)"""
+    """The JAX package's toy-guidance directory (models/toy_guidance.py:
+    256-267): the orbax checkpoint ``params/`` of {"params": tree} in its
+    layout (HWIO convolutions; a block's empty ``attns`` and None conv
+    kept) and config.json; beside them params_torch.npz of the style
+    embeddings, which the JAX package draws and the port reads back."""
     os.makedirs(path, exist_ok=True)
 
     def jax_layout(t):
         a = t.detach().cpu().numpy()
         return a.transpose(2, 3, 1, 0) if a.ndim == 4 else a
 
-    flat = {k: jax_layout(v) for k, v in _flatten(params, "params").items()}
-    np.savez(os.path.join(path, WEIGHTS_FILE), style_embeddings=embeddings.detach().cpu().numpy(), **flat)
+    save_checkpoint(os.path.join(path, "params"), {"params": map_leaves(params, jax_layout)})
+    np.savez(os.path.join(path, WEIGHTS_FILE), style_embeddings=embeddings.detach().cpu().numpy())
     with open(os.path.join(path, "config.json"), "w") as fp:
         json.dump({k: getattr(cfg, k) for k in CONFIG_KEYS}, fp, indent=1)

@@ -2,9 +2,9 @@
 render CLIs read: port of the JAX package's tools/bake_artifact.py, with
 its flags, defaults, files and JSON line.
 
-The state is the fast trainer's (``--save_state_every N``): the port's
-``state_*.pt`` file or the JAX package's orbax directory, read through
-``utils/checkpoint.py::load_train_state``. The tool writes
+The state is the fast trainer's (``--save_state_every N``): an orbax
+directory of either package (``state_latest``) or a port ``.pt`` file,
+read through ``utils/checkpoint.py::load_train_state``. The tool writes
 
     <out>/bare_smpl_tpu.pth.tar              (fp16 encoder tables)
     <out>/bare_smpl_tpu.pth.tar.fieldcfg.json
@@ -16,7 +16,7 @@ also a canonical-avatar checkpoint for stylize and render_warp. The state
 is read onto the CUDA card unless ``--platform cpu`` (the JAX tool has no
 such flag and reads on the CPU).
 
-    python -m avatarcraft_tpu_torch.tools.bake_artifact --state recon/state_latest.pt \\
+    python -m avatarcraft_tpu_torch.tools.bake_artifact --state recon/state_latest \\
         [--out artifacts/canonical] [--psnr_json eval.json] [--platform cpu]
 """
 
@@ -37,7 +37,7 @@ from avatarcraft_tpu_torch.utils.device import tool_device
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--state", required=True, help="train state: a state_*.pt file or an orbax directory")
+    ap.add_argument("--state", required=True, help="train state: an orbax directory or a port .pt file")
     ap.add_argument("--out", default="artifacts/canonical")
     ap.add_argument("--encoder", default="tpu_pyramid")
     ap.add_argument("--fp16_tables", default=True, type=lambda s: s.strip().lower() not in ("false", "0", "no"))

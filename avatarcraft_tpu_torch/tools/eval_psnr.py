@@ -3,8 +3,8 @@ tools/eval_psnr.py, with its flags, defaults and JSON line.
 
 The field is a baked artifact (``--ckpt`` with ``--grid_path``: exactly
 what bench.py and the render CLIs load, fp16 tables) or a train state
-(``--state``: the port's ``state_*.pt`` or the JAX package's orbax
-directory, through ``utils/checkpoint.py::load_train_state``). Each of
+(``--state``: an orbax directory, either package's, or a port ``.pt``
+train-state file, through ``utils/checkpoint.py::load_train_state``). Each of
 ``--views`` renders at ``H // --level`` through the canonical fast frame
 renderer (``workloads/canonical_render.py::make_fast_frame_renderer``: the
 table gathered by the all_gather_rows kernel once a view), optionally
@@ -18,7 +18,7 @@ has no type, so ``--white_bkg false`` is a non-empty string and renders on
 white); ``--data_path`` defaults to reconstruct_cli's ``data/smpl_da_512``
 (the JAX tool's to an absolute path of the machine it was written on).
 
-    python -m avatarcraft_tpu_torch.tools.eval_psnr --state recon/state_latest.pt \\
+    python -m avatarcraft_tpu_torch.tools.eval_psnr --state recon/state_latest \\
         --data_path <smpl_da_512> --views 13,62,95 --level 4 [--platform cpu]
 """
 
@@ -44,7 +44,7 @@ from avatarcraft_tpu_torch.workloads.canonical_render import make_fast_frame_ren
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--state", default=None, help="train state: a state_*.pt file or an orbax directory")
+    ap.add_argument("--state", default=None, help="train state: an orbax directory or a port .pt file")
     ap.add_argument("--ckpt", default=None,
                     help="baked .pth.tar artifact (e.g. artifacts/canonical/bare_smpl_tpu.pth.tar): evaluates "
                          "exactly what bench.py and the render CLIs load (fp16 tables); requires --grid_path")

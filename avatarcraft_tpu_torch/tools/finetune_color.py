@@ -18,17 +18,19 @@ all_gather_rows``) once and its reduce-scatter never. The step is
 probes and K = 32; the batches come from ``np.random.default_rng(0)``
 draw for draw as the JAX tool's, over the views minus ``--holdout_views``.
 
-The field is a train state (``--state``: the port's ``state_*.pt`` or the
-JAX package's orbax directory) or a baked artifact (``--ckpt`` with
-``--grid_path``, starting from a fresh Adam state). ``--out`` is a port
-train-state file (``utils/checkpoint.py::save_train_state``; the port
-writes no orbax) holding the trained parameters, the input state's Adam
-moments and count (the JAX tool keeps the "original moments"), the grid
-and ``step + --steps``; ``bake_artifact`` and ``eval_psnr`` read it. Runs
-on the CUDA card unless ``--platform cpu``.
+The field is a train state (``--state``: an orbax directory such as
+either package's ``state_final``, or a port ``.pt`` file) or a baked
+artifact (``--ckpt`` with ``--grid_path``, starting from a fresh Adam
+state). ``--out`` is the JAX tool's orbax train-state directory, or a port
+train-state file where it ends in ``.pt`` (``utils/checkpoint.py::
+save_train_state``), holding the trained parameters, the input state's
+Adam moments and count (the JAX tool keeps the "original moments"), the
+grid and ``step + --steps``; ``bake_artifact`` and ``eval_psnr`` of
+either package read the directory. Runs on the CUDA card unless
+``--platform cpu``.
 
-    python -m avatarcraft_tpu_torch.tools.finetune_color --state recon/state_final.pt \\
-        --out recon/state_color_ana.pt [--normal_mode analytic] [--steps 800] [--platform cpu]
+    python -m avatarcraft_tpu_torch.tools.finetune_color --state recon/state_final \\
+        --out recon/state_color_ana [--normal_mode analytic] [--steps 800] [--platform cpu]
 """
 
 from __future__ import annotations
@@ -58,12 +60,12 @@ from avatarcraft_tpu_torch.workloads.reconstruct import make_batch_ray_fn, make_
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--state", default=None, help="train state: a state_*.pt file or an orbax directory")
+    ap.add_argument("--state", default=None, help="train state: an orbax directory or a port .pt file")
     ap.add_argument("--ckpt", default=None,
                     help="alternative source: a baked reference-format .pth.tar (e.g. the committed artifact) + "
                          "--grid_path")
     ap.add_argument("--grid_path", default="artifacts/canonical/grid.npy")
-    ap.add_argument("--out", required=True, help="output train-state file")
+    ap.add_argument("--out", required=True, help="output orbax state dir (a path ending in .pt: a port file)")
     ap.add_argument("--data_path", default="data/smpl_da_512", help="a Blender-format set (reconstruct_cli's default)")
     ap.add_argument("--holdout_views", default="13,62,95")
     ap.add_argument("--normal_mode", default="analytic")

@@ -24,12 +24,14 @@ of each batch comes from the silhouette band (``silhouette_band``, numpy,
 the JAX tool's pixel lists and draws bit for bit); the rest and the views
 are uniform draws of ``np.random.default_rng(0)`` in the JAX tool's order.
 
-``--out`` (and ``<out>_latest`` every ``--save_every`` steps) is a port
-train-state file (``utils/checkpoint.py::save_train_state``; the port
-writes no orbax) with the trainer's Adam state. Runs on the CUDA card
-unless ``--platform cpu``.
+``--out`` (and ``<out>_latest`` every ``--save_every`` steps) is the JAX
+tool's orbax train-state directory with the trainer's Adam state
+(``utils/checkpoint.py::save_train_state``); a path ending in ``.pt`` is a
+port train-state file instead (so ``--out x.pt`` gives the file ``x.pt``
+and the directory ``x.pt_latest``). Runs on the CUDA card unless
+``--platform cpu``.
 
-    python -m avatarcraft_tpu_torch.tools.finetune_ss --state recon/state_final.pt --out recon/state_ss.pt \\
+    python -m avatarcraft_tpu_torch.tools.finetune_ss --state recon/state_final --out recon/state_ss \\
         [--ss 2] [--steps 3000] [--platform cpu]
 """
 
@@ -62,13 +64,13 @@ from avatarcraft_tpu_torch.workloads.reconstruct import (
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--state", default=None, help="train state to start from: a state_*.pt file or an orbax directory")
+    ap.add_argument("--state", default=None, help="train state to start from: an orbax directory or a port .pt file")
     ap.add_argument("--ckpt", default=None,
                     help="alternative start: baked .pth.tar artifact (params via the fieldcfg sidecar; fresh opt "
                          "state)")
     ap.add_argument("--grid_path", default=None,
                     help="density grid .npy for --ckpt (e.g. artifacts/canonical/grid.npy)")
-    ap.add_argument("--out", required=True, help="output train-state file")
+    ap.add_argument("--out", required=True, help="output orbax state dir (a path ending in .pt: a port file)")
     ap.add_argument("--data_path", default="data/smpl_da_512", help="a Blender-format set (reconstruct_cli's default)")
     ap.add_argument("--holdout_views", default="13,62,95")
     ap.add_argument("--normal_mode", default="fd4")

@@ -7,7 +7,9 @@
 # same arguments, variables and output paths, relative to the repository
 # root, through the port's CLI and tools.
 # Usage: bash avatarcraft_tpu_torch/tools/postprocess_multi.sh [tag] [prompts...]
-#   tag: checkpoint tag, a step number (zero-padded to 4) or "final"
+#   tag: checkpoint tag, a step number (zero-padded to 4, read as decimal:
+#   the root script's printf reads 0600 as octal 0384 and stops at 0800)
+#   or "final"
 # Env overrides: RUN_DIR (style/toy/multi), RES (256), TRAJ (30),
 #   SUFFIX ("": appended to gif/eval/delta names, e.g. "_r5"),
 #   PLATFORM (default = the CUDA card; cpu = the CPU), passed on as the
@@ -18,7 +20,7 @@ cd "$(dirname "$0")/../.."
 TAG=${1:-final}
 case "$TAG" in
   ''|*[!0-9]*) ;;  # a non-numeric tag (e.g. final) is used as it is
-  *) TAG=$(printf "%04d" "$TAG");;
+  *) TAG=$(printf "%04d" "$((10#$TAG))");;
 esac
 shift || true
 PROMPTS=("${@:-lava emerald porcelain}")

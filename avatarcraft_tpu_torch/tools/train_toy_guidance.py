@@ -28,10 +28,11 @@ they come from the committed ``artifacts/toy_guidance/params_torch.npz``,
 which holds them for seed 1234 and the styles lava, emerald and porcelain,
 and any other seed or style list is refused.
 
-``--out`` gets ``config.json`` and ``params_torch.npz``
-(``save_toy_guidance``; no orbax ``params/``), which ``load_toy_guidance``
-and ``stylize_cli --toy_weights`` read, and ``TRAIN_META.json`` with the
-JAX tool's keys. Runs on the CUDA card unless ``--platform cpu``.
+``--out`` gets the JAX tool's orbax ``params/`` and ``config.json`` and
+the port's ``params_torch.npz`` of the style embeddings
+(``save_toy_guidance``), which either package's ``load_toy_guidance`` and
+``stylize_cli --toy_weights`` read, and ``TRAIN_META.json`` with the JAX
+tool's keys. Runs on the CUDA card unless ``--platform cpu``.
 
     python -m avatarcraft_tpu_torch.tools.train_toy_guidance --steps 4000 --out toy_out [--platform cpu]
 """

@@ -1,9 +1,9 @@
 """Save and load ``.pth.tar`` checkpoints and their ``.fieldcfg.json``
-sidecars, and read the JAX package's orbax checkpoint directories
-(``load_checkpoint``, through ``utils/orbax.py``; port of the JAX
-package's utils/checkpoint.py), and the trainers' train state. Orbax
-checkpoints are read, not written: the port writes ``.pth.tar`` files and
-its own train-state files.
+sidecars, read and write the JAX package's orbax checkpoint directories
+(``load_checkpoint``, ``save_checkpoint``, through ``utils/orbax.py``;
+port of the JAX package's utils/checkpoint.py), and the trainers' train
+state: an orbax directory in the JAX package's layout, or the port's own
+``torch.save`` file where the path ends in ``.pt``.
 
 The parameter tree has the JAX package's layout, with float32 tensors for
 leaves:
@@ -181,6 +181,15 @@ def nerf_params_from_jax(tree, device="cuda") -> dict:
     return _legacy_from_jax(tree, device, "NeRF", {"trunk", "sigma", "rgb"}, {"feature", "view"})
 
 
+def save_checkpoint(path: str, state) -> dict:
+    """Save a tree (params / opt_state / step) as the JAX package's
+    ``save_checkpoint`` does (``StandardCheckpointer().save(path, state,
+    force=True)``), without orbax (``utils/orbax.py::save``): tensors on
+    any device, numpy arrays, Python scalars, None and empty containers.
+    Returns the bytes of the arrays and of the store written."""
+    return orbax.save(os.path.abspath(path), state)
+
+
 def load_checkpoint(path: str, like=None):
     """The tree of the JAX package's orbax checkpoint directory ``path``,
     as its ``load_checkpoint`` returns it (``StandardCheckpointer.restore``),
@@ -231,18 +240,39 @@ def adam_state_from_optax(optimizer: torch.optim.Optimizer, params, mu, nu, coun
         set_lr(optimizer, scheduler.lr_at(count))
 
 
-def save_train_state(path: str, params: dict, mu, nu, count: int, step: int, grid=None) -> None:
-    """A trainer's resumable state as one ``torch.save`` file: the parameter
-    tree, Adam's first and second moments (``mu``, ``nu``: trees of the
-    parameters' layout) and step count, the step, and the density grid of
-    the fast trainer (None for the 64+64 one). The reference saves the
-    parameters only (SURVEY.md section 5)."""
+def save_jax_train_state(path: str, params: dict, mu, nu, count: int, step: int, grid=None) -> dict:
+    """A trainer's state as the JAX package's orbax train state
+    (workloads/reconstruct.py:445-456, 586-596): {"params", "opt_state",
+    "grid", "step"}, the optimizer state as ``make_optimizer(...).init``
+    builds it (optax's ScaleByAdamState, then ScaleByScheduleState, each
+    ``count`` a 0-d int32: the one count the port keeps, as JAX's trainers
+    step both together), the grid left out where it is None (the 64+64
+    trainer's). ``load_jax_train_state`` reads it back."""
+    count = np.asarray(count, np.int32)
+    state = {"params": params, "opt_state": [{"count": count, "mu": mu, "nu": nu}, {"count": count}],
+             "step": int(step)}
+    if grid is not None:
+        state["grid"] = grid
+    return save_checkpoint(path, state)
+
+
+def save_train_state(path: str, params: dict, mu, nu, count: int, step: int, grid=None) -> dict | None:
+    """A trainer's resumable state: the parameter tree, Adam's first and
+    second moments (``mu``, ``nu``: trees of the parameters' layout) and
+    step count, the step, and the density grid of the fast trainer (None
+    for the 64+64 one). A ``path`` ending in ``.pt`` is one ``torch.save``
+    file of the port's; any other is the JAX package's orbax directory
+    (``save_jax_train_state``), which returns its byte counts. The
+    reference saves the parameters only (SURVEY.md section 5)."""
+    if not path.endswith(".pt"):
+        return save_jax_train_state(path, params, mu, nu, count, step, grid)
     cpu = lambda t: t.detach().to("cpu", torch.float32).clone()  # noqa: E731
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     torch.save({
         "params": map_leaves(params, cpu), "mu": map_leaves(mu, cpu), "nu": map_leaves(nu, cpu),
         "count": int(count), "step": int(step), "grid": None if grid is None else cpu(grid),
     }, path)
+    return None
 
 
 def _optax_adam(opt_state) -> dict:
@@ -271,8 +301,9 @@ def load_jax_train_state(path: str, device="cuda") -> dict:
 
 
 def load_train_state(path: str, device="cuda") -> dict:
-    """A ``save_train_state`` file, its tensors on ``device``; a directory
-    is the JAX package's orbax train state (``load_jax_train_state``)."""
+    """What ``save_train_state`` wrote, its tensors on ``device``: a file,
+    or a directory, the JAX package's orbax train state
+    (``load_jax_train_state``)."""
     if os.path.isdir(path):
         return load_jax_train_state(path, device)
     state = torch.load(path, map_location="cpu", weights_only=True)

@@ -18,9 +18,10 @@ The 64+64 trainer replicates nothing and gathers nothing: as in the JAX
 package, its step runs no table kernel.
 
 Both trainers take a dataset (``data.SMPLMultiviewDataset`` or an
-in-memory ``ImageSet``). Their train state (parameters, Adam's moments and
-step count, the fast trainer's grid, the step) is one ``torch.save`` file
-(``utils.checkpoint.save_train_state``). A resume follows the JAX package:
+in-memory ``ImageSet``). The fast trainer's train state (parameters, Adam's
+moments and step count, the grid, the step) is the JAX package's orbax
+directory (``utils.checkpoint.save_train_state``), which either package
+resumes from. A resume follows the JAX package:
 it restores that state and restarts the epoch loop and the numpy pixel
 order from the seed (reconstruct.py:423-443, 540-543), so a resumed run
 is not the uninterrupted run.
@@ -735,9 +736,11 @@ def train_fast(
     step and its refresh, with the live grid; ``params`` is a function that
     gathers the live parameter tree when called (one gather launch).
     ``view_ids``: the views to train on. ``state_dir``: where the train
-    state goes, as ``state_latest.pt`` every ``save_state_every`` steps and
-    ``state_final.pt`` at the end. ``resume_from``: a train-state file to
-    continue from (parameters, Adam's moments and count, grid, step); the
+    state goes, as the orbax directories ``state_latest`` every
+    ``save_state_every`` steps and ``state_final`` at the end, the JAX
+    package's names and layout. ``resume_from``: a train state to continue
+    from (such a directory, either package's, or a port ``.pt`` file:
+    parameters, Adam's moments and count, grid, step); the
     epoch loop and the pixel order restart from the seed, as in the JAX
     package.
 
@@ -803,7 +806,7 @@ def train_fast(
             params = gathered_params(rest, shards, splice)
         mu, nu, count = adam_moments(opt, rest, shards, splice)
         if mesh.rank == 0:
-            save_train_state(f"{state_dir}/{name}.pt", params, mu, nu, count, step, grid)
+            save_train_state(f"{state_dir}/{name}", params, mu, nu, count, step, grid)
 
     def maybe_refresh(prev_step: int) -> None:
         """The grid refreshed in place (a captured step reads it) when the

@@ -112,7 +112,7 @@ Phases, each printed with its start, end and wall seconds:
               final checkpoint loading as its field; the table kernels: P
               gathers and P reduce-scatters per step, plus one gather for
               the ground truth, P for the setup's grid refreshes and P for
-              the final save, counted exactly. Then 4 coarse and 2 fine
+              the final save, counted exactly. Then 4 coarse and 1 fine
               steps timed and one of each profiled on the tool's trainer:
               SDS steps/s (x P prompts), device ms per multi.* range, idle
               share, peak memory;
@@ -170,7 +170,12 @@ Phases, each printed with its start, end and wall seconds:
               with the grid warmup, refreshes and state saves every 20: one
               gather and one reduce-scatter per step, plus a gather per
               refresh, state save, parameter read of the CLI and the final
-              tree, counted exactly; a resume from its state for 4 more
+              tree, counted exactly; the state saved as the JAX trainer's
+              orbax directories (state_latest/, state_final/) from the
+              card, each save timed (seconds, GB written, compression
+              ratio, GB/s), state_final read back by the port's reader
+              and held bitwise against the tensors saved, its restore
+              onto the card timed; a resume from state_latest for 4 more
               steps; a hash-grid 64+64 step card against CPU on 32x32 rays
               (the loss 1e-4 relative, every gradient leaf, the table's
               included, 1e-2 x its max|g|); the parity step's device ms per
@@ -345,9 +350,12 @@ Phases, each printed with its start, end and wall seconds:
               NeRF background, and HYBRID_POSES as two avatars, at
               HYBRID_RES^2 from the warp bench's camera: finite, the avatar
               on part of the frame, ms per frame; a HYBRID_CPU_RES^2 crop
-              card vs CPU at parity_warp's bounds. The orbax reader on this
-              machine (no orbax): the toy guidance's params/ every leaf
-              bitwise params_torch.npz, its seconds and the zstd route;
+              card vs CPU at parity_warp's bounds. The orbax reader and
+              writer on this machine (no orbax): the toy guidance's params/
+              every leaf bitwise params_torch.npz, the crc32c of every
+              manifest and node checked, its seconds and the zstd route;
+              the tree written back by save_checkpoint into a temporary
+              directory and read again bitwise;
               no kernel of the port launched (the avatar's parameters are
               taken whole).
 
@@ -414,6 +422,7 @@ from avatarcraft_tpu_torch.utils.checkpoint import (
     load_params_with_config,
     load_train_state,
     map_leaves,
+    save_checkpoint,
     sorted_leaf_paths,
     sorted_leaves,
 )
@@ -498,7 +507,7 @@ SDS_T = 500  # the injected timestep of the card-vs-CPU SDS step
 # epoch cut at 2), then steps timed on its trainer (coarse, fine)
 MULTI_COARSE_STEPS, MULTI_FINE_STEPS = 4, 2
 MULTI_ARGV = ["--n_cap", "4", "--steps", str(MULTI_COARSE_STEPS), "--fine_steps", str(MULTI_FINE_STEPS)]
-MULTI_TIMED = (4, 2)
+MULTI_TIMED = (4, 1)
 MULTI_T = [SDS_T, 233]  # the injected timesteps of the card-vs-CPU multi step
 # Stable Diffusion at full width: the trainer's coarse and fine steps, in
 # each stage a warm-up, timed ones and a profiled one
@@ -2070,6 +2079,78 @@ def time_mesh_export() -> None:
         raise AssertionError("marching cubes: the native extractor and the numpy version differ")
 
 
+@contextlib.contextmanager
+def _timed_state_saves():
+    """The trainers' state saves (``reconstruct.save_train_state``),
+    wrapped: each one timed from a synchronize (the gathered parameters
+    and Adam's moments are ready on the card) to the directory's rename,
+    which covers the copies to the host, zstd, the writes and their
+    fsync. Yields the list of {"path", "seconds", "array_bytes",
+    "store_bytes"}, the newest with "tensors", the tree it saved
+    (parameters, moments, count, step, grid): an earlier save's tensors
+    are let go when the next one comes, so that the phase's peak memory is
+    the trainer's."""
+    done = []
+    real = reconstruct.save_train_state
+
+    def timed(path, params, mu, nu, count, step, grid=None):
+        for earlier in done:
+            earlier.pop("tensors", None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = real(path, params, mu, nu, count, step, grid)
+        done.append({"path": path, "seconds": time.perf_counter() - t0, **stats,
+                     "tensors": {"params": params, "mu": mu, "nu": nu, "count": count, "step": step, "grid": grid}})
+
+    reconstruct.save_train_state = timed
+    try:
+        yield done
+    finally:
+        reconstruct.save_train_state = real
+
+
+def check_saved_state(saves: list) -> None:
+    """The fast run's orbax state saves from the card: seconds, GB written,
+    compression ratio and GB/s of each; state_final restored, read by the
+    port's reader (``load_checkpoint``, no orbax) and copied onto the card,
+    both timed, and every leaf held bitwise against the tensor saved, in
+    the JAX trainer's layout (optax's two int32 counts, the int step)."""
+    for save in saves:
+        gb = save["array_bytes"] / 1e9
+        print(f"reconstruct state save {os.path.basename(save['path'])}: {save['seconds']:.3f} s, {gb:.4f} GB of "
+              f"arrays, {save['store_bytes'] / 1e9:.4f} GB written (compression ratio "
+              f"{save['array_bytes'] / save['store_bytes']:.4f}), {gb / save['seconds']:.4f} GB/s of arrays "
+              f"({os.cpu_count()} host cores; {card_line()})", flush=True)
+    final = saves[-1]
+    if os.path.basename(final["path"]) != "state_final" or len(saves) != RECON_STEPS // RECON_FAST_REFRESH + 1:
+        raise AssertionError(f"reconstruct: saved {[s['path'] for s in saves]}")
+    t0 = time.perf_counter()
+    tree = load_checkpoint(final["path"])
+    read_s = time.perf_counter() - t0
+    want = final["tensors"]
+    adam, sched = tree["opt_state"]
+    pairs = [("grid", tree["grid"], want["grid"])]
+    for key, read in (("params", tree["params"]), ("mu", adam["mu"]), ("nu", adam["nu"])):
+        pairs += [(key + p, a, b) for p, a, b in
+                  zip(sorted_leaf_paths(want[key]), sorted_leaves(read), sorted_leaves(want[key]))]
+    t0 = time.perf_counter()
+    on_card = [torch.from_numpy(a).to("cuda") for _, a, _ in pairs]
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    bad = [name for (name, a, b), r in zip(pairs, on_card)
+           if not (a.dtype == np.float32 and r.shape == b.shape
+                   and torch.equal(r.view(torch.int32), b.contiguous().view(torch.int32)))]
+    n_want = 3 * len(sorted_leaves(want["params"])) + 1
+    scalars = (tree["step"], int(adam["count"]), int(sched["count"]), adam["count"].dtype, sched["count"].dtype)
+    if len(pairs) != n_want or bad or scalars != (want["step"], want["count"], want["count"], np.int32, np.int32):
+        raise AssertionError(f"reconstruct: state_final read back differs: {len(pairs)} of {n_want} leaves, "
+                             f"not bitwise {bad[:5]}, (step, counts, dtypes) {scalars}")
+    gb = final["array_bytes"] / 1e9
+    print(f"reconstruct state_final restored: {len(pairs)} leaves bitwise the tensors saved, step {tree['step']}, "
+          f"optax's counts {scalars[1]} and {scalars[2]} (int32); read {read_s:.3f} s ({gb / read_s:.4f} GB/s of "
+          f"arrays), copied onto the card {copy_s:.3f} s ({card_line()})", flush=True)
+
+
 def check_reconstruct(root: str) -> dict:
     """reconstruct_cli at its defaults on a dataset written from the
     artifact into ``root``: the parity sampler (the hash grid, 64+64, fd7,
@@ -2110,9 +2191,10 @@ def check_reconstruct(root: str) -> dict:
     # CLI's callbacks (validation render, save, mesh) and the final tree
     fast_argv = base + ["--sampler", "fast", "--grid_warmup_steps", str(RECON_FAST_REFRESH),
                         "--save_state_every", str(RECON_FAST_REFRESH)]
-    params, stats, record, launches, losses = _run_recon_cli(
-        fast_argv + ["--exp_name", "fast", "--max_steps", each, "--i_val", each, "--i_save", each, "--i_mesh", each],
-        {"grid_update_every": RECON_FAST_REFRESH}, "fast")
+    with _timed_state_saves() as saves_done:
+        params, stats, record, launches, losses = _run_recon_cli(
+            fast_argv + ["--exp_name", "fast", "--max_steps", each, "--i_val", each, "--i_save", each, "--i_mesh",
+                         each], {"grid_update_every": RECON_FAST_REFRESH}, "fast")
     refreshes = saves = RECON_STEPS // RECON_FAST_REFRESH
     _expect_launches("reconstruct fast", launches, {ring.KERNEL: RECON_STEPS + refreshes + saves + 3 + 1,
                                                     ring.RS_KERNEL: RECON_STEPS})
@@ -2122,18 +2204,21 @@ def check_reconstruct(root: str) -> dict:
                              f"max {grid_max}, finite {grid_finite}")
     exp = os.path.join(out, "fast")
     _expect_files(exp, [f"fast_{RECON_STEPS:04d}.png", f"fast_{RECON_STEPS:04d}.pth.tar", f"fast_{RECON_STEPS:04d}.ply",
-                        "fast_final.pth.tar", "fast_grid.npy", "state_latest.pt", "state_final.pt"])
+                        "fast_final.pth.tar", "fast_grid.npy"])
+    _expect_files(exp, ["state_latest/manifest.ocdbt", "state_final/manifest.ocdbt"])  # the JAX trainer's names
     _expect_checkpoint(os.path.join(exp, "fast_final.pth.tar"), params)
     print(f"reconstruct fast: grid after the refresh at step {RECON_FAST_REFRESH}: max {grid_max:.4g}; "
           f"mean loss of the first 5 steps {np.mean(losses[:5]):.6f}, steps 15-19 {np.mean(losses[15:20]):.6f}",
           flush=True)
     counts = dict(launches)
+    check_saved_state(saves_done)
+    del saves_done
 
     # a resume from the fast run's state at step RECON_STEPS
     end = str(RECON_STEPS + RECON_RESUME_STEPS)
     params, stats, _, launches, losses = _run_recon_cli(
         fast_argv + ["--exp_name", "fast_resume", "--max_steps", end, "--i_val", "100000", "--i_save", "100000",
-                     "--i_mesh", "100000", "--resume_from", os.path.join(exp, "state_latest.pt")],
+                     "--i_mesh", "100000", "--resume_from", os.path.join(exp, "state_latest")],
         {"grid_update_every": RECON_FAST_REFRESH}, "fast resumed")
     _expect_launches("reconstruct fast resumed", launches, {ring.KERNEL: RECON_RESUME_STEPS + 1,
                                                             ring.RS_KERNEL: RECON_RESUME_STEPS})
@@ -2152,7 +2237,7 @@ def check_reconstruct(root: str) -> dict:
     print(f"reconstruct: peak memory {peak / 2**30:.2f} GiB, {(peak - held) / 2**30:.2f} GiB above the "
           f"{held / 2**30:.2f} GiB held when the phase began", flush=True)
     time_mesh_export()
-    # the resume's train-state files (about 0.9 GB each); the fast run's stay for the tools phase
+    # the resume's train states (about 0.9 GB each); the fast run's stay for the tools phase
     shutil.rmtree(os.path.join(out, "fast_resume"), ignore_errors=True)
     return counts
 
@@ -2367,7 +2452,7 @@ def check_tools(root: str) -> dict:
     if not min(art["psnr"].values()) >= TOOLS_ARTIFACT_PSNR_FLOOR:
         raise AssertionError(f"tools: the artifact's PSNR on its own renders {art['psnr']} below "
                              f"{TOOLS_ARTIFACT_PSNR_FLOOR} dB")
-    state_path = os.path.join(fast, "state_latest.pt")
+    state_path = os.path.join(fast, "state_latest")
     state = _timed_tool(secs, "eval_psnr state", eval_psnr.main, ["--state", state_path] + psnr_argv)
     black = _black_psnr(SMPLMultiviewDataset(root), views, TOOLS_LEVEL)
     print(f"tools: PSNR of an all-black image {json.dumps(black)}", flush=True)
@@ -2528,7 +2613,7 @@ def check_finetune(root: str) -> dict:
         _expect_launches(f"finetune {what}", dict(ring.launches), want)
 
     # finetune_color: the artifact re-fitted under analytic normals
-    color_out = os.path.join(work, "color.pt")
+    color_out = os.path.join(work, "color")  # an orbax directory, as the JAX tool writes
     color = _timed_tool(secs, "finetune_color", finetune_color.main, [
         "--ckpt", bench.ARTIFACT_CKPT, "--grid_path", bench.ARTIFACT_GRID, "--out", color_out, "--data_path", root,
         "--normal_mode", "analytic", "--steps", str(FINETUNE_COLOR_STEPS)])
@@ -2558,12 +2643,12 @@ def check_finetune(root: str) -> dict:
               {k: {"mean": v["mean_psnr"], "normal_mode": v["normal_mode"]} for k, v in psnr.items()})
           + " (the artifact's under its own fd4: the tools phase)", flush=True)
     shutil.rmtree(baked, ignore_errors=True)
-    os.remove(color_out)
+    shutil.rmtree(color_out)
 
     # finetune_ss: two graphed calls of the supersampled step from the fast run's state
-    ss_out, steps = os.path.join(work, "ss.pt"), 2 * FINETUNE_SS_SCAN
+    ss_out, steps = os.path.join(work, "ss"), 2 * FINETUNE_SS_SCAN
     ss = _timed_tool(secs, "finetune_ss", finetune_ss.main, [
-        "--state", os.path.join(fast, "state_latest.pt"), "--out", ss_out, "--data_path", root, "--ss",
+        "--state", os.path.join(fast, "state_latest"), "--out", ss_out, "--data_path", root, "--ss",
         str(FINETUNE_SS), "--steps", str(steps), "--scan", str(FINETUNE_SS_SCAN), "--grid_refresh", str(steps),
         "--save_every", str(FINETUNE_SS_SCAN)])
     expect("finetune_ss", steps + 3, steps)
@@ -2577,7 +2662,7 @@ def check_finetune(root: str) -> dict:
     del latest, final
     shutil.rmtree(fast, ignore_errors=True)  # the fast run's train states (about 0.9 GB each)
     for p in (ss_out, ss_out + "_latest"):
-        os.remove(p)
+        shutil.rmtree(p)
 
     # train_toy_guidance: the dataset rendered from the artifact, a few DDPM steps
     toy_out = os.path.join(work, "toy")
@@ -3392,7 +3477,7 @@ def check_parity_card_vs_cpu(root: str) -> None:
 # the all-reduce's vector at each: the table's floats, the hash table's
 # unpadded (no n of 2 or 4 divides 12,239,714, so its blocks carry padding)
 MULTIRANK_SIZES = (2, 4)
-MULTIRANK_CALLS = 200  # back-to-back calls whose shards change every call
+MULTIRANK_CALLS = 100  # back-to-back calls whose shards change every call
 MULTIRANK_GRAPH_CALLS, MULTIRANK_REPLAYS = 3, 4  # calls of each kernel in one CUDA graph, its replays
 MULTIRANK_TRAIN_BATCH, MULTIRANK_TRAIN_STEPS = 1600, 3
 MULTIRANK_SCAN_STEPS, MULTIRANK_SCAN_TOTAL = 5, 10  # train_fast --scan_steps over 2 ranks: 2 calls
@@ -4035,12 +4120,36 @@ def _sync(device: str) -> None:
         torch.cuda.synchronize()
 
 
+def _checked_envelopes(path: str) -> tuple:
+    """(the tree of the orbax directory ``path`` read by the port, the
+    number of manifests and nodes whose crc32c the reader checked)."""
+    seen = []
+    real = orbax._envelope
+
+    def counted(raw, magic, what):
+        c = real(raw, magic, what)  # raises on a crc32c mismatch
+        seen.append(orbax.crc32c(raw[:-4]) == int.from_bytes(raw[-4:], "little"))
+        return c
+
+    orbax._envelope = counted
+    try:
+        tree = load_checkpoint(path)
+    finally:
+        orbax._envelope = real
+    if not (seen and all(seen)):
+        raise AssertionError(f"orbax reader: {path}: checksums {seen}")
+    return tree, len(seen)
+
+
 def check_orbax_reader() -> None:
     """The committed toy guidance's orbax directory read on this machine,
-    which has no orbax: every leaf bitwise params_torch.npz; then the toy
-    guidance through its loader."""
+    which has no orbax: every leaf bitwise params_torch.npz, the crc32c of
+    every manifest and node checked; the tree written back by
+    save_checkpoint into a temporary directory and read again bitwise; then
+    the toy guidance through its loader."""
     t0 = time.perf_counter()
-    tree = load_checkpoint(os.path.join(TOY_DIR, "params"))["params"]
+    whole, n_checked = _checked_envelopes(os.path.join(TOY_DIR, "params"))
+    tree = whole["params"]
     read_s = time.perf_counter() - t0
     flat = {}
 
@@ -4062,12 +4171,23 @@ def check_orbax_reader() -> None:
         for k in names:
             if flat[k].dtype != z[k].dtype or flat[k].shape != z[k].shape or flat[k].tobytes() != z[k].tobytes():
                 raise AssertionError(f"orbax reader: {k} differs from the npz")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_orbax_") as tmp:
+        t0 = time.perf_counter()
+        written = save_checkpoint(os.path.join(tmp, "params"), whole)
+        write_s = time.perf_counter() - t0
+        again, n_again = _checked_envelopes(os.path.join(tmp, "params"))
+    pairs = list(zip(sorted_leaves(again), sorted_leaves(whole)))
+    if len(pairs) != len(names) or not all(a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+                                           for a, b in pairs):
+        raise AssertionError("orbax writer: the toy tree written back does not read bitwise")
     t0 = time.perf_counter()
     toy, _, _ = load_toy_guidance(TOY_DIR, "cuda")
     load_s = time.perf_counter() - t0
     print(f"legacy: the toy guidance's orbax directory read in {read_s:.3f} s ({len(names)} leaves, bitwise "
-          f"params_torch.npz; zstd: {orbax.zstd_route()}); load_toy_guidance onto the card {load_s:.3f} s "
-          f"({len(leaves(toy))} tensors) ({card_line()})", flush=True)
+          f"params_torch.npz; crc32c of {n_checked} manifests and nodes checked; zstd: {orbax.zstd_route()}); "
+          f"written back by save_checkpoint in {write_s:.3f} s ({written['array_bytes']} bytes of arrays, "
+          f"{written['store_bytes']} written) and read again bitwise ({n_again} checked); load_toy_guidance onto "
+          f"the card {load_s:.3f} s ({len(leaves(toy))} tensors) ({card_line()})", flush=True)
 
 
 def check_legacy() -> dict:

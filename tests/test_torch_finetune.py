@@ -45,6 +45,7 @@ import pytest
 import torch
 
 from avatarcraft_tpu.models import instant_nsr as jnsr
+from avatarcraft_tpu.utils.checkpoint import load_checkpoint as jax_load_checkpoint
 from avatarcraft_tpu.utils.checkpoint import save_checkpoint as jax_save_checkpoint
 from avatarcraft_tpu.workloads import reconstruct as jrecon
 from avatarcraft_tpu_torch.cli import render_warp_cli
@@ -206,10 +207,13 @@ def test_finetune_color_matches_jax(inputs, jax_runs, source, monkeypatch, tmp_p
     """From the JAX orbax state and the port's state file of it: the frozen
     leaves, the grid and the input state's Adam moments bitwise the input's,
     the count and step (7 + 3) exact; the color leaves and the losses
-    against JAX's run of the same flags (read back from its orbax output)."""
+    against JAX's run of the same flags (read back from its orbax output).
+    The output is an orbax directory from the orbax state (JAX restores it
+    with its tool's target: the input's optax state bitwise, as its own
+    output holds it) and a port file from the port's."""
     f = inputs
     _small_field_config(monkeypatch, jax_side=False)
-    out = str(tmp_path / "color.pt")
+    out = str(tmp_path / ("color" if source == "orbax" else "color.pt"))
     got = finetune_color.main(["--state", f[source], "--out", out, "--data_path", f["data"], "--platform", "cpu"]
                               + COLOR_ARGV)
     assert _last_json(capsys.readouterr().out) == json.loads(json.dumps(got))
@@ -233,6 +237,22 @@ def test_finetune_color_matches_jax(inputs, jax_runs, source, monkeypatch, tmp_p
     for key in ("mu", "nu"):  # the original moments, as JAX keeps them
         for x, y in zip(sorted_leaves(mine[key]), sorted_leaves(start[key])):
             assert torch.equal(x, y)
+    assert os.path.isdir(out) == (source == "orbax")
+    if source == "orbax":
+        jfield = f["jfield"]
+        like = _np_tree({"params": jfield, "opt_state": jrecon.make_optimizer(jrecon.ReconstructConfig(), 1000)
+                         .init(jfield), "grid": np.zeros((129,) * 3, np.float32), "step": 0})
+        got_j, want_j = jax_load_checkpoint(out, like), jax_load_checkpoint(os.path.join(f["root"], "jax_color"), like)
+        assert jax.tree_util.tree_structure(got_j) == jax.tree_util.tree_structure(want_j)
+        assert got_j["step"] == want_j["step"] == STATE_STEP + COLOR_STEPS
+        for key in ("opt_state", "grid"):
+            for x, y in zip(jax.tree_util.tree_leaves(got_j[key][0] if key == "opt_state" else got_j[key]),
+                            jax.tree_util.tree_leaves(want_j[key][0] if key == "opt_state" else want_j[key])):
+                assert np.asarray(x).dtype == np.asarray(y).dtype and np.array_equal(x, y), key
+        # the port's train state keeps one count, Adam's, and writes it for the
+        # schedule's too (JAX's trainers step both together); this hand-made
+        # input state's schedule count is 0, which the JAX tool carries on
+        assert int(got_j["opt_state"][1].count) == 2 and int(want_j["opt_state"][1].count) == 0
 
 
 def test_finetune_color_from_a_baked_checkpoint_reaches_bake_and_eval(inputs, tmp_path, monkeypatch):
@@ -320,7 +340,7 @@ def test_finetune_ss_matches_jax(inputs, jax_runs, monkeypatch, tmp_path, capsys
         return lambda *args: calls.append(scan(*args)) or calls[-1]
 
     monkeypatch.setattr(finetune_ss, "make_train_scan_fast", recorded)
-    out = str(tmp_path / "ss.pt")
+    out = str(tmp_path / "ss")
     got = finetune_ss.main(["--ckpt", f["ckpt"], "--grid_path", f["grid17"], "--out", out, "--data_path", f["data"],
                             "--platform", "cpu"] + SS_ARGV)
     printed = capsys.readouterr()
@@ -331,7 +351,7 @@ def test_finetune_ss_matches_jax(inputs, jax_runs, monkeypatch, tmp_path, capsys
     assert abs(got["final_loss"] - want["final_loss"]) <= LOSS_RTOL * abs(want["final_loss"])
     np.testing.assert_allclose(torch.cat(calls).numpy(), np.concatenate([c[2] for c in jax_runs["ss_calls"]]),
                                rtol=LOSS_RTOL)
-    assert sorted(os.listdir(tmp_path)) == ["ss.pt", "ss.pt_latest"]
+    assert sorted(os.listdir(tmp_path)) == ["ss", "ss_latest"]  # orbax directories, as the JAX tool writes
     final, latest = load_train_state(out, "cpu"), load_train_state(out + "_latest", "cpu")
     assert (final["step"], final["count"], latest["step"], latest["count"]) == (6, 6, 4, 4)
     jgrid = load_train_state(os.path.join(f["root"], "jax_ss"), "cpu")["grid"]
@@ -339,6 +359,13 @@ def test_finetune_ss_matches_jax(inputs, jax_runs, monkeypatch, tmp_path, capsys
     assert not np.array_equal(final["grid"].numpy(), np.load(f["grid17"]))  # refreshed
     np.testing.assert_allclose(final["grid"].numpy(), jgrid.numpy(), atol=GRID_ATOL, rtol=0)
     assert torch.equal(latest["grid"], final["grid"])  # saved after the refresh, as JAX's loop orders them
+    jfield = f["jfield"]
+    like = _np_tree({"params": jfield, "opt_state": jrecon.make_optimizer(jrecon.ReconstructConfig(), 6).init(jfield),
+                     "grid": np.zeros((17,) * 3, np.float32), "step": 0})
+    for path, step in ((out, 6), (out + "_latest", 4)):  # JAX restores both with its target
+        state = jax_load_checkpoint(path, like)
+        assert state["step"] == step and [int(s.count) for s in state["opt_state"]] == [step, step]
+        np.testing.assert_array_equal(state["grid"], final["grid"].numpy())
 
 
 # ---------------------------------------------------------------------------

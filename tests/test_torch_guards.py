@@ -1,6 +1,7 @@
 """Guards for what the card's machine needs of the PyTorch port: it imports
 without JAX, the JAX package, the repository's root tools/, imageio, cv2,
-PIL, regex, transformers, diffusers, orbax, tensorstore or zstandard (the
+PIL, regex, transformers, diffusers, orbax, tensorstore, zstandard or a
+crc32c package (the
 modules of every slice reached); entry points and the tools default to the
 card; a scan of
 train steps on the card never runs its steps eagerly; chip_smoke.py fails loudly
@@ -29,7 +30,7 @@ from avatarcraft_tpu_torch.utils.png import write_png
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(avatarcraft_tpu_torch.__file__))
 BLOCKED = ("jax", "jaxlib", "imageio", "cv2", "PIL", "avatarcraft_tpu", "regex", "transformers", "diffusers",
-           "orbax", "tensorstore", "zstandard", "safetensors", "tools")
+           "orbax", "tensorstore", "zstandard", "crc32c", "google_crc32c", "safetensors", "tools")
 KERNELS = (ring.KERNEL, ring.RS_KERNEL)
 # modules of the training slice, which the import guard must reach
 TRAIN_MODULES = (
@@ -205,7 +206,7 @@ def test_port_never_names_the_jax_package():
             text = fp.read()
         assert not re.search(r"avatarcraft_tpu(?!_torch)", text), path
         assert not re.search(r"^\s*(import|from)\s+(jax|imageio|cv2|regex|transformers|diffusers|orbax|tensorstore"
-                             r"|zstandard|safetensors|tools)\b", text, re.M), path
+                             r"|zstandard|crc32c|google_crc32c|safetensors|tools)\b", text, re.M), path
 
 
 def test_chip_smoke_without_card_fails():

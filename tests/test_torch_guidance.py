@@ -50,6 +50,7 @@ from avatarcraft_tpu.models import diffusion as jdiff
 from avatarcraft_tpu.models import sd as jsd
 from avatarcraft_tpu.models import toy_guidance as jtoy
 from avatarcraft_tpu.models.clip_tokenizer import make_toy_tokenizer as jax_toy_tokenizer
+from avatarcraft_tpu.utils.checkpoint import load_checkpoint as jax_load_checkpoint
 from avatarcraft_tpu_torch.models import diffusion, sd, toy_guidance
 from avatarcraft_tpu_torch.models.clip_tokenizer import make_toy_tokenizer
 from avatarcraft_tpu_torch.utils.checkpoint import leaves, map_leaves
@@ -383,8 +384,9 @@ def test_train_scan_is_the_steps_in_order(toy_case):
 def test_save_then_load_toy_guidance(tmp_path, toy_case):
     """save_toy_guidance writes what load_toy_guidance reads: the tree
     (empty attention lists and missing resampling convs included), the
-    config and the embeddings, bitwise; the npz holds the JAX package's
-    flat layout, and config.json its keys."""
+    config and the embeddings, bitwise; params/ holds the JAX package's
+    layout (its orbax restore, flattened, is the JAX tree's flat layout),
+    the npz the embeddings, and config.json the JAX keys."""
     jparams, embs, _, _ = toy_case
     params = sd.params_from_jax(_np_tree(jparams), "cpu")
     path = str(tmp_path / "toy")
@@ -394,10 +396,12 @@ def test_save_then_load_toy_guidance(tmp_path, toy_case):
     assert jax.tree_util.tree_structure(loaded) == jax.tree_util.tree_structure(params)
     assert all(torch.equal(a, b) for a, b in zip(jax.tree_util.tree_leaves(loaded), jax.tree_util.tree_leaves(params)))
     with np.load(os.path.join(path, toy_guidance.WEIGHTS_FILE)) as z:
-        want = flat_params(jparams)
-        assert sorted(z.files) == sorted(list(want) + ["style_embeddings"])
-        for k, w in want.items():
-            np.testing.assert_array_equal(z[k], w, err_msg=k)
+        assert z.files == ["style_embeddings"] and np.array_equal(z["style_embeddings"], embs)
+    want, got = flat_params(jparams), flat_params(jax_load_checkpoint(os.path.join(path, "params"))["params"])
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype, k
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
     with open(os.path.join(path, "config.json")) as fp:
         written = json.load(fp)
     assert written == json.loads(json.dumps({k: getattr(JAX_TINY, k) for k in toy_guidance.CONFIG_KEYS}))

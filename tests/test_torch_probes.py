@@ -38,7 +38,8 @@ Tolerances:
 * postprocess_multi.sh: run end to end on the CPU (PLATFORM=cpu) at RES 16,
   TRAJ 2 and one prompt in a temporary tree: every output file the JAX
   script writes is there, and the eval JSON's and the GIFs' contents
-  well-formed.
+  well-formed; its numeric tag read as decimal where the root script's
+  printf reads a zero-padded one as octal (both tag blocks run by bash).
 """
 
 import dataclasses
@@ -428,3 +429,30 @@ def test_postprocess_multi_runs_end_to_end(inputs, tmp_path):
         assert len(gif.gif_info(str(tree / rel))["delays"]) >= 1, rel
     with open(tree / "docs" / "eval" / "multi_lava.json") as fp:
         assert np.isfinite(json.load(fp)["mean_style_dist"])
+
+
+def _tag_as_the_script_reads_it(script: str, tag: str) -> subprocess.CompletedProcess:
+    """The script's own tag block (``case "$TAG" in ... esac``) run by bash
+    under its ``set -euo pipefail`` on ``tag``; stdout the tag it uses."""
+    with open(script) as fp:
+        text = fp.read()
+    block = text[text.index('case "$TAG" in'):]
+    block = block[:block.index("esac") + len("esac")]
+    return subprocess.run(["bash", "-c", f'set -euo pipefail; TAG=$1; {block}; echo "$TAG"', "tag", tag],
+                          capture_output=True, text=True, timeout=30)
+
+
+@pytest.mark.parametrize("tag,root_reads,port_reads", [("600", "0600", "0600"), ("0600", "0384", "0600"),
+                                                       ("0800", None, "0800"), ("final", "final", "final")])
+def test_postprocess_multi_reads_a_numeric_tag_as_decimal(tag, root_reads, port_reads):
+    """The port's script pads a numeric tag read as decimal; the root
+    script's ``printf "%04d"`` reads a zero-padded tag as octal (0600 is
+    0384) and stops on 0800, an invalid octal number, under set -e."""
+    root = _tag_as_the_script_reads_it(os.path.join(REPO, "tools", "postprocess_multi.sh"), tag)
+    port = _tag_as_the_script_reads_it(os.path.join(REPO, "avatarcraft_tpu_torch", "tools", "postprocess_multi.sh"),
+                                       tag)
+    assert port.returncode == 0 and port.stdout.strip() == port_reads, port.stderr
+    if root_reads is None:
+        assert root.returncode != 0 and "octal" in root.stderr
+    else:
+        assert root.returncode == 0 and root.stdout.strip() == root_reads

@@ -268,14 +268,24 @@ def test_train_fast_view_ids_callbacks_and_resume_match_jax(disc_set, tmp_path, 
                                 save_state_every=2, callbacks={"on_step": on_step}, device="cpu", **_fast_kw())
     np.testing.assert_allclose([l for _, l in pa["losses"]], [l for _, l in ja["losses"]], rtol=1e-4)
     assert [s for s, _, _ in seen] == [0, 1, 2, 3] and seen[0][2] == 100.0 and seen[1][2] < 100.0
-    assert sorted(os.listdir(pdir)) == ["state_final.pt", "state_latest.pt"]
-    mine = load_train_state(f"{pdir}/state_latest.pt", "cpu")
+    # the JAX trainer's names, as orbax directories (they were state_*.pt files)
+    assert sorted(os.listdir(pdir)) == ["state_final", "state_latest"]
+    assert all(os.path.isfile(os.path.join(pdir, d, "manifest.ocdbt")) for d in os.listdir(pdir))
+    mine = load_train_state(f"{pdir}/state_latest", "cpu")
     assert mine["step"] == 4 and mine["count"] == 4 and mine["grid"].shape == (17, 17, 17)
 
     # JAX's step-4 state, read back and carried across
     tx = jrecon.make_optimizer(jcfg, ds_j.n_images * 256 // 64)
     like = {"params": init, "opt_state": tx.init(init), "grid": np.zeros((17,) * 3, np.float32), "step": 0}
     state = jax_load_checkpoint(f"{jdir}/state_latest", like)
+    # the port's step-4 state restores in JAX as JAX's own: the same tree,
+    # dtypes and shapes, the step and optax's counts
+    port_state = jax_load_checkpoint(f"{pdir}/state_latest", like)
+    assert jax.tree_util.tree_structure(port_state) == jax.tree_util.tree_structure(state)
+    for a, b in zip(jax.tree_util.tree_leaves(port_state), jax.tree_util.tree_leaves(state)):
+        assert np.asarray(a).dtype == np.asarray(b).dtype and np.shape(a) == np.shape(b)
+    assert port_state["step"] == state["step"] == 4
+    assert [int(s.count) for s in port_state["opt_state"]] == [int(s.count) for s in state["opt_state"]] == [4, 4]
     adam = state["opt_state"][0]
     carried = str(tmp_path / "carried.pt")
     train_state_from_optax(carried, jax.tree_util.tree_map(np.asarray, state["params"]),
@@ -286,10 +296,14 @@ def test_train_fast_view_ids_callbacks_and_resume_match_jax(disc_set, tmp_path, 
     assert [s for s, _ in pb["losses"]] == [s for s, _ in jb["losses"]] == [4, 5]
     np.testing.assert_allclose([l for _, l in pb["losses"]], [l for _, l in jb["losses"]], rtol=1e-4)
     np.testing.assert_allclose(grid.numpy(), np.asarray(jgrid), atol=GRID_ATOL, rtol=0)
-    # the port's own state resumes the same way
+    # the port's own state resumes the same way, in the port and in JAX
     _, _, pc = recon.train_fast(ds, TINY_PYR, fast, cfg, max_steps=6, view_ids=view_ids,
-                                resume_from=f"{pdir}/state_latest.pt", device="cpu", **_fast_kw())
+                                resume_from=f"{pdir}/state_latest", device="cpu", **_fast_kw())
     np.testing.assert_allclose([l for _, l in pc["losses"]], [l for _, l in jb["losses"]], rtol=1e-4)
+    _, _, jc = jrecon.train_fast(ds_j, TINY_PYR_JAX, fast_j, jcfg, max_steps=6, view_ids=view_ids,
+                                 resume_from=f"{pdir}/state_latest", **_fast_kw())
+    assert [s for s, _ in jc["losses"]] == [4, 5]
+    np.testing.assert_allclose([l for _, l in jc["losses"]], [l for _, l in jb["losses"]], rtol=1e-4)
     _, _, full = recon.train_fast(ds, TINY_PYR, fast, cfg, max_steps=6, view_ids=view_ids, device="cpu", **_fast_kw())
     assert [l for s, l in full["losses"] if s >= 4] != [l for _, l in pb["losses"]]
 
@@ -343,7 +357,7 @@ def test_cli_end_to_end(disc_set, tmp_path, monkeypatch, capsys, sampler):
     want = {"r_args.txt", "r_0002.png", "r_0004.png", "r_0004.pth.tar", "r_0004.pth.tar.fieldcfg.json",
             "r_0004.ply", "r_final.pth.tar", "r_final.pth.tar.fieldcfg.json"}
     if sampler == "fast":
-        want |= {"r_grid.npy", "state_latest.pt", "state_final.pt"}
+        want |= {"r_grid.npy", "state_latest", "state_final"}  # orbax directories, the JAX CLI's names
     assert files == want
     loaded, fcfg = load_params_with_config(str(out / "r" / "r_final.pth.tar"), device="cpu")
     assert fcfg.encoder == ("hashgrid" if sampler == "parity" else "tpu_pyramid")
@@ -356,7 +370,7 @@ def test_cli_end_to_end(disc_set, tmp_path, monkeypatch, capsys, sampler):
         assert grid.shape == (129, 129, 129) and np.isfinite(grid).all()
         # a resume from the final state (step 4) to step 6
         _, resumed = reconstruct_cli.main(argv[:-8] + ["--max_steps", "6", "--i_mesh", "100", "--resume_from",
-                                                       str(out / "r" / "state_final.pt")])
+                                                       str(out / "r" / "state_final")])
         assert resumed["steps"] == 6
 
 

@@ -120,12 +120,13 @@ def test_scan_matches_jax(disc_set, jax_scan_runs, port_init, tmp_path, jax_init
     assert [m < 100.0 for _, _, m in seen] == [m < 100.0 for _, _, m in jseen] == [True, True, True]
     np.testing.assert_allclose([m for _, _, m in seen], [m for _, _, m in jseen], atol=GRID_ATOL, rtol=0)
     # the state saved at step 8 by both
-    mine = load_train_state(str(tmp_path / "state_latest.pt"), "cpu")
+    mine = load_train_state(str(tmp_path / "state_latest"), "cpu")
     assert mine["step"] == 8 and mine["count"] == 8
-    assert sorted(os.listdir(tmp_path)) == ["state_final.pt", "state_latest.pt"]
+    assert sorted(os.listdir(tmp_path)) == ["state_final", "state_latest"]  # orbax directories
     like = {"params": jax_init, "opt_state": jrecon.make_optimizer(jrecon.ReconstructConfig(**CFG_KW), 16).init(jax_init),
             "grid": np.zeros((17,) * 3, np.float32), "step": 0}
     assert int(jax_load_checkpoint(f"{jax_scan_runs['root']}/state_latest", like)["step"]) == 8
+    assert int(jax_load_checkpoint(str(tmp_path / "state_latest"), like)["step"]) == 8
     # the parameters
     got = [t.numpy() for t in leaves(params)]
     ref = [np.asarray(a) for a in jax.tree_util.tree_leaves(jax_scan_runs["params"])]
@@ -271,8 +272,8 @@ def test_cli_scan_steps(disc_set, tmp_path, monkeypatch):  # noqa: F811
         "--grid_warmup_steps", "2", "--mesh_resolution", "16"])
     assert stats["steps"] == 5 and [s for s, _ in stats["losses"]] == [2, 4, 5]
     assert all(np.isfinite(l) for _, l in stats["losses"])
-    assert load_train_state(str(out / "s" / "state_latest.pt"), "cpu")["step"] == 4
-    assert {"s_final.pth.tar", "s_grid.npy", "state_final.pt"} <= set(os.listdir(out / "s"))
+    assert load_train_state(str(out / "s" / "state_latest"), "cpu")["step"] == 4
+    assert {"s_final.pth.tar", "s_grid.npy", "state_final"} <= set(os.listdir(out / "s"))
 
     def scan_flag(parser):
         return next((a.default, a.help) for a in parser._actions if a.dest == "scan_steps")

@@ -245,7 +245,10 @@ def test_train_steps_with_jax_draws_match_jax(artifact, jax_run, monkeypatch, tm
     assert abs(got["final_loss"] - want["final_loss"]) <= LOSS_RTOL * abs(want["final_loss"])
     with open(os.path.join(out, "TRAIN_META.json")) as fp:
         assert json.load(fp) == got
-    assert sorted(os.listdir(out)) == ["TRAIN_META.json", "config.json", toy_guidance.WEIGHTS_FILE]
+    # the JAX tool's orbax params/ and config.json, and the port's npz of the style embeddings
+    assert sorted(os.listdir(out)) == ["TRAIN_META.json", "config.json", "params", toy_guidance.WEIGHTS_FILE]
+    with np.load(os.path.join(out, toy_guidance.WEIGHTS_FILE)) as z:
+        assert z.files == ["style_embeddings"]
 
     params, cfg, embs = toy_guidance.load_toy_guidance(out, "cpu")
     assert cfg == _port_cfg(RES)
